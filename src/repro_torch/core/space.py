@@ -1,0 +1,311 @@
+"""Search spaces for kernel performance parameters (paper Table I).
+
+The PyTorch port's own copy of ``repro.core.space``, trimmed to the scan
+op: the numpy code that decides a space is the JAX package's, verbatim,
+so both packages enumerate identical spaces for the same workload and
+profile.  Every other op raises until its slice of the port lands.
+
+A space is declared per (operation, input-parameters) pair:
+  - Input Parameters (paper: `A`): problem size N, batch G, dtype — they
+    characterize the workload and are NOT searched.
+  - Performance Parameters (paper: `B`): the tunable knobs with power-of-two
+    domains and validity constraints.
+
+`Config` is an immutable mapping knob-name -> value. Spaces are small and
+enumerable (as in the paper), so `enumerate_valid()` is exact and the
+exhaustive search is feasible — that property is what makes the Phi metric
+computable.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import math
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+
+from repro_torch.hw.profiles import HardwareProfile, active_profile, dtype_bytes
+
+Config = Dict[str, int]
+
+
+def pow2_range(lo: int, hi: int) -> Tuple[int, ...]:
+    """Inclusive powers of two from lo to hi."""
+    assert lo > 0 and hi >= lo and lo & (lo - 1) == 0 and hi & (hi - 1) == 0
+    out = []
+    v = lo
+    while v <= hi:
+        out.append(v)
+        v *= 2
+    return tuple(out)
+
+
+def floor_pow2(v: int) -> int:
+    """Largest power of two <= v (v >= 1).
+
+    Space builders bound their rows/tile domains with this so odd batch
+    sizes (3 active serving slots, a ragged last shard) build a valid
+    space instead of tripping ``pow2_range``'s power-of-two precondition.
+    """
+    v = int(v)
+    assert v >= 1, v
+    return 1 << (v.bit_length() - 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    """One Performance Parameter: a named discrete domain."""
+
+    name: str
+    domain: Tuple[int, ...]
+
+    def index_of(self, value: int) -> int:
+        return self.domain.index(value)
+
+
+@dataclasses.dataclass(frozen=True)
+class Workload:
+    """Input Parameters `A`: what problem are we tuning for."""
+
+    op: str                 # "scan" | "tridiag" | "fft" | "ssd" | "attention" | ...
+    n: int                  # problem size (elements per problem / seq length)
+    batch: int = 1          # simultaneous problems (paper: G batches)
+    dtype: str = "float32"
+    variant: str = ""       # e.g. "lf" | "ks" | "wm" | "pcr" | "cr" | "stockham"
+
+    @property
+    def key(self) -> str:
+        return f"{self.op}:{self.variant or 'default'}:n{self.n}:b{self.batch}:{self.dtype}"
+
+    def canonical(self) -> "Workload":
+        """Canonical form: int dims, batch >= 1, dtype as a numpy name.
+
+        Every config-resolution entry point funnels through this so that
+        e.g. ``dtype=jnp.float32`` and ``dtype="float32"`` hit the same DB
+        and cache keys.
+        """
+        dtype = self.dtype if isinstance(self.dtype, str) \
+            else np.dtype(self.dtype).name
+        n, batch = int(self.n), max(int(self.batch), 1)
+        if dtype == self.dtype and n == self.n and batch == self.batch:
+            return self
+        return dataclasses.replace(self, n=n, batch=batch, dtype=dtype)
+
+
+@dataclasses.dataclass
+class SearchSpace:
+    """Performance Parameters `B` + constraints for one workload."""
+
+    workload: Workload
+    params: Sequence[ParamSpec]
+    constraints: Sequence[Callable[[Config, Workload], bool]] = ()
+    # the hardware profile whose limits bound this space (validity
+    # constraints capture it at build time; consumers read it for
+    # budgets/geometry). Defaults to the process-wide active profile.
+    spec: HardwareProfile = dataclasses.field(default_factory=active_profile)
+    # memoized enumerate_valid(): every consumer (sweep, analytical rank,
+    # strategies, featurizer) re-enumerates the same space; the constraint
+    # closures are the expensive part, not the product itself
+    _valid_cache: Optional[List[Config]] = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    def param(self, name: str) -> ParamSpec:
+        for p in self.params:
+            if p.name == name:
+                return p
+        raise KeyError(name)
+
+    def is_valid(self, cfg: Config) -> bool:
+        for p in self.params:
+            if cfg.get(p.name) not in p.domain:
+                return False
+        return all(c(cfg, self.workload) for c in self.constraints)
+
+    def enumerate_all(self) -> List[Config]:
+        names = [p.name for p in self.params]
+        out = []
+        for values in itertools.product(*[p.domain for p in self.params]):
+            out.append(dict(zip(names, values)))
+        return out
+
+    def enumerate_valid(self) -> List[Config]:
+        if self._valid_cache is None:
+            self._valid_cache = [c for c in self.enumerate_all()
+                                 if self.is_valid(c)]
+        # fresh list each call — callers sort/slice it (the config dicts
+        # themselves are treated read-only everywhere)
+        return list(self._valid_cache)
+
+    # --- encoding for the GP surrogate: log2-normalized coordinates ---
+    def encode(self, cfg: Config) -> List[float]:
+        coords = []
+        for p in self.params:
+            dom = p.domain
+            if len(dom) == 1:
+                coords.append(0.0)
+                continue
+            lo, hi = math.log2(dom[0] + 1), math.log2(dom[-1] + 1)
+            coords.append((math.log2(cfg[p.name] + 1) - lo) / (hi - lo))
+        return coords
+
+    def size(self) -> int:
+        return len(self.enumerate_valid())
+
+
+# ---------------------------------------------------------------------------
+# Constraint builders shared by the kernel spaces
+# ---------------------------------------------------------------------------
+
+def vmem_fits(bytes_per_elem: int, buffers: int = 2,
+              spec: Optional[HardwareProfile] = None):
+    """Double-buffered fast-memory footprint must fit the profile's budget.
+
+    footprint = rows_per_program * tile_n * bytes_per_elem * buffers
+    The analogue of the paper's 48KB shared-memory-per-block constraint
+    (which is literally what it becomes under the ``gpu_sm`` profile).
+    """
+    spec = spec if spec is not None else active_profile()
+
+    def check(cfg: Config, wl: Workload) -> bool:
+        tile_n = cfg.get("tile_n", wl.n)
+        rows = cfg.get("rows_per_program", 1)
+        return rows * tile_n * bytes_per_elem * buffers <= spec.vmem_budget
+
+    return check
+
+
+def tile_divides_n():
+    def check(cfg: Config, wl: Workload) -> bool:
+        tile_n = cfg.get("tile_n", wl.n)
+        return tile_n <= wl.n and wl.n % tile_n == 0
+
+    return check
+
+
+def rows_divide_batch():
+    def check(cfg: Config, wl: Workload) -> bool:
+        rows = cfg.get("rows_per_program", 1)
+        return rows <= max(wl.batch, 1) and max(wl.batch, 1) % rows == 0
+
+    return check
+
+
+def radix_compatible():
+    """radix^k must reach tile_n, and unroll must cover the radix fan-in."""
+
+    def check(cfg: Config, wl: Workload) -> bool:
+        r = cfg.get("radix", 2)
+        tile_n = cfg.get("tile_n", wl.n)
+        if r > tile_n:
+            return False
+        # tile_n must be a power of the radix for a uniform circuit; mixed
+        # radix (paper Fig 5's jagged WM line) is valid but penalized by the
+        # objective, not the space.
+        k = round(math.log(tile_n, r))
+        return r ** k == tile_n or (r ** k) * 2 == tile_n or tile_n % r == 0
+
+    return check
+
+
+def in_register_rule(spec: Optional[HardwareProfile] = None):
+    """`in_register` (shuffle analogue) only when one problem row fits a VREG
+    tile region: n <= 8 lanes*sublanes worth of data we keep resident."""
+    spec = spec if spec is not None else active_profile()
+
+    def check(cfg: Config, wl: Workload) -> bool:
+        if not cfg.get("in_register", 0):
+            return True
+        return wl.n <= spec.lane_count * spec.sublane_count
+
+    return check
+
+
+# ---------------------------------------------------------------------------
+# Per-operation space declarations (paper Table I, adapted per DESIGN.md §2)
+# ---------------------------------------------------------------------------
+
+def scan_space(wl: Workload,
+               spec: Optional[HardwareProfile] = None) -> SearchSpace:
+    spec = spec if spec is not None else active_profile()
+    eb = dtype_bytes(wl.dtype)
+    max_rows = floor_pow2(min(512, max(wl.batch, 1)))
+    # variant-aware knob pruning: the linrec kernel's fold order is fixed
+    # by the (a, b) composition algebra, so sweeping `unroll` there only
+    # duplicated configs (inflated exhaustive sweeps, label noise in the
+    # ML dataset)
+    unroll_dom = (1,) if wl.variant == "linrec" else (1, 2, 4, 8)
+    params = [
+        ParamSpec("tile_n", tuple(v for v in pow2_range(128, max(wl.n, 128)) if v <= wl.n) or (wl.n,)),
+        ParamSpec("rows_per_program", pow2_range(1, max_rows)),
+        ParamSpec("radix", (2, 4, 8)),          # tree fan-in per level
+        ParamSpec("unroll", unroll_dom),        # node-ops per VPU step
+        ParamSpec("in_register", (0, 1)),
+    ]
+    return SearchSpace(
+        wl,
+        params,
+        constraints=(
+            vmem_fits(eb, spec=spec),
+            tile_divides_n(),
+            rows_divide_batch(),
+            radix_compatible(),
+            in_register_rule(spec),
+        ),
+        spec=spec,
+    )
+
+
+_SPACE_BUILDERS: Dict[str, Callable[..., SearchSpace]] = {
+    "scan": scan_space,
+}
+
+
+def build_space(wl: Workload,
+                profile: Optional[HardwareProfile] = None) -> SearchSpace:
+    """Search space for ``wl`` bounded by ``profile`` (default: the active
+    profile)."""
+    try:
+        builder = _SPACE_BUILDERS[wl.op]
+    except KeyError:
+        raise NotImplementedError(
+            f"no search space for op={wl.op!r} in the PyTorch port yet: "
+            f"see ROADMAP.md, 'Modules to port'") from None
+    return builder(wl, spec=profile)
+
+
+def register_space(op: str, builder: Callable[..., SearchSpace]) -> None:
+    _SPACE_BUILDERS[op] = builder
+
+
+# ---------------------------------------------------------------------------
+# Shared config normalization (launch-geometry fitting)
+# ---------------------------------------------------------------------------
+# Tuned configs are stored for the workload they were searched on; at launch
+# time the knobs must still divide the actual array dims (a stored tile of
+# 512 against n=384, say). Every kernel family used to carry its own copy of
+# this halving descent; it lives here now and per-op normalizers in
+# kernels/*/ops.py compose it.
+
+def fit_block(value: int, dim: int) -> int:
+    """Largest v <= min(value, dim) reachable by halving with dim % v == 0."""
+    v = int(max(min(value, dim), 1))
+    while dim % v:
+        v //= 2
+    return max(v, 1)
+
+
+def normalize_config(cfg: Mapping[str, int], wl: Workload,
+                     dims: Optional[Mapping[str, int]] = None) -> Config:
+    """Generic normalizer: snap row/tile knobs to the workload dims.
+
+    Per-op normalizers registered via ``repro_torch.tuning.tuned_kernel`` take
+    precedence; this fallback handles any op without one.
+    """
+    out = dict(cfg)
+    if "rows_per_program" in out:
+        out["rows_per_program"] = fit_block(out["rows_per_program"],
+                                            max(wl.batch, 1))
+    if "tile_n" in out:
+        out["tile_n"] = fit_block(out["tile_n"], wl.n)
+    return out

@@ -1,0 +1,364 @@
+"""StagePlan — the staged-execution planner shared by kernels, the
+analytical model and the tuners.
+
+Given ``(Workload, Config)`` this module produces the exact staged
+execution: the per-stage radix sequence (with the mixed-radix ragged
+final stage), the launch grid / block shapes / scratch, the per-stage
+fast-memory bytes, and the memory pass count (== the number of kernel
+launches the driver performs).  The kernel drivers execute
+``plan.launches`` verbatim and ``core.analytical.resources`` reads the
+same fields, so model and kernel cannot disagree.
+
+The PyTorch port's own copy of ``repro.kernels.blocks.plan``, trimmed to
+the scan op.  The arithmetic is the JAX package's, verbatim, so both
+packages build identical plans; the field names keep the JAX package's
+words (``grid``, ``vmem_bytes``) — on the GPU a plan's grid row count is
+the CUDA grid and its ``vmem_bytes`` the shared-memory staging footprint
+the same config occupies.  Pure Python: no torch import.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Dict, List, Mapping, Optional, Tuple
+
+from repro_torch.core.space import Workload, fit_block
+from repro_torch.hw.profiles import (HardwareProfile, active_profile,
+                                     dtype_bytes, effective_element_bytes,
+                                     lane_utilization, sublane_utilization)
+
+# Column tiles a fused carry chain tolerates before the multi-pass driver
+# (three launches, parallel across chunks) wins over serializing the grid's
+# sequential dimension — the paper's §IV-C small/large-N boundary.
+DEFAULT_SEQ_LIMIT = 64
+
+# Variants whose in-kernel state is an (a, b) pair: three resident planes
+# (two inputs + output) instead of two.
+_LINREC_VARIANTS = ("linrec",)
+
+
+# ---------------------------------------------------------------------------
+# Mixed-radix stage decomposition
+# ---------------------------------------------------------------------------
+
+def _smallest_prime_factor(n: int) -> int:
+    if n % 2 == 0:
+        return 2
+    f = 3
+    while f * f <= n:
+        if n % f == 0:
+            return f
+        f += 2
+    return n
+
+
+def stage_radices(n: int, radix: int) -> Tuple[int, ...]:
+    """Per-stage fan-in sequence for an n-point staged circuit.
+
+    Generalizes the FFT kernel's ``rr = min(radix, n_cur)`` and the scan
+    kernel's ``_ks_levels``: each stage takes the preferred fan-in when it
+    divides what is left, else the largest divisor <= radix (the ragged
+    mixed-radix final stage), else the smallest prime factor.  Invariant
+    (pinned by tests): ``prod(stage_radices(n, r)) == n`` for every n >= 1,
+    so a stage loop driven by this sequence can never mis-reshape — unlike
+    the historical per-kernel loops, which crashed whenever an intermediate
+    ``n_cur`` stopped dividing by the radix (e.g. radix 8 at n = 96).
+    """
+    n = int(n)
+    radix = max(int(radix), 2)
+    out = []
+    n_cur = n
+    while n_cur > 1:
+        rr = min(radix, n_cur)
+        if n_cur % rr:
+            divisors = [d for d in range(rr, 1, -1) if n_cur % d == 0]
+            rr = divisors[0] if divisors else _smallest_prime_factor(n_cur)
+        out.append(rr)
+        n_cur //= rr
+    return tuple(out)
+
+
+def stage_strides(stages: Tuple[int, ...]) -> Tuple[int, ...]:
+    """Input stride of each stage: cumulative product of earlier fan-ins."""
+    strides = []
+    s = 1
+    for r in stages:
+        strides.append(s)
+        s *= r
+    return tuple(strides)
+
+
+def is_ragged(stages: Tuple[int, ...], nominal: int, span: int) -> bool:
+    """Mixed-radix tail check shared by every plan builder.
+
+    ``stage_radices`` only ever reduces the fan-in toward the tail, so a
+    sequence is ragged exactly when its last stage falls short of the
+    nominal fan-in (clamped by the circuit span for tiny tiles).  The
+    analytical radix_rank reads this flag — keep the definition in one
+    place.
+    """
+    return bool(stages) and stages[-1] != min(nominal, span)
+
+
+# ---------------------------------------------------------------------------
+# Plan dataclasses
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Launch:
+    """One kernel launch the driver will perform."""
+
+    name: str                       # kernel family tag (display/debug)
+    grid: Tuple[int, ...]           # program grid (its row axis is the
+    #                                 CUDA grid; its column axis the
+    #                                 kernel's in-block tile loop)
+    block_shape: Tuple[int, int]    # main operand block (rows, cols)
+    stages: Tuple[int, ...]         # in-kernel stage radices
+    vmem_bytes: int                 # resident io + scratch per program
+
+    @property
+    def programs(self) -> int:
+        out = 1
+        for g in self.grid:
+            out *= g
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class StagePlan:
+    """The exact staged execution of one (workload, config) pair."""
+
+    op: str
+    variant: str
+    n: int
+    batch: int
+    dtype: str
+    kind: str                       # "fused" | "multipass"; dispatchers
+    #                                 branch on == "multipass" only
+    tile_n: int                     # elements resident per program
+    rows: int                       # problem rows per program
+    radix: int                      # nominal (tuned) fan-in
+    stages: Tuple[int, ...]         # per-stage radices of the resident tile
+    seq_tiles: int                  # sequential carry tiles per program
+    grid: Tuple[int, ...]           # main-launch grid
+    launches: Tuple[Launch, ...]    # every kernel launch, driver order
+    passes: int                     # HBM roundtrips == len(launches) +
+    #                                 xla_passes when pallas-backed; 1 for
+    #                                 fused XLA variants
+    vmem_bytes: int                 # peak resident io+scratch per program
+    stage_vmem_bytes: Tuple[int, ...]   # transient footprint per stage
+    block_bytes: int                # DMA block (analytical rank input)
+    element_bytes: int              # effective bytes per logical element
+    trailing: int                   # trailing-dim extent a VPU issue sees
+    lane_eff: float                 # trailing-lane efficiency
+    sublane_eff: float
+    occupancy: float
+    ilp: float
+    ragged: bool                    # mixed-radix tail (last stage < radix)
+    steps_per_pass: float
+    # HBM passes performed by XLA-level chain links that are not pallas
+    # launches (e.g. rglru's unfused elementwise gate): they cost a full
+    # read+write roundtrip but never appear in ``launches``
+    xla_passes: int = 0
+    children: Tuple["StagePlan", ...] = ()
+
+    @property
+    def stage_count(self) -> int:
+        return len(self.stages)
+
+    @property
+    def grid_size(self) -> int:
+        out = 1
+        for g in self.grid:
+            out *= g
+        return out
+
+    def check(self, spec: HardwareProfile) -> List[str]:
+        """Structural invariant violations of this plan ([] when sound).
+
+        The zero-execution contract ``repro_torch.analysis`` verifies for every
+        valid config of every op x profile: a violation here means the
+        planner would hand the drivers an execution that cannot launch
+        (non-positive grid/block), mis-reshapes (stage product != tile),
+        overflows the physical VMEM pool, or disagrees with its own pass
+        accounting.  Checks live on the dataclass so plan builders and the
+        analysis pass can never drift apart.
+        """
+        out: List[str] = []
+        if self.tile_n < 1 or self.rows < 1:
+            out.append(f"non-positive tile geometry: tile_n={self.tile_n} "
+                       f"rows={self.rows}")
+        if self.passes < 1:
+            out.append(f"non-positive pass count: {self.passes}")
+        if self.vmem_bytes <= 0 or self.steps_per_pass <= 0:
+            out.append(f"non-positive accounting: vmem={self.vmem_bytes} "
+                       f"steps_per_pass={self.steps_per_pass}")
+        if self.stages:
+            prod = 1
+            for r in self.stages:
+                prod *= r
+            if prod != self.tile_n:
+                out.append(f"stage radix product {prod} != tile_n "
+                           f"{self.tile_n} (stages={self.stages})")
+        if any(g < 1 for g in self.grid):
+            out.append(f"non-positive grid dim: {self.grid}")
+        if self.xla_passes < 0:
+            out.append(f"negative xla_passes: {self.xla_passes}")
+        if self.launches \
+                and self.passes != len(self.launches) + self.xla_passes:
+            out.append(f"passes={self.passes} disagrees with "
+                       f"{len(self.launches)} launches "
+                       f"+ {self.xla_passes} xla passes")
+        for launch in self.launches:
+            if any(g < 1 for g in launch.grid) \
+                    or any(b < 1 for b in launch.block_shape):
+                out.append(f"launch {launch.name}: non-positive shape "
+                           f"grid={launch.grid} block={launch.block_shape}")
+            if launch.vmem_bytes > spec.vmem_bytes:
+                out.append(f"launch {launch.name}: vmem {launch.vmem_bytes} "
+                           f"exceeds the physical pool {spec.vmem_bytes}")
+            block = launch.block_shape[0] * launch.block_shape[1] \
+                * self.element_bytes
+            if launch.vmem_bytes < block:
+                out.append(f"launch {launch.name}: scratch {launch.vmem_bytes}"
+                           f" cannot hold its own BlockSpec block {block} "
+                           f"({launch.block_shape} x {self.element_bytes}B)")
+        if self.stage_vmem_bytes \
+                and max(self.stage_vmem_bytes) > spec.vmem_bytes:
+            out.append(f"stage vmem {max(self.stage_vmem_bytes)} exceeds "
+                       f"the physical pool {spec.vmem_bytes}")
+        return out
+
+    def resources(self) -> Dict[str, float]:
+        """Architectural accounting in the shape ``core.analytical`` scores.
+
+        Every quantity is read off the plan — there is no independent
+        re-derivation left in the analytical model or the featurizer.
+        """
+        return {
+            "grid": float(self.grid_size),
+            "vmem": float(self.vmem_bytes),
+            "occupancy": min(self.occupancy, 1.0),
+            "ilp": float(self.ilp),
+            "radix": float(self.radix),
+            "passes": float(self.passes),
+            "block_bytes": float(self.block_bytes),
+            "seq_tiles": float(self.seq_tiles),
+            "stage_count": float(self.stage_count),
+            "steps_per_pass": float(self.steps_per_pass),
+            "ragged": 1.0 if self.ragged else 0.0,
+            "lane_eff": float(self.lane_eff),
+            "sublane_eff": float(self.sublane_eff),
+        }
+
+
+# ---------------------------------------------------------------------------
+# Per-family builders
+# ---------------------------------------------------------------------------
+
+def _occ(tile_n: int, rows: int, spec: HardwareProfile) -> Tuple[int, float, float, float]:
+    trailing = min(tile_n, spec.lane_count * spec.sublane_count)
+    lane = lane_utilization(trailing, spec)
+    sub = sublane_utilization(rows, spec)
+    return trailing, lane, sub, lane * max(sub, 0.5)
+
+
+def _is_linrec(wl: Workload) -> bool:
+    return wl.variant in _LINREC_VARIANTS
+
+
+def _prefix_plan(wl: Workload, cfg: Mapping[str, int], spec: HardwareProfile,
+                 seq_limit: int) -> StagePlan:
+    eb = effective_element_bytes(wl.op, wl.dtype)
+    ib = dtype_bytes(wl.dtype)
+    batch = max(wl.batch, 1)
+    tile_n = min(int(cfg.get("tile_n", wl.n)), wl.n)
+    rows = int(cfg.get("rows_per_program", 1))
+    radix = int(cfg.get("radix", 2))
+    unroll = int(cfg.get("unroll", 1))
+    stages = stage_radices(tile_n, radix)
+    seq_tiles = max(wl.n // max(tile_n, 1), 1)
+    planes = 3 if _is_linrec(wl) else 2          # (a, b) in + h out vs in + out
+    carry = rows * 4                             # f32 cross-tile carry scratch
+    io = planes * rows * tile_n * ib
+    trailing, lane, sub, occ = _occ(tile_n, rows, spec)
+    stage_vmem = tuple(io + carry + r * rows * tile_n * 4 for r in stages)
+    ragged = is_ragged(stages, radix, tile_n)
+
+    if seq_tiles > seq_limit and tile_n < wl.n:
+        # §IV-C m-kernel path: per-chunk scan, chunk-carry scan, apply.
+        p, length = seq_tiles, tile_n
+        rows1 = fit_block(rows, batch * p)
+        rows2 = fit_block(rows, batch)
+        c_stages = stage_radices(p, radix)
+        # linrec's chunk kernel (scan_linrec_prod_pallas) keeps a fourth
+        # plane resident: the per-chunk prefix-products output the carry
+        # scan composes
+        l1_planes = planes + (1 if planes == 3 else 0)
+        l1 = Launch("chunk-scan", (batch * p // rows1, 1), (rows1, length),
+                    stages, l1_planes * rows1 * length * ib + rows1 * 4)
+        l2 = Launch("carry-scan", (batch // rows2, 1), (rows2, p),
+                    c_stages, planes * rows2 * p * ib + rows2 * 4)
+        l3 = Launch("apply-entry", (batch * p // rows1,), (rows1, length),
+                    (), (planes + 1) * rows1 * length * ib)
+        launches = (l1, l2, l3)
+        return StagePlan(
+            op=wl.op, variant=wl.variant, n=wl.n, batch=batch, dtype=wl.dtype,
+            kind="multipass", tile_n=tile_n, rows=rows, radix=radix,
+            stages=stages, seq_tiles=seq_tiles, grid=l1.grid,
+            launches=launches, passes=len(launches),
+            vmem_bytes=max(l.vmem_bytes for l in launches),
+            stage_vmem_bytes=stage_vmem,
+            block_bytes=rows * tile_n * eb, element_bytes=eb,
+            trailing=trailing, lane_eff=lane, sublane_eff=sub, occupancy=occ,
+            ilp=unroll * (2 if cfg.get("in_register") else 1), ragged=ragged,
+            steps_per_pass=float(len(stages)))
+
+    grid = (batch // rows, seq_tiles)
+    launch = Launch(wl.op, grid, (rows, tile_n), stages, io + carry)
+    return StagePlan(
+        op=wl.op, variant=wl.variant, n=wl.n, batch=batch, dtype=wl.dtype,
+        kind="fused", tile_n=tile_n, rows=rows, radix=radix, stages=stages,
+        seq_tiles=seq_tiles, grid=grid, launches=(launch,),
+        passes=1,
+        vmem_bytes=launch.vmem_bytes, stage_vmem_bytes=stage_vmem,
+        block_bytes=rows * tile_n * eb, element_bytes=eb, trailing=trailing,
+        lane_eff=lane, sublane_eff=sub, occupancy=occ,
+        ilp=unroll * (2 if cfg.get("in_register") else 1), ragged=ragged,
+        steps_per_pass=float(len(stages)))
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+def build_plan(wl: Workload, cfg: Mapping[str, int], *,
+               profile: Optional[HardwareProfile] = None,
+               seq_limit: int = DEFAULT_SEQ_LIMIT) -> StagePlan:
+    """The staged execution of ``cfg`` on ``wl`` (uncached; see plan_for)."""
+    wl = wl.canonical()
+    spec = profile if profile is not None else active_profile()
+    if wl.op == "scan":
+        return _prefix_plan(wl, cfg, spec, seq_limit)
+    raise NotImplementedError(
+        f"no plan builder for op={wl.op!r} in the PyTorch port yet: see "
+        f"ROADMAP.md, 'Modules to port'")
+
+
+@functools.lru_cache(maxsize=65536)
+def _plan_cached(op: str, variant: str, n: int, batch: int, dtype: str,
+                 cfg_items: Tuple[Tuple[str, int], ...], spec: HardwareProfile,
+                 seq_limit: int) -> StagePlan:
+    wl = Workload(op=op, n=n, batch=batch, dtype=dtype, variant=variant)
+    return build_plan(wl, dict(cfg_items), profile=spec, seq_limit=seq_limit)
+
+
+def plan_for(wl: Workload, cfg: Mapping[str, int], *,
+             profile: Optional[HardwareProfile] = None,
+             seq_limit: int = DEFAULT_SEQ_LIMIT) -> StagePlan:
+    """Memoized ``build_plan`` — the resolve/dispatch hot path and the
+    sweeps hit the same plan thousands of times per space."""
+    wl = wl.canonical()
+    spec = profile if profile is not None else active_profile()
+    return _plan_cached(wl.op, wl.variant, wl.n, wl.batch, wl.dtype,
+                        tuple(sorted(cfg.items())), spec, seq_limit)

@@ -1,0 +1,102 @@
+"""Build and bind the port's CUDA kernels (``repro_torch/csrc``).
+
+The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface, loaded with ``ctypes``.  The
+library lands in ``repro_torch/_build/<hash>/`` (listed in .gitignore),
+keyed by a hash of the sources and the flags, so an edited source is
+rebuilt and an unchanged one is not.  Nothing here runs at import time:
+the first kernel launch calls :func:`load_library`.
+
+There is no fallback: a missing ``nvcc`` or a failed build raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from typing import Dict, List
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_ROOT = os.path.join(_PKG, "_build")
+SOURCES = ("scan.cu",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LIB_NAME = "librepro_kernels.so"
+
+# what the last build in this process reported (build seconds, ptxas log)
+BUILD_INFO: Dict[str, object] = {}
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDACXX"), shutil.which("nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set $CUDACXX or put the CUDA "
+                       "toolkit's bin directory on PATH)")
+
+
+def _source_paths() -> List[str]:
+    return [os.path.join(CSRC, s) for s in SOURCES]
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _source_paths():
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return h.hexdigest()[:16]
+
+
+def build_library(force: bool = False) -> str:
+    """Compile the sources unless this exact build exists (or ``force``);
+    returns the library path.  Raises with nvcc's output when the build
+    fails."""
+    out_dir = os.path.join(BUILD_ROOT, source_hash())
+    lib = os.path.join(out_dir, LIB_NAME)
+    if os.path.exists(lib) and not force:
+        if BUILD_INFO.get("path") != lib:
+            BUILD_INFO.update(path=lib, seconds=0.0, cached=True, log="")
+        return lib
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_source_paths()]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{log}")
+    with open(os.path.join(out_dir, "build.log"), "w") as f:
+        f.write(" ".join(cmd) + "\n" + log)
+    os.replace(tmp, lib)
+    BUILD_INFO.update(path=lib, seconds=seconds, cached=False, log=log)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """The built kernel library with every C signature declared."""
+    lib = ctypes.CDLL(build_library())
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.repro_scan_add.argtypes = [vp, vp, i32, i64, i64, i32, i32,
+                                   ctypes.POINTER(ctypes.c_int), i32, i32, vp]
+    lib.repro_scan_add.restype = i32
+    lib.repro_apply_add.argtypes = [vp, vp, vp, i32, i64, i64, i32, vp]
+    lib.repro_apply_add.restype = i32
+    lib.repro_error_string.argtypes = [i32]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise when a C entry point returned a CUDA error."""
+    if code != 0:
+        msg = load_library().repro_error_string(code).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")

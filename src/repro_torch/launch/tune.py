@@ -1,0 +1,181 @@
+"""Offline tuning CLI of the port: the paper's loop on the prefix-sum scan.
+
+Tune one scan workload per size and persist the winner in a TuningDB:
+
+  PYTHONPATH=src python -m repro_torch.launch.tune --op scan --variant ks \\
+      --sizes 1024,4096 --method bayesian --db artifacts/tuning_db_torch.json
+
+Score every methodology against the exhaustive optimum (paper Table II):
+
+  PYTHONPATH=src python -m repro_torch.launch.tune compare-methods \\
+      --variant ks --sizes 1024,4096 --methods exhaustive,analytical,bayesian,random
+
+Both run on the card (``--device cuda``, the default) and time each
+candidate config with a ``WallClockObjective`` whose thunk calls
+``prefix_sum`` on device-resident input and ends in
+``torch.cuda.synchronize()``.  ``--device cpu`` runs the kernels' plain
+versions on the CPU instead (small sizes only); ``--objective cost``
+scores configs on the ``h100`` cost model rather than measuring them.  The
+batch defaults to the paper's 2^26 / n problems per invocation.  A
+runner failure (a kernel that does not build or launch) aborts the run
+with a non-zero exit; ``compare-methods`` also exits non-zero when any
+method beats the exhaustive sweep (Phi > 1 is a bug, not a result).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+from repro_torch.core import CostModelObjective, WallClockObjective, Workload
+from repro_torch.core.objective import Objective
+from repro_torch.core.space import Config
+from repro_torch.tuning import TunerSession, resolve_device, strategies
+
+TOTAL_ELEMS = 2 ** 26   # paper: batch = 2^26 / N problems per invocation
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def make_scan_runner(device: torch.device, seed: int = 0
+                     ) -> Callable[[Workload, Config], Callable[[], None]]:
+    """A ``WallClockObjective`` runner: for each workload, one seeded input
+    on ``device`` (made once and reused), and a thunk that runs the public
+    ``prefix_sum`` entry point with the candidate config."""
+    from repro_torch.kernels.scan.ops import prefix_sum
+
+    inputs: Dict[str, torch.Tensor] = {}
+
+    def run(wl: Workload, cfg: Config) -> Callable[[], None]:
+        x = inputs.get(wl.key)
+        if x is None:
+            gen = torch.Generator(device=device).manual_seed(seed)
+            x = torch.randn(wl.batch, wl.n, generator=gen, device=device,
+                            dtype=torch.float32).to(_DTYPES[wl.dtype])
+            inputs[wl.key] = x
+        return lambda: prefix_sum(x, variant=wl.variant, config=cfg)
+
+    return run
+
+
+def _workloads(args) -> List[Workload]:
+    if args.op != "scan":
+        raise SystemExit(f"--op {args.op}: only 'scan' is ported so far "
+                         f"(see ROADMAP.md)")
+    sizes = [int(s) for s in args.sizes.split(",") if s]
+    if not sizes:
+        raise SystemExit("--sizes: give at least one problem size")
+    return [Workload(op="scan", n=n,
+                     batch=args.batch or max(TOTAL_ELEMS // n, 1),
+                     dtype=args.dtype, variant=args.variant)
+            for n in sizes]
+
+
+def _add_common(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--op", default="scan")
+    ap.add_argument("--variant", default="ks")
+    ap.add_argument("--sizes", default="1024")
+    ap.add_argument("--batch", type=int, default=0,
+                    help="problems per invocation (default 2^26 / n)")
+    ap.add_argument("--dtype", default="float32", choices=sorted(_DTYPES))
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; the kernels) or cpu (their plain "
+                         "versions)")
+    ap.add_argument("--objective", default="wallclock",
+                    choices=("wallclock", "cost"),
+                    help="measure on --device, or score on the h100 cost "
+                         "model")
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--seed", type=int, default=0)
+
+
+def _objective_factory(args, device: torch.device,
+                       made: List[Objective]) -> Callable[[], Objective]:
+    runner = make_scan_runner(device, args.seed)
+
+    def factory() -> Objective:
+        obj = CostModelObjective() if args.objective == "cost" \
+            else WallClockObjective(runner, reps=args.reps,
+                                    device=str(device))
+        made.append(obj)
+        return obj
+
+    return factory
+
+
+def compare_methods_main(argv: List[str]) -> int:
+    ap = argparse.ArgumentParser(prog="tune compare-methods",
+                                 description="Score every methodology "
+                                             "against the exhaustive optimum")
+    _add_common(ap)
+    ap.add_argument("--methods", default="exhaustive,analytical,bayesian,"
+                                         "random")
+    ap.add_argument("--max-evals", type=int, default=20)
+    ap.add_argument("--journal-dir", default=None,
+                    help="checkpoint/resume the exhaustive sweeps here")
+    ap.add_argument("--json", default=None, help="write the report here")
+    args = ap.parse_args(argv)
+
+    from repro_torch.evaluation import (check_report, compare_methods,
+                                        format_report)
+
+    device = resolve_device(args.device)
+    workloads = _workloads(args)
+    methods = tuple(m for m in args.methods.split(",") if m)
+    made: List[Objective] = []
+    report = compare_methods(
+        workloads, methods,
+        objective_factory=_objective_factory(args, device, made),
+        seed=args.seed, max_evals=args.max_evals,
+        journal_dir=args.journal_dir)
+    failures = sum(getattr(o, "failures", 0) for o in made)
+    report["device"] = {"type": device.type, "objective": args.objective,
+                        "name": torch.cuda.get_device_name(device)
+                        if device.type == "cuda" else "cpu"}
+    report["runner_failures"] = failures
+    print(format_report(report))
+    for row in report["workloads"]:
+        print(f"[compare-methods] {row['workload']}: sweep "
+              f"{row['space_size']} configs, optimum "
+              f"{row['best_time_s'] * 1e3:.4f} ms")
+    print(f"[compare-methods] runner failures: {failures}")
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(report, f, indent=1, sort_keys=True)
+        print(f"[compare-methods] report written to {args.json}")
+    problems = check_report(report)
+    for p in problems:
+        print(f"[compare-methods] FAIL: {p}", file=sys.stderr)
+    return 1 if problems or failures else 0
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    argv = list(sys.argv[1:]) if argv is None else list(argv)
+    if argv and argv[0] == "compare-methods":
+        return compare_methods_main(argv[1:])
+
+    ap = argparse.ArgumentParser(prog="tune")
+    _add_common(ap)
+    ap.add_argument("--method", default="bayesian",
+                    choices=list(strategies()))
+    ap.add_argument("--max-evals", type=int, default=64)
+    ap.add_argument("--db", default=None,
+                    help="path to the tuning DB (default: the session DB)")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    session = TunerSession(db_path=args.db)
+    factory = _objective_factory(args, device, [])
+    for wl in _workloads(args):
+        res = session.tune(wl, method=args.method, objective=factory(),
+                           seed=args.seed, max_evals=args.max_evals)
+        print(f"[tune] {wl.key}: {res.best_config} "
+              f"t={res.best_time * 1e6:.1f}us evals={res.evaluations}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

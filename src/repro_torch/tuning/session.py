@@ -1,0 +1,261 @@
+"""TunerSession — the single config-resolution pipeline.
+
+One object owns everything the paper's deployment story needs:
+
+  * the persistent :class:`~repro_torch.tuning.db.TuningDB` (offline winners),
+  * the platform spec (resolve/tune minimize time: the latency policy;
+    the JAX package's energy / edp / memory_cap policies are still to be
+    ported),
+  * the search strategies (bayesian / exhaustive / random / analytical;
+    the JAX package's ml / online / transfer strategies are still to be
+    ported),
+  * an in-memory LRU of fully resolved (normalized) configs, so the online
+    hot path does not re-run the analytical model or re-fit dicts on every
+    kernel call,
+  * a memo of analytical suggestions per workload key (a DB miss consults
+    the model once, not once per request).
+
+Resolution order for ``resolve(wl)``:
+
+  active ``overrides()``  >  explicit ``config=`` argument  >  LRU cache
+  >  TuningDB entry  >  memoized analytical suggestion
+
+(an explicit ``config`` replaces the DB/analytical base entirely; override
+fragments then merge on top of whatever base was chosen) followed by the
+op's registered normalizer, which fits the raw knobs to
+the actual launch geometry. The process-wide default session is what the
+kernel entry points use.
+
+The PyTorch port's own copy of ``repro.tuning.session``.
+"""
+from __future__ import annotations
+
+import threading
+from collections import OrderedDict
+from typing import Callable, Dict, Mapping, Optional, Tuple
+
+from repro_torch.core.analytical import AnalyticalTuner
+from repro_torch.core.bayesian import BayesianTuner, TuneResult
+from repro_torch.core.exhaustive import ExhaustiveSearch, RandomSearch
+from repro_torch.core.objective import CachedObjective, CostModelObjective, Objective
+from repro_torch.core.space import Config, Workload, build_space
+from repro_torch.hw.profiles import HardwareProfile, active_profile, get_profile
+from repro_torch.tuning.db import TuningDB
+from repro_torch.tuning.overrides import active_overrides
+from repro_torch.tuning.registry import normalizer_for
+
+# ---------------------------------------------------------------------------
+# Strategies
+# ---------------------------------------------------------------------------
+# A strategy maps (space, objective, seed, max_evals, journal_dir) ->
+# TuneResult; only exhaustive search journals.
+
+Strategy = Callable[..., TuneResult]
+
+
+def _bayesian(space, objective, *, seed: int = 0, max_evals: int = 64,
+              journal_dir=None) -> TuneResult:
+    return BayesianTuner(seed=seed, max_evals=max_evals).tune(space, objective)
+
+
+def _exhaustive(space, objective, *, seed: int = 0, max_evals: int = 0,
+                journal_dir=None) -> TuneResult:
+    return ExhaustiveSearch(journal_dir=journal_dir).tune(space, objective)
+
+
+def _random(space, objective, *, seed: int = 0, max_evals: int = 64,
+            journal_dir=None) -> TuneResult:
+    return RandomSearch(max_evals=max_evals, seed=seed).tune(space, objective)
+
+
+def _analytical(space, objective, *, seed: int = 0, max_evals: int = 0,
+                journal_dir=None) -> TuneResult:
+    cfg = AnalyticalTuner().suggest(space)
+    m = objective(space, cfg)
+    return TuneResult(cfg, m.time_s, 0, [(cfg, m.time_s)], "analytical")
+
+
+_STRATEGIES: Dict[str, Strategy] = {
+    "bayesian": _bayesian,
+    "exhaustive": _exhaustive,
+    "random": _random,
+    "analytical": _analytical,
+}
+
+
+def get_strategy(name: str) -> Strategy:
+    try:
+        return _STRATEGIES[name]
+    except KeyError:
+        raise ValueError(f"unknown tuning method {name!r}; registered: "
+                         f"{', '.join(strategies())}") from None
+
+
+def strategies() -> Tuple[str, ...]:
+    return tuple(sorted(_STRATEGIES))
+
+
+# ---------------------------------------------------------------------------
+# TunerSession
+# ---------------------------------------------------------------------------
+
+def _dims_token(dims: Optional[Mapping[str, int]]) -> Optional[Tuple]:
+    return tuple(sorted(dims.items())) if dims else None
+
+
+class TunerSession:
+    """Owns the DB + caches; the one public way to resolve tuned configs."""
+
+    def __init__(self, db: Optional[TuningDB] = None, *,
+                 db_path: Optional[str] = None, platform: Optional[str] = None,
+                 spec: Optional[HardwareProfile] = None,
+                 cache_size: int = 2048, sweep_dir: Optional[str] = None):
+        # profile resolution: an explicit spec wins; else a platform naming a
+        # registered profile; else the process-wide active profile. The DB
+        # platform defaults to the profile name, so entries tuned for one
+        # device are keyed apart from every other device's.
+        if spec is None:
+            try:
+                spec = get_profile(platform) if platform is not None \
+                    else active_profile()
+            except ValueError:
+                # a platform label that is not a registered profile (custom
+                # DB namespaces) keys the DB but models as the active device
+                spec = active_profile()
+        self.spec = spec
+        if platform is None:
+            platform = spec.name
+        self.db = db if db is not None else TuningDB(path=db_path,
+                                                     platform=platform)
+        self.platform = self.db.platform
+        self.sweep_dir = sweep_dir   # journal directory for exhaustive sweeps
+        self.cache_size = max(int(cache_size), 1)
+        self._analytical = AnalyticalTuner()
+        self._lock = threading.RLock()
+        self._resolved: "OrderedDict[Tuple, Config]" = OrderedDict()
+        self._suggested: Dict[str, Config] = {}
+        self.hits = 0
+        self.misses = 0
+
+    # -- online path ---------------------------------------------------------
+
+    def resolve(self, wl: Workload, *, config: Optional[Mapping[str, int]] = None,
+                dims: Optional[Mapping[str, int]] = None) -> Config:
+        """Launch-ready config for ``wl``: resolved, overridden, normalized."""
+        wl = wl.canonical()
+        ov = active_overrides(wl.op)
+        cache_key = (wl.key, _dims_token(dims))
+        if config is None and ov is None:
+            with self._lock:
+                cached = self._resolved.get(cache_key)
+                if cached is not None:
+                    self._resolved.move_to_end(cache_key)
+                    self.hits += 1
+                    return dict(cached)
+                self.misses += 1
+        base = dict(config) if config is not None else self.resolve_raw(wl)
+        if ov:
+            base.update(ov)
+        resolved = normalizer_for(wl.op)(base, wl, dims)
+        if config is None and ov is None:
+            with self._lock:
+                self._resolved[cache_key] = dict(resolved)
+                self._resolved.move_to_end(cache_key)
+                while len(self._resolved) > self.cache_size:
+                    self._resolved.popitem(last=False)
+        return resolved
+
+    def resolve_raw(self, wl: Workload) -> Config:
+        """Pre-normalization config: DB hit, else memoized analytical."""
+        wl = wl.canonical()
+        cfg = self.db.lookup(wl)
+        if cfg is not None:
+            return cfg
+        return dict(self.suggest(wl))
+
+    def suggest(self, wl: Workload) -> Config:
+        """Analytical (zero-evaluation) suggestion, memoized per workload."""
+        wl = wl.canonical()
+        with self._lock:
+            cached = self._suggested.get(wl.key)
+        if cached is not None:
+            return dict(cached)
+        cfg = self._analytical.suggest(build_space(wl, self.spec))
+        with self._lock:
+            self._suggested.setdefault(wl.key, dict(cfg))
+        return cfg
+
+    def lookup(self, wl: Workload) -> Optional[Config]:
+        return self.db.lookup(wl.canonical())
+
+    # -- offline path --------------------------------------------------------
+
+    def tune(self, wl: Workload, method: str = "bayesian",
+             objective: Optional[Objective] = None, *, seed: int = 0,
+             max_evals: int = 64, store: bool = True) -> TuneResult:
+        """Run an offline search; persist the winner; invalidate the caches.
+
+        Exhaustive searches journal to ``self.sweep_dir`` (when set), so
+        interrupted sweeps resume.
+        """
+        wl = wl.canonical()
+        strategy = get_strategy(method)
+        space = build_space(wl, self.spec)
+        cached = CachedObjective(objective or CostModelObjective(self.spec))
+        result = strategy(space, cached, seed=seed, max_evals=max_evals,
+                          journal_dir=self.sweep_dir)
+        if store:
+            # the winner's metric vector (a cache hit for any measured
+            # winner)
+            m = cached(space, result.best_config)
+            self.db.store(wl, result.best_config, result.best_time,
+                          method, result.evaluations,
+                          metrics=dict(m.metrics) if m.valid else None)
+            self.invalidate(wl)
+        return result
+
+    # -- cache management ----------------------------------------------------
+
+    def invalidate(self, wl: Workload) -> None:
+        wl = wl.canonical()
+        with self._lock:
+            for key in [k for k in self._resolved if k[0] == wl.key]:
+                del self._resolved[key]
+
+    def clear_cache(self) -> None:
+        with self._lock:
+            self._resolved.clear()
+            self._suggested.clear()
+            self.hits = self.misses = 0
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            return {"hits": self.hits, "misses": self.misses,
+                    "resolved": len(self._resolved),
+                    "suggested": len(self._suggested),
+                    "db_entries": len(self.db)}
+
+
+# ---------------------------------------------------------------------------
+# Default (process-wide) session
+# ---------------------------------------------------------------------------
+
+_DEFAULT: Optional[TunerSession] = None
+_DEFAULT_LOCK = threading.Lock()
+
+
+def default_session() -> TunerSession:
+    global _DEFAULT
+    if _DEFAULT is None:
+        with _DEFAULT_LOCK:
+            if _DEFAULT is None:
+                _DEFAULT = TunerSession()
+    return _DEFAULT
+
+
+def set_default_session(session: Optional[TunerSession]) -> Optional[TunerSession]:
+    """Swap the process-wide session; returns the previous one."""
+    global _DEFAULT
+    with _DEFAULT_LOCK:
+        previous, _DEFAULT = _DEFAULT, session
+    return previous

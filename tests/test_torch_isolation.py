@@ -1,0 +1,130 @@
+"""The port stands alone: no JAX and nothing of the JAX package in
+``src/repro_torch`` or ``chip_smoke.py``, and no path that quietly sends
+a tensor meant for the card anywhere else."""
+import ast
+import importlib.util
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from conftest import DTYPE_TOL
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "src", "repro_torch")
+SMOKE = os.path.join(ROOT, "chip_smoke.py")
+
+
+def _port_files():
+    out = [SMOKE]
+    for dirpath, _, files in os.walk(PORT):
+        out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _forbidden(module: str) -> bool:
+    return module in ("jax", "repro") or module.startswith(("jax.", "repro."))
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_repro_import(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{os.path.relpath(path, ROOT)}:{node.lineno} " \
+                        f"imports {bad}"
+
+
+def test_importing_the_port_loads_neither_jax_nor_repro():
+    code = ("import sys\n"
+            "import repro_torch, repro_torch.kernels.scan.ops, "
+            "repro_torch.launch.tune, repro_torch.evaluation, "
+            "repro_torch.kernels.build\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or "
+            "m.startswith(('jax.', 'repro.')))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_chip_smoke_refuses_to_run_without_cuda():
+    """No card: a non-zero exit and no result line."""
+    code = ("import runpy, sys, torch\n"
+            "torch.cuda.is_available = lambda: False\n"
+            "sys.argv = ['chip_smoke.py']\n"
+            "runpy.run_path(%r, run_name='__main__')\n" % SMOKE)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_refuses_to_run_alone(tmp_path):
+    """In a directory holding chip_smoke.py and nothing else of the repo."""
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text(open(SMOKE).read())
+    proc = subprocess.run([sys.executable, str(alone)], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_holds_kernels_to_the_tests_tolerances():
+    spec = importlib.util.spec_from_file_location("chip_smoke", SMOKE)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    for dtype, tol in smoke.DTYPE_TOL.items():
+        assert tol == DTYPE_TOL[dtype]
+
+
+def test_entry_points_ask_for_the_card_by_default(monkeypatch):
+    from repro_torch.tuning.dispatch import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    assert resolve_device("cpu").type == "cpu"
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+def test_a_tensor_off_the_cpu_never_reaches_a_plain_version():
+    """A non-CPU tensor goes to the CUDA kernel or raises: here (no card)
+    a meta tensor raises in every wrapper rather than falling back."""
+    from repro_torch.kernels.blocks.driver import apply_add
+    from repro_torch.kernels.scan.kernel import _launch, scan_add
+    from repro_torch.kernels.scan.ops import prefix_sum
+    x = torch.empty(4, 64, device="meta")
+    with pytest.raises(ValueError, match="no kernel for tensors on meta"):
+        scan_add(x, rows_per_program=2, tile_n=64, stages=(2,) * 6)
+    with pytest.raises(ValueError, match="no kernel for tensors on meta"):
+        prefix_sum(x)
+    with pytest.raises(ValueError, match="no kernel for tensors on meta"):
+        apply_add(torch.empty(4, 64, device="meta"),
+                  torch.empty(4, 1, device="meta"), rows=2)
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        _launch(torch.randn(4, 64), 2, 64, (2,) * 6, 1)
+
+
+def test_a_missing_compiler_raises(monkeypatch, tmp_path):
+    """No nvcc: the build raises; nothing is loaded in its place."""
+    from repro_torch.kernels import build
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("a CUDA toolkit is installed here")
+    monkeypatch.delenv("CUDACXX", raising=False)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_ROOT", str(tmp_path / "build"))
+    build.load_library.cache_clear()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.load_library()
