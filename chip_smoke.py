@@ -18,13 +18,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    multipass at n = 2^22, resolved through the default session under
    ``h100``, held against ``torch.cumsum`` in float64, with the launch
    list equal to the plan's and every kernel's launch count non-zero;
-5. the paper's loop on the card — ``compare_methods`` for scan ks at
-   n = 1024 and 4096 on measured times (``WallClockObjective``):
-   exhaustive / analytical / bayesian / random, the Phi table, the sweep
-   sizes and the runner failures, which must be 0;
-6. the ``kernels`` line: per kernel its launches on the main path, its
+5. the linear recurrence and the tridiagonal solvers: ``scan_linrec``,
+   ``scan_linrec_prod``, ``apply_linrec`` and ``pcr`` against their plain
+   versions (f32 and bf16, ragged, prime and non-power-of-two shapes, the
+   RG-LRU gate on and off, every admitted config of the paper workload's
+   linrec and PCR spaces under ``h100``); then, at 2^26 f32 equations a
+   call, ``solve`` for pcr / cr / lf / wm at n = 256 and 1024 (residual,
+   and a float64 Thomas solve of sampled rows), ``solve(variant="lf")``
+   above ``LF_MULTIPASS_MIN`` on a fused and a multipass linrec plan, and
+   ``linear_recurrence`` fused and multipass against float64 references,
+   each call's launch list equal to its plans' and every kernel's launch
+   count non-zero;
+6. the paper's loop on the card — ``compare_methods`` for scan ks at
+   n = 1024 and 4096 and tridiag pcr at n = 256 and 1024 on measured
+   times (``WallClockObjective``): exhaustive / analytical / bayesian /
+   random, the Phi table, the sweep sizes and the runner failures, which
+   must be 0;
+7. the ``kernels`` line: per kernel its launches on the main path, its
    error against the plain version, its time, the plain version's and the
-   library call's, and its bound (bytes over the card's memory rate).
+   library call's (null where no one PyTorch call computes the function),
+   and its bound (bytes over the card's memory rate, or operations over
+   its f32 rate, whichever is larger).
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 nothing of JAX or of the JAX package.
@@ -56,10 +70,12 @@ def max_err(got, ref) -> float:
     return float((got.double() - ref.double()).abs().max())
 
 
-def check_close(got, ref, dtype: str, what: str) -> float:
-    """Assert the DTYPE_TOL bound the tests use; returns the max error."""
+def check_close(got, ref, dtype: str, what: str, scale: float = 1.0) -> float:
+    """Assert the DTYPE_TOL bound the tests use (``scale`` loosens both, as
+    the tests' x50 for solvers held against Thomas); returns the max
+    error."""
     import torch
-    rtol, atol_rel = DTYPE_TOL[dtype]
+    rtol, atol_rel = (scale * t for t in DTYPE_TOL[dtype])
     g, r = got.double(), ref.double()
     atol = atol_rel * max(float(r.abs().max()), 1.0)
     bad = (g - r).abs() > atol + rtol * r.abs()
@@ -221,17 +237,30 @@ def phase_kernels(dev, quick: bool):
     log("[kernels] apply_add: f32 and bf16 outputs equal the plain version")
 
 
+def counted_wrappers():
+    """Every kernel wrapper, by name; each counts its CUDA launches."""
+    from repro_torch.kernels.blocks.driver import apply_add, apply_linrec
+    from repro_torch.kernels.scan.kernel import (scan_add, scan_linrec,
+                                                 scan_linrec_prod)
+    from repro_torch.kernels.tridiag.kernel import pcr
+    return {"scan_add": scan_add, "apply_add": apply_add,
+            "scan_linrec": scan_linrec, "scan_linrec_prod": scan_linrec_prod,
+            "apply_linrec": apply_linrec, "pcr": pcr}
+
+
 def reset_counts():
-    from repro_torch.kernels.blocks.driver import apply_add
-    from repro_torch.kernels.scan.kernel import scan_add
-    scan_add.launches = 0
-    apply_add.launches = 0
+    for fn in counted_wrappers().values():
+        fn.launches = 0
 
 
 def read_counts():
-    from repro_torch.kernels.blocks.driver import apply_add
-    from repro_torch.kernels.scan.kernel import scan_add
-    return {"scan_add": scan_add.launches, "apply_add": apply_add.launches}
+    return {name: fn.launches for name, fn in counted_wrappers().items()}
+
+
+def require_launched(counts, names, what):
+    for name in names:
+        if counts[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched on {what}")
 
 
 def main_path_cases():
@@ -263,11 +292,8 @@ def phase_main_path(dev):
         runs.append((n, batch, cfg, plan, list(launched)))
     torch.cuda.synchronize()
     counts = read_counts()
-    log(f"[main] launches on the main path: {counts}")
-    for name, count in counts.items():
-        if count == 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"main path")
+    log(f"[main] launches on the prefix-sum path: {counts}")
+    require_launched(counts, ("scan_add", "apply_add"), "the prefix-sum path")
     for n, batch, cfg, plan, launched in runs:
         if tuple(launched) != plan.launches:
             raise AssertionError(f"n={n}: launched {launched} != plan "
@@ -291,9 +317,14 @@ def phase_loop(dev):
     from repro_torch.core import Workload
     from repro_torch.core.objective import WallClockObjective
     from repro_torch.evaluation import check_report, compare_methods, format_report
-    from repro_torch.launch.tune import make_scan_runner
+    from repro_torch.launch.tune import make_scan_runner, make_tridiag_runner
 
-    runner = make_scan_runner(dev, seed=2)
+    runners = {"scan": make_scan_runner(dev, seed=2),
+               "tridiag": make_tridiag_runner(dev, seed=2)}
+
+    def runner(wl, cfg):
+        return runners[wl.op](wl, cfg)
+
     made = []
 
     def factory():
@@ -303,6 +334,8 @@ def phase_loop(dev):
 
     wls = [Workload(op="scan", n=n, batch=TOTAL_ELEMS // n, variant="ks")
            for n in (1024, 4096)]
+    wls += [Workload(op="tridiag", n=n, batch=TOTAL_ELEMS // n,
+                     variant="pcr") for n in (256, 1024)]
     reset_counts()
     t0 = time.perf_counter()
     report = compare_methods(wls, ("exhaustive", "analytical", "bayesian",
@@ -324,10 +357,10 @@ def phase_loop(dev):
     if problems or failures:
         raise AssertionError(f"compare_methods: {problems}, runner "
                              f"failures {failures}")
-    if counts["scan_add"] == 0:
-        raise AssertionError("the loop never launched scan_add")
+    require_launched(counts, ("scan_add", "pcr"), "the tuning loop")
     log("[loop] phi " + json.dumps(
-        {name: agg["phi"] for name, agg in report["overall"].items()}))
+        {op: {name: agg["phi"] for name, agg in per.items()}
+         for op, per in report["per_op"].items()}))
     return report
 
 
@@ -418,6 +451,417 @@ def phase_numbers(dev, inputs, runs, counts, bandwidth: float):
     return [scan_entry, apply_entry], shapes
 
 
+def linrec_inputs(gen, dev, batch, n, dtype=None):
+    """a in [0.8, 0.99) (a stable recurrence, as the tests draw it), b
+    standard normal."""
+    import torch
+    a = torch.rand(batch, n, generator=gen, device=dev) * 0.19 + 0.8
+    b = torch.randn(batch, n, generator=gen, device=dev)
+    if dtype is not None:
+        a, b = a.to(dtype), b.to(dtype)
+    return a, b
+
+
+def phase_linrec_kernels(dev, quick: bool):
+    """scan_linrec, scan_linrec_prod, apply_linrec and pcr against their
+    plain versions on the card, held to DTYPE_TOL (the kernels round where
+    the plain versions do, so the error printed is expected to be 0)."""
+    import torch
+    from repro_torch.core.space import Workload, scan_space, tridiag_space
+    from repro_torch.hw.profiles import get_profile
+    from repro_torch.kernels.blocks.driver import (apply_linrec,
+                                                   apply_linrec_plain)
+    from repro_torch.kernels.blocks.plan import stage_radices
+    from repro_torch.kernels.scan.kernel import (scan_linrec,
+                                                 scan_linrec_plain,
+                                                 scan_linrec_prod,
+                                                 scan_linrec_prod_plain)
+    from repro_torch.kernels.tridiag.kernel import pcr, pcr_plain
+    from repro_torch.kernels.tridiag.ref import random_system
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    h100 = get_profile("h100")
+    worst = {"scan_linrec": 0.0, "scan_linrec_prod": 0.0,
+             "apply_linrec": 0.0, "pcr": 0.0}
+
+    def hold(name, got, ref, dtype, what):
+        worst[name] = max(worst[name], check_close(got, ref, dtype, what))
+
+    def linrec(batch, n, rows, tile_n, stages, dtype, gate):
+        a, b = linrec_inputs(gen, dev, batch, n, dtypes[dtype])
+        kw = dict(rows_per_program=rows, tile_n=tile_n, stages=stages,
+                  gate=gate)
+        got = scan_linrec(a, b, **kw)
+        ref = scan_linrec_plain(a, b, **kw)
+        torch.cuda.synchronize()
+        hold("scan_linrec", got, ref, dtype,
+             f"scan_linrec {dtype} ({batch},{n}) rows={rows} tile={tile_n} "
+             f"stages={tuple(stages)} gate={gate}")
+
+    def prod(batch, n, rows, stages, dtype, gate):
+        a, b = linrec_inputs(gen, dev, batch, n, dtypes[dtype])
+        kw = dict(rows_per_program=rows, stages=stages, gate=gate)
+        (h, p), (hr, pr) = scan_linrec_prod(a, b, **kw), \
+            scan_linrec_prod_plain(a, b, **kw)
+        torch.cuda.synchronize()
+        what = (f"scan_linrec_prod {dtype} ({batch},{n}) rows={rows} "
+                f"stages={tuple(stages)} gate={gate}")
+        hold("scan_linrec_prod", h, hr, dtype, what + " h")
+        hold("scan_linrec_prod", p, pr, dtype, what + " p")
+
+    cases = 0
+    for dtype in dtypes:
+        for gate in (False, True):
+            for batch, n, rows, tile_n in ((64, 4096, 4, 4096),
+                                           (64, 4096, 8, 128),
+                                           (16, 1024, 2, 256), (6, 96, 3, 96)):
+                for radix in (2, 4, 8):
+                    linrec(batch, n, rows, tile_n,
+                           stage_radices(tile_n, radix), dtype, gate)
+                    cases += 1
+            # the largest tiles (32768 elements: the stage planes go to
+            # the global scratch), prime fan-ins, odd row counts
+            for batch, n, rows, tile_n, stages in (
+                    (4, 16384, 1, 16384, stage_radices(16384, 4)),
+                    (2, 65536, 1, 32768, stage_radices(32768, 8)),
+                    (4, 32768, 2, 16384, stage_radices(16384, 2)),
+                    (5, 212, 5, 106, (2, 53)),
+                    (3, 1018, 3, 1018, (2, 509)),
+                    (7, 768, 7, 768, stage_radices(768, 8))):
+                linrec(batch, n, rows, tile_n, stages, dtype, gate)
+                cases += 1
+            for batch, n, rows, stages in (
+                    (1024, 4096, 1, stage_radices(4096, 8)),
+                    (512, 2048, 4, stage_radices(2048, 2)),
+                    (96, 100, 3, stage_radices(100, 4)),
+                    (7, 106, 7, (2, 53)),
+                    (2, 32768, 1, stage_radices(32768, 4))):
+                prod(batch, n, rows, stages, dtype, gate)
+                cases += 1
+    log(f"[kernels] scan_linrec / scan_linrec_prod: {cases} shape/stage/gate "
+        f"cases within tolerance (max abs err {worst['scan_linrec']:.3e} / "
+        f"{worst['scan_linrec_prod']:.3e})")
+
+    # every admitted config of the paper workload's linrec space, per type
+    for dtype in dtypes:
+        wl = Workload(op="scan", n=1024, batch=TOTAL_ELEMS // 1024,
+                      dtype=dtype, variant="linrec")
+        cfgs = scan_space(wl, h100).enumerate_valid()
+        if quick:
+            cfgs = cfgs[::16]
+        a, b = linrec_inputs(gen, dev, wl.batch, wl.n, dtypes[dtype])
+        plain = {}
+        for cfg in cfgs:
+            stages = stage_radices(cfg["tile_n"], cfg["radix"])
+            key = (cfg["tile_n"], stages)
+            if key not in plain:
+                plain[key] = scan_linrec_plain(a, b, rows_per_program=1,
+                                               tile_n=cfg["tile_n"],
+                                               stages=stages)
+            got = scan_linrec(a, b, rows_per_program=cfg["rows_per_program"],
+                              tile_n=cfg["tile_n"], stages=stages)
+            hold("scan_linrec", got, plain[key], dtype,
+                 f"linrec space {dtype} config {cfg}")
+            del got
+        torch.cuda.synchronize()
+        log(f"[kernels] scan_space({wl.key}, h100): all {len(cfgs)} admitted "
+            f"configs launch and match the plain version")
+        del a, b, plain
+
+    # apply_linrec (multipass launch 3), both output types
+    for rows_n, length, rows, out in ((4096, 16384, 8, torch.float32),
+                                      (4096, 16384, 1, torch.bfloat16),
+                                      (96, 100, 3, torch.float32)):
+        h = torch.randn(rows_n, length, generator=gen, device=dev)
+        pr = torch.rand(rows_n, length, generator=gen, device=dev)
+        e = torch.randn(rows_n, 1, generator=gen, device=dev) * 100
+        got = apply_linrec(h, pr, e, rows=rows, out_dtype=out)
+        ref = apply_linrec_plain(h, pr, e, rows=rows, out_dtype=out)
+        torch.cuda.synchronize()
+        hold("apply_linrec", got, ref, "float32" if out == torch.float32
+             else "bfloat16", f"apply_linrec ({rows_n},{length}) rows={rows} "
+             f"{out}")
+    log(f"[kernels] apply_linrec: f32 and bf16 outputs within tolerance (max "
+        f"abs err {worst['apply_linrec']:.3e})")
+
+    # pcr: odd, prime and non-power-of-two n, n = 1, the largest systems
+    def solve_pcr(batch, n, rows, unroll, dtype):
+        planes = [v.to(dtypes[dtype]) for v in random_system(gen, batch, n)]
+        got = pcr(*planes, rows_per_program=rows, unroll=unroll)
+        ref = pcr_plain(*planes, rows_per_program=rows, unroll=unroll)
+        torch.cuda.synchronize()
+        hold("pcr", got, ref, dtype, f"pcr {dtype} ({batch},{n}) rows={rows} "
+             f"unroll={unroll}")
+
+    cases = 0
+    for dtype in dtypes:
+        for batch, n, rows, unroll in ((64, 1024, 4, 1), (64, 1024, 1, 4),
+                                       (6, 96, 3, 2), (10, 100, 5, 1),
+                                       (8, 1, 2, 1), (3, 7, 3, 4),
+                                       (4, 8192, 1, 1), (2, 16384, 1, 2),
+                                       (1024, 256, 16, 2)):
+            solve_pcr(batch, n, rows, unroll, dtype)
+            cases += 1
+    for dtype in dtypes:
+        wl = Workload(op="tridiag", n=1024, batch=TOTAL_ELEMS // 1024,
+                      dtype=dtype, variant="pcr")
+        cfgs = tridiag_space(wl, h100).enumerate_valid()
+        planes = [v.to(dtypes[dtype])
+                  for v in random_system(gen, wl.batch, wl.n)]
+        ref = pcr_plain(*planes, rows_per_program=1)
+        for cfg in cfgs:
+            got = pcr(*planes, rows_per_program=cfg["rows_per_program"],
+                      unroll=cfg["unroll"])
+            hold("pcr", got, ref, dtype, f"pcr space {dtype} config {cfg}")
+            del got
+        torch.cuda.synchronize()
+        cases += len(cfgs)
+        log(f"[kernels] tridiag_space({wl.key}, h100): all {len(cfgs)} "
+            f"admitted configs launch and match the plain version")
+        del planes, ref
+    log(f"[kernels] pcr: {cases} cases within tolerance (max abs err "
+        f"{worst['pcr']:.3e})")
+    return worst
+
+
+def tridiag_path_cases():
+    """(variant, n, batch): 2^26 equations a call."""
+    out = [(v, n, TOTAL_ELEMS // n) for n in (256, 1024)
+           for v in ("pcr", "cr", "lf", "wm")]
+    # LF above LF_MULTIPASS_MIN: a fused and a multipass linrec plan
+    return out + [("lf", 2 ** 16, 1024), ("lf", 2 ** 22, 16)]
+
+
+def linrec_path_cases():
+    return [(1024, TOTAL_ELEMS // 1024), (2 ** 22, 16)]
+
+
+def linrec_f64_sequential(a, b):
+    """h_t = a_t h_{t-1} + b_t in float64 on the CPU, one step at a time
+    (Python floats: a few seconds for a row of 2^22 steps)."""
+    import torch
+    rows = []
+    for ar, br in zip(a.double().cpu().tolist(), b.double().cpu().tolist()):
+        h, out = 0.0, []
+        for at, bt in zip(ar, br):
+            h = at * h + bt
+            out.append(h)
+        rows.append(out)
+    return torch.tensor(rows, dtype=torch.float64)
+
+
+def phase_tridiag_path(dev):
+    """solve and linear_recurrence at the paper's size, through the default
+    session."""
+    import torch
+    from repro_torch.core.space import Workload
+    from repro_torch.kernels.blocks.driver import capture_launches
+    from repro_torch.kernels.blocks.plan import plan_for
+    from repro_torch.kernels.scan.ops import _plan_workload, linear_recurrence
+    from repro_torch.kernels.tridiag.ops import LF_MULTIPASS_MIN, solve
+    from repro_torch.kernels.tridiag.ref import (random_system, residual,
+                                                 thomas_ref)
+    from repro_torch.tuning import default_session
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    systems = {}
+    for _, n, batch in tridiag_path_cases():
+        if n not in systems:
+            systems[n] = random_system(gen, batch, n)
+    recs = {n: linrec_inputs(gen, dev, batch, n)
+            for n, batch in linrec_path_cases()}
+    torch.cuda.synchronize()
+    session = default_session()
+    reset_counts()
+    solved, recurred = [], []
+    for variant, n, batch in tridiag_path_cases():
+        with capture_launches() as launched:
+            x = solve(*systems[n], variant=variant)
+        solved.append((variant, n, batch, x, list(launched)))
+    for n, batch in linrec_path_cases():
+        with capture_launches() as launched:
+            h = linear_recurrence(*recs[n])
+        recurred.append((n, batch, h, list(launched)))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"[main] launches on the tridiagonal / linrec path: {counts}")
+    require_launched(counts, ("scan_linrec", "scan_linrec_prod",
+                              "apply_linrec", "pcr"),
+                     "the tridiagonal / linrec path")
+
+    plans = {}
+    thomas = {}
+    sample = slice(0, 64)
+    for variant, n, batch, x, launched in solved:
+        wl = Workload(op="tridiag", n=n, batch=batch, variant=variant)
+        if variant == "lf" and n > LF_MULTIPASS_MIN:
+            lwl = Workload(op="scan", n=n, batch=batch, variant="linrec")
+            plan = plan_for(lwl, session.resolve(lwl))
+            want = plan.launches * 2       # the forward and back sweeps
+            detail = f"linrec plan {plan.kind}, config {session.resolve(lwl)}"
+        else:
+            cfg = session.resolve(wl)
+            plan = plan_for(wl, cfg)
+            want = plan.launches
+            detail = f"plan {plan.kind}, config {cfg}"
+        plans[(variant, n)] = plan
+        if tuple(launched) != want:
+            raise AssertionError(f"solve {variant} n={n}: launched "
+                                 f"{launched} != plan {want}")
+        a, b, c, d = systems[n]
+        if x.shape != (batch, n) or x.dtype != torch.float32:
+            raise AssertionError(f"solve {variant} n={n}: output "
+                                 f"{tuple(x.shape)} {x.dtype}")
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"solve {variant} n={n}: non-finite output")
+        res = float(residual(a, b, c, d, x))
+        # the tests' x50 scale on the f32 tolerance, against |d|
+        bound = 50 * DTYPE_TOL["float32"][1] * max(float(d.abs().max()), 1.0)
+        if res > bound:
+            raise AssertionError(f"solve {variant} n={n}: residual {res:.3e} "
+                                 f"> {bound:.3e}")
+        line = (f"[main] solve {variant} n={n} batch={batch}: {detail}, "
+                f"{len(launched)} launch(es), residual {res:.3e}")
+        if n <= 1024:
+            if n not in thomas:
+                thomas[n] = thomas_ref(*(v[sample].double().cpu()
+                                         for v in systems[n]))
+            err = check_close(x[sample].cpu(), thomas[n], "float32",
+                              f"solve {variant} n={n} vs float64 Thomas",
+                              scale=50.0)
+            line += f", max abs err vs float64 Thomas {err:.3e}"
+        log(line)
+
+    for n, batch, h, launched in recurred:
+        wl = Workload(op="scan", n=n, batch=batch, variant="linrec")
+        cfg = session.resolve(wl)
+        plan = plan_for(_plan_workload(wl, linrec=True), cfg)
+        plans[("linrec", n)] = plan
+        if tuple(launched) != plan.launches:
+            raise AssertionError(f"linear_recurrence n={n}: launched "
+                                 f"{launched} != plan {plan.launches}")
+        a, b = recs[n]
+        rows = slice(0, 2)
+        err = check_close(h[rows].cpu(), linrec_f64_sequential(a[rows],
+                                                               b[rows]),
+                          "float32", f"linear_recurrence n={n} vs float64 "
+                                     f"sequential")
+        log(f"[main] linear_recurrence n={n} batch={batch}: {plan.kind}, "
+            f"{len(plan.launches)} launch(es), config {cfg}, max abs err vs "
+            f"a float64 sequential recurrence of 2 rows {err:.3e}")
+    return systems, recs, plans, counts
+
+
+def phase_tridiag_numbers(dev, systems, recs, plans, counts, errs,
+                          bandwidth: float):
+    """Times, bounds and errors of the four kernels at their main-path
+    shapes, and solve end to end per variant."""
+    import torch
+    from repro_torch.kernels.blocks.driver import (apply_linrec,
+                                                   apply_linrec_plain)
+    from repro_torch.kernels.scan.kernel import (scan_linrec,
+                                                 scan_linrec_plain,
+                                                 scan_linrec_prod,
+                                                 scan_linrec_prod_plain)
+    from repro_torch.kernels.scan.ops import linear_recurrence
+    from repro_torch.core.space import Workload
+    from repro_torch.kernels.tridiag.kernel import pcr, pcr_plain, pcr_steps
+    from repro_torch.kernels.tridiag.ops import solve
+    from repro_torch.tuning import default_session
+
+    def bound(nbytes, flops):
+        by_bytes, by_ops = nbytes / bandwidth * 1e3, flops / F32_PEAK * 1e3
+        return (by_bytes, "bytes") if by_bytes >= by_ops \
+            else (by_ops, "operations")
+
+    def entry(name, source, replaces, fn, plain, nbytes, flops, shape,
+              config, err_name):
+        got, ref = fn(), plain()
+        torch.cuda.synchronize()
+        b_ms, b_by = bound(nbytes, flops)
+        out = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": counts[name],
+               "max_abs_err": max(max_err(g, r) for g, r in zip(got, ref)),
+               "ms": time_ms(fn, 10), "plain_ms": time_ms(plain, 3, warmup=1),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+               "shape": list(shape), "dtype": "float32", "config": config,
+               "flops": flops, "check_max_abs_err": errs[err_name]}
+        log(f"[numbers] {json.dumps(out, sort_keys=True)}")
+        return out
+
+    entries = []
+    (n_fused, _), (n_multi, _) = linrec_path_cases()
+    # kernel 2 at linear_recurrence's fused main-path call
+    plan = plans[("linrec", n_fused)]
+    a, b = recs[n_fused]
+    kw = dict(rows_per_program=plan.rows, tile_n=plan.tile_n,
+              stages=plan.stages)
+    entries.append(entry(
+        "scan_linrec", "src/repro_torch/csrc/linrec.cu",
+        "src/repro/kernels/scan/kernel.py:125",
+        lambda: (scan_linrec(a, b, **kw),),
+        lambda: (scan_linrec_plain(a, b, **kw),),
+        3 * a.numel() * 4, 2 * a.numel(), a.shape,
+        {"rows": plan.rows, "tile_n": plan.tile_n,
+         "stages": list(plan.stages)}, "scan_linrec"))
+    # kernels 3 and 5 at the multipass main-path call (n = 2^22, batch 16)
+    plan = plans[("linrec", n_multi)]
+    l1, _, l3 = plan.launches
+    a, b = (v.reshape(-1, plan.tile_n) for v in recs[n_multi])
+    entries.append(entry(
+        "scan_linrec_prod", "src/repro_torch/csrc/linrec.cu",
+        "src/repro/kernels/scan/kernel.py:159",
+        lambda: scan_linrec_prod(a, b, rows_per_program=l1.block_shape[0],
+                                 stages=l1.stages),
+        lambda: scan_linrec_prod_plain(a, b,
+                                       rows_per_program=l1.block_shape[0],
+                                       stages=l1.stages),
+        4 * a.numel() * 4, 3 * a.numel(), a.shape,
+        {"rows": l1.block_shape[0], "stages": list(l1.stages)},
+        "scan_linrec_prod"))
+    h, p = scan_linrec_prod(a, b, rows_per_program=l1.block_shape[0],
+                            stages=l1.stages)
+    e = torch.randn(h.shape[0], 1, device=dev)
+    rows = l3.block_shape[0]
+    entries.append(entry(
+        "apply_linrec", "src/repro_torch/csrc/linrec.cu",
+        "src/repro/kernels/blocks/driver.py:149",
+        lambda: (apply_linrec(h, p, e, rows=rows),),
+        lambda: (apply_linrec_plain(h, p, e, rows=rows),),
+        3 * h.numel() * 4 + e.numel() * 4, 2 * h.numel(), h.shape,
+        {"rows": rows}, "apply_linrec"))
+    del a, b, h, p, e
+    # kernel 7 at solve(variant="pcr")'s n = 1024 call
+    planes = systems[max(n for v, n, _ in tridiag_path_cases()
+                         if v == "pcr")]
+    batch, n = planes[0].shape
+    cfg = default_session().resolve(Workload(op="tridiag", n=n, batch=batch,
+                                             variant="pcr"))
+    # per level and equation: 2 divides, 6 multiplies, 4 adds; then x = d/b
+    flops = planes[0].numel() * (12 * pcr_steps(n) + 1)
+    entries.append(entry(
+        "pcr", "src/repro_torch/csrc/tridiag.cu",
+        "src/repro/kernels/tridiag/kernel.py:47",
+        lambda: (pcr(*planes, **cfg),), lambda: (pcr_plain(*planes, **cfg),),
+        5 * planes[0].numel() * 4, flops, planes[0].shape, cfg, "pcr"))
+
+    ends = []
+    for variant, n, batch in tridiag_path_cases():
+        system = systems[n]
+        ms = time_ms(lambda: solve(*system, variant=variant), 3, warmup=1)
+        ends.append({"variant": variant, "n": n, "batch": batch,
+                     "solve_ms": ms})
+        log(f"[numbers] solve {variant} n={n} batch={batch}: {ms:.4f} ms a "
+            f"call ({n * batch} equations)")
+    for n, batch in linrec_path_cases():
+        a, b = recs[n]
+        ms = time_ms(lambda: linear_recurrence(a, b), 10)
+        log(f"[numbers] linear_recurrence n={n} batch={batch}: {ms:.4f} ms "
+            f"a call")
+    return entries, ends
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -443,17 +887,28 @@ def main(argv=None) -> int:
     card = phase_card()
     t0 = time.perf_counter()
     phase_kernels(dev, args.quick)
+    errs = phase_linrec_kernels(dev, args.quick)
     log(f"[kernels] {time.perf_counter() - t0:.1f} s")
     if not args.quick:
         from repro_torch.hw.profiles import get_profile
+        bandwidth = get_profile("h100").hbm_bandwidth
         t0 = time.perf_counter()
         inputs, runs, counts = phase_main_path(dev)
         log(f"[main] {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        entries, _ = phase_numbers(dev, inputs, runs, counts,
-                                   get_profile("h100").hbm_bandwidth)
+        entries, _ = phase_numbers(dev, inputs, runs, counts, bandwidth)
         log(f"[numbers] {time.perf_counter() - t0:.1f} s")
         del inputs
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        systems, recs, plans, counts = phase_tridiag_path(dev)
+        log(f"[main] {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        more, _ = phase_tridiag_numbers(dev, systems, recs, plans, counts,
+                                        errs, bandwidth)
+        entries += more
+        log(f"[numbers] {time.perf_counter() - t0:.1f} s")
+        del systems, recs
         torch.cuda.empty_cache()
         phase_loop(dev)
         log(json.dumps({"kernels": entries}))

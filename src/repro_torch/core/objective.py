@@ -11,8 +11,8 @@ cost model adds ``energy_j`` and ``peak_vmem_bytes``), with ``time_s`` the
 scalar-compatible primary field.
 
 The PyTorch port's own copy of ``repro.core.objective``, trimmed to the
-scan op.  The cost-model arithmetic is the JAX package's, verbatim, so
-both packages model identical times.
+scan and tridiag ops.  The cost-model arithmetic is the JAX package's,
+verbatim, so both packages model identical times.
 
   * ``WallClockObjective`` — times a runner's thunk on a torch device.  On
     a CUDA device the timed region ends in ``torch.cuda.synchronize()``, so
@@ -241,16 +241,25 @@ def _flops_and_passes(wl: Workload, cfg: Config) -> Dict[str, float]:
         k = round(math.log(max(tile, 2), radix)) if radix > 1 else 1
         return 0.0 if radix**k == tile else 1.0
 
-    if wl.op != "scan":
+    if wl.op == "scan":
+        steps = math.ceil(math.log(max(tile_n, 2), r))
+        # Kogge-Stone does N work per step; Ladner-Fischer ~2N total but more
+        # steps of structure; model KS-like: n ops/step, radix-r node = r-1 adds
+        out["flops"] = steps * n * (r - 1) / max(r / 2, 1)
+        out["passes"] = math.ceil(math.log(max(n, 2), r) / math.log(max(tile_n, 2), r)) if tile_n < n else 1
+        out["steps"] = steps
+        out["mixed_radix"] = mixed(tile_n, r)
+    elif wl.op == "tridiag":
+        steps = math.ceil(math.log2(max(n, 2))) if wl.variant in ("cr", "pcr") else math.ceil(math.log(max(n, 2), r))
+        per_step = 14 if wl.variant == "pcr" else 9  # PCR full-width; CR halves
+        work_n = n if wl.variant == "pcr" else 2 * n
+        out["flops"] = steps * work_n * per_step / max(math.log2(r), 1)
+        out["passes"] = 1
+        out["steps"] = steps
+        out["mixed_radix"] = mixed(tile_n, r) if wl.variant == "wm" else 0.0
+    else:
         raise NotImplementedError(
             f"no cost model for op={wl.op!r} in the PyTorch port yet")
-    steps = math.ceil(math.log(max(tile_n, 2), r))
-    # Kogge-Stone does N work per step; Ladner-Fischer ~2N total but more
-    # steps of structure; model KS-like: n ops/step, radix-r node = r-1 adds
-    out["flops"] = steps * n * (r - 1) / max(r / 2, 1)
-    out["passes"] = math.ceil(math.log(max(n, 2), r) / math.log(max(tile_n, 2), r)) if tile_n < n else 1
-    out["steps"] = steps
-    out["mixed_radix"] = mixed(tile_n, r)
     out.setdefault("mixed_radix", 0.0)
     return out
 
@@ -328,18 +337,31 @@ def _batch_work(wl: Workload, cfgs: Sequence[Config],
     out: Dict[str, np.ndarray] = {}
     ones = np.ones(len(cfgs), dtype=np.float64)
 
-    if wl.op != "scan":
+    if wl.op == "scan":
+        log_r = np.log(np.maximum(r, 2))
+        log_tile = np.log(np.maximum(tile_n, 2))
+        steps = np.ceil(log_tile / log_r)
+        out["flops"] = steps * n * (r - 1) / np.maximum(r / 2, 1)
+        out["passes"] = np.where(
+            tile_n < n,
+            np.ceil(np.log(max(n, 2)) / log_r / (log_tile / log_r)), 1.0)
+        out["steps"] = steps
+        out["mixed_radix"] = _mixed_radix_arr(tile_n, r)
+    elif wl.op == "tridiag":
+        if wl.variant in ("cr", "pcr"):
+            steps = float(math.ceil(math.log2(max(n, 2)))) * ones
+        else:
+            steps = np.ceil(np.log(max(n, 2)) / np.log(np.maximum(r, 2)))
+        per_step = 14 if wl.variant == "pcr" else 9
+        work_n = n if wl.variant == "pcr" else 2 * n
+        out["flops"] = steps * work_n * per_step / np.maximum(np.log2(r), 1)
+        out["passes"] = ones.copy()
+        out["steps"] = steps
+        out["mixed_radix"] = (_mixed_radix_arr(tile_n, r)
+                              if wl.variant == "wm" else 0.0 * ones)
+    else:
         raise NotImplementedError(
             f"no cost model for op={wl.op!r} in the PyTorch port yet")
-    log_r = np.log(np.maximum(r, 2))
-    log_tile = np.log(np.maximum(tile_n, 2))
-    steps = np.ceil(log_tile / log_r)
-    out["flops"] = steps * n * (r - 1) / np.maximum(r / 2, 1)
-    out["passes"] = np.where(
-        tile_n < n,
-        np.ceil(np.log(max(n, 2)) / log_r / (log_tile / log_r)), 1.0)
-    out["steps"] = steps
-    out["mixed_radix"] = _mixed_radix_arr(tile_n, r)
     out.setdefault("mixed_radix", 0.0 * ones)
     return out
 

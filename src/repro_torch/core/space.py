@@ -1,9 +1,10 @@
 """Search spaces for kernel performance parameters (paper Table I).
 
 The PyTorch port's own copy of ``repro.core.space``, trimmed to the scan
-op: the numpy code that decides a space is the JAX package's, verbatim,
-so both packages enumerate identical spaces for the same workload and
-profile.  Every other op raises until its slice of the port lands.
+and tridiag ops: the numpy code that decides a space is the JAX package's,
+verbatim, so both packages enumerate identical spaces for the same
+workload and profile.  Every other op raises until its slice of the port
+lands.
 
 A space is declared per (operation, input-parameters) pair:
   - Input Parameters (paper: `A`): problem size N, batch G, dtype — they
@@ -256,8 +257,53 @@ def scan_space(wl: Workload,
     )
 
 
+def tridiag_space(wl: Workload,
+                  spec: Optional[HardwareProfile] = None) -> SearchSpace:
+    spec = spec if spec is not None else active_profile()
+    # each element is an equation: 4 coefficients (a,b,c,d)
+    eb = 4 * dtype_bytes(wl.dtype)
+    if wl.variant in ("cr", "lf", "thomas"):
+        # these variants consume no tuned knobs at all (XLA-fused solves);
+        # a singleton space keeps sweeps/datasets free of duplicate configs
+        params = [
+            ParamSpec("tile_n", (wl.n,)),
+            ParamSpec("rows_per_program", (1,)),
+            ParamSpec("radix", (2,)),
+            ParamSpec("unroll", (1,)),
+            ParamSpec("in_register", (0,)),
+        ]
+        return SearchSpace(wl, params, constraints=(vmem_fits(eb, spec=spec),),
+                           spec=spec)
+    max_rows = floor_pow2(min(256, max(wl.batch, 1)))
+    radix_dom = (2, 4, 8) if wl.variant == "wm" else (2,)  # paper: only WM retunes r
+    # wm runs as an XLA chunked prefix: rows/unroll/in_register shape
+    # nothing it executes, so only the radix (-> chunk) is swept
+    rows_dom = (1,) if wl.variant == "wm" else pow2_range(1, max_rows)
+    unroll_dom = (1,) if wl.variant == "wm" else (1, 2, 4)
+    in_reg_dom = (0,) if wl.variant == "wm" else (0, 1)
+    params = [
+        ParamSpec("tile_n", (wl.n,)),           # whole system stays resident
+        ParamSpec("rows_per_program", rows_dom),
+        ParamSpec("radix", radix_dom),
+        ParamSpec("unroll", unroll_dom),
+        ParamSpec("in_register", in_reg_dom),
+    ]
+    return SearchSpace(
+        wl,
+        params,
+        constraints=(
+            vmem_fits(eb, spec=spec),
+            rows_divide_batch(),
+            radix_compatible(),
+            in_register_rule(spec),
+        ),
+        spec=spec,
+    )
+
+
 _SPACE_BUILDERS: Dict[str, Callable[..., SearchSpace]] = {
     "scan": scan_space,
+    "tridiag": tridiag_space,
 }
 
 

@@ -224,7 +224,14 @@ for _p in (TPU_V5E, GPU_SM, CPU_INTERPRET, H100):
 # batched and per-config evaluation agree to floating-point identity (the
 # sweep engine depends on this).
 
+# numpy knows "bfloat16" only once ml_dtypes (a JAX dependency) has been
+# imported; the port names its width itself
+_DTYPE_BYTES = {"bfloat16": 2}
+
+
 def dtype_bytes(dtype) -> int:
+    if isinstance(dtype, str) and dtype in _DTYPE_BYTES:
+        return _DTYPE_BYTES[dtype]
     return np.dtype(dtype).itemsize
 
 

@@ -1,15 +1,20 @@
 """Staged-execution driver: runs a StagePlan's launch list.
 
-The PyTorch counterpart of ``repro.kernels.blocks.driver`` for the prefix
-sum:
+The PyTorch counterpart of ``repro.kernels.blocks.driver`` for the scan
+family:
 
-  * ``multipass_scan_add`` — the paper's §IV-C three-launch block scan
-    (chunk scan, carry scan over the chunk sums, entry broadcast), with
-    memory roundtrips between launches instead of a serialized carry
-    chain;
-  * ``apply_add`` — launch 3's kernel wrapper: the hand-written CUDA
-    kernel (``csrc/scan.cu`` ``repro_apply_add``) for a CUDA tensor, its
-    plain version ``apply_add_plain`` for a CPU tensor.
+  * ``multipass_scan_add`` / ``multipass_linrec`` — the paper's §IV-C
+    three-launch block scan (chunk scan, carry scan over the chunk sums or
+    chunk transfer operators, entry broadcast), with memory roundtrips
+    between launches instead of a serialized carry chain;
+  * ``apply_add`` / ``apply_linrec`` — launch 3's kernel wrappers: the
+    hand-written CUDA kernels (``csrc/scan.cu`` ``repro_apply_add``,
+    ``csrc/linrec.cu`` ``repro_apply_linrec``) for a CUDA tensor, their
+    plain versions for a CPU tensor;
+  * ``linrec_rows`` — the tuned linear recurrence as a library call for
+    composite kernels (the tridiagonal LF sweeps), with the JAX package's
+    routing: the associative-scan reference where the radix spaces have
+    no config (odd lengths).
 
 Every launch is announced to ``record_launch`` with the plan's ``Launch``
 record; ``capture_launches`` lets the conformance tests assert that what
@@ -19,11 +24,12 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.space import Workload
 from repro_torch.kernels.blocks.plan import Launch, StagePlan
 from repro_torch.tuning.dispatch import kernel_path
 
@@ -69,17 +75,17 @@ def apply_add_plain(y: torch.Tensor, entry: torch.Tensor, *, rows: int,
 
 
 def _check_apply(y: torch.Tensor, entry: torch.Tensor, rows: int,
-                 out_dtype: torch.dtype) -> None:
+                 out_dtype: torch.dtype, what: str = "apply_add") -> None:
     if y.dim() != 2 or y.dtype != torch.float32:
-        raise ValueError(f"apply_add takes (rows, L) float32, got "
+        raise ValueError(f"{what} takes (rows, L) float32, got "
                          f"{tuple(y.shape)} {y.dtype}")
     if entry.shape != (y.shape[0], 1) or entry.dtype != torch.float32:
-        raise ValueError(f"apply_add takes a ({y.shape[0]}, 1) float32 "
+        raise ValueError(f"{what} takes a ({y.shape[0]}, 1) float32 "
                          f"entry, got {tuple(entry.shape)} {entry.dtype}")
     if rows < 1 or y.shape[0] % rows:
         raise ValueError(f"rows={rows} must divide {y.shape[0]} rows")
     if out_dtype not in _OUT_CODES:
-        raise TypeError(f"apply_add writes float32 or bfloat16, not "
+        raise TypeError(f"{what} writes float32 or bfloat16, not "
                         f"{out_dtype}")
 
 
@@ -138,3 +144,123 @@ def multipass_scan_add(x: torch.Tensor, plan: StagePlan, *,
     record_launch(l3)
     y = apply_add(y_local, entry, rows=l3.block_shape[0], out_dtype=x.dtype)
     return y.reshape(batch, n)
+
+
+def apply_linrec_plain(h: torch.Tensor, prod: torch.Tensor,
+                       entry: torch.Tensor, *, rows: int,
+                       out_dtype: torch.dtype = torch.float32
+                       ) -> torch.Tensor:
+    """``h + prod * entry`` in f32, each row's entry broadcast along it."""
+    _check_apply_linrec(h, prod, entry, rows, out_dtype)
+    return (h + prod * entry).to(out_dtype)
+
+
+def _check_apply_linrec(h, prod, entry, rows, out_dtype) -> None:
+    _check_apply(h, entry, rows, out_dtype, what="apply_linrec")
+    if prod.shape != h.shape or prod.dtype != torch.float32:
+        raise ValueError(f"apply_linrec takes {tuple(h.shape)} float32 "
+                         f"products, got {tuple(prod.shape)} {prod.dtype}")
+
+
+def apply_linrec(h: torch.Tensor, prod: torch.Tensor, entry: torch.Tensor, *,
+                 rows: int, out_dtype: torch.dtype = torch.float32
+                 ) -> torch.Tensor:
+    """Multipass launch 3 of the linear recurrence: ``h + prod * entry``
+    per row, written as ``out_dtype``."""
+    if not kernel_path(h):
+        return apply_linrec_plain(h, prod, entry, rows=rows,
+                                  out_dtype=out_dtype)
+    from repro_torch.kernels.build import check, load_library
+
+    _check_apply_linrec(h, prod, entry, rows, out_dtype)
+    if not (prod.device == entry.device == h.device):
+        raise ValueError("apply_linrec: h, prod and entry lie on different "
+                         "devices")
+    h, prod, entry = h.contiguous(), prod.contiguous(), entry.contiguous()
+    lib = load_library()
+    out = torch.empty(h.shape, dtype=out_dtype, device=h.device)
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        code = lib.repro_apply_linrec(h.data_ptr(), prod.data_ptr(),
+                                      entry.data_ptr(), out.data_ptr(),
+                                      _OUT_CODES[out_dtype], h.shape[0],
+                                      h.shape[1], rows, stream)
+    check(code, "apply_linrec launch")
+    apply_linrec.launches += 1
+    return out
+
+
+# launches of the CUDA kernel (plain-version calls are not counted)
+apply_linrec.launches = 0
+
+
+def multipass_linrec(a: torch.Tensor, b: torch.Tensor, plan: StagePlan, *,
+                     gate: bool = False) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t as three launches: per-chunk linrec (+ the
+    chunk transfer operators), carry linrec over the operators, apply.
+
+    ``gate=True`` is the fused RG-LRU chain: ``b`` carries the raw input u
+    and the chunk kernel applies the gate in-tile (the carry and apply
+    launches operate on transfer operators, untouched by the gate).
+    """
+    from repro_torch.kernels.scan.kernel import scan_linrec, scan_linrec_prod
+    l1, l2, l3 = plan.launches
+    batch, n = a.shape
+    p, length = plan.seq_tiles, plan.tile_n
+    # f32 carries between launches; the output is quantized once, by
+    # launch 3 (see multipass_scan_add)
+    ac = a.reshape(batch * p, length).to(torch.float32)
+    bc = b.reshape(batch * p, length).to(torch.float32)
+    record_launch(l1)
+    h_local, a_cum = scan_linrec_prod(ac, bc,
+                                      rows_per_program=l1.block_shape[0],
+                                      stages=l1.stages, gate=gate)
+    # chunk transfer operator: state_out = A * state_in + B
+    A = a_cum[:, -1].reshape(batch, p).contiguous()
+    B = h_local[:, -1].reshape(batch, p).contiguous()
+    record_launch(l2)
+    exits = scan_linrec(A, B, rows_per_program=l2.block_shape[0], tile_n=p,
+                        stages=l2.stages)
+    entry = F.pad(exits[:, :-1], (1, 0)).reshape(batch * p, 1)
+    record_launch(l3)
+    h = apply_linrec(h_local, a_cum, entry, rows=l3.block_shape[0],
+                     out_dtype=a.dtype)
+    return h.reshape(batch, n)
+
+
+# ---------------------------------------------------------------------------
+# Linear recurrence as a library building block
+# ---------------------------------------------------------------------------
+
+def _linrec_space_valid(n: int) -> bool:
+    # the radix spaces have no valid config for odd lengths; composite
+    # kernels take the associative-scan reference there, as in repro
+    return n >= 2 and n % 2 == 0
+
+
+def linrec_rows(a: torch.Tensor, b: torch.Tensor, *,
+                config: Optional[dict] = None) -> torch.Tensor:
+    """Tuned linear recurrence over (rows, n) — the shared carry-chain
+    block composite kernels (the tridiagonal LF sweeps) call.
+
+    Resolves the (op="scan", variant="linrec") workload through the
+    session, builds its StagePlan, and dispatches fused or multipass
+    exactly like the public ``linear_recurrence`` entry point.
+    """
+    from repro_torch.kernels.blocks.plan import plan_for
+    from repro_torch.kernels.scan.kernel import scan_linrec
+    from repro_torch.kernels.scan.ref import scan_linrec_assoc_ref
+    from repro_torch.tuning import default_session
+    rows, n = a.shape
+    if n <= 1:
+        return b
+    if not _linrec_space_valid(n):
+        return scan_linrec_assoc_ref(a, b)
+    wl = Workload(op="scan", n=n, batch=rows, variant="linrec")
+    cfg = default_session().resolve(wl, config=config)
+    plan = plan_for(wl, cfg)
+    if plan.kind == "multipass":
+        return multipass_linrec(a, b, plan)
+    return launch(scan_linrec, plan.launches[0], a, b,
+                  rows_per_program=plan.rows, tile_n=plan.tile_n,
+                  stages=plan.stages)

@@ -10,16 +10,18 @@ launches the driver performs).  The kernel drivers execute
 same fields, so model and kernel cannot disagree.
 
 The PyTorch port's own copy of ``repro.kernels.blocks.plan``, trimmed to
-the scan op.  The arithmetic is the JAX package's, verbatim, so both
-packages build identical plans; the field names keep the JAX package's
-words (``grid``, ``vmem_bytes``) — on the GPU a plan's grid row count is
-the CUDA grid and its ``vmem_bytes`` the shared-memory staging footprint
-the same config occupies.  Pure Python: no torch import.
+the scan and tridiag ops.  The arithmetic is the JAX package's,
+verbatim, so both packages build identical plans; the field names keep
+the JAX package's words (``grid``, ``vmem_bytes``) — on the GPU a plan's
+grid row count is the CUDA grid and its ``vmem_bytes`` the shared-memory
+staging footprint the same config occupies.  Pure Python: no torch
+import.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Dict, List, Mapping, Optional, Tuple
 
 from repro_torch.core.space import Workload, fit_block
@@ -98,6 +100,16 @@ def is_ragged(stages: Tuple[int, ...], nominal: int, span: int) -> bool:
     place.
     """
     return bool(stages) and stages[-1] != min(nominal, span)
+
+
+def wm_chunk(radix: int, n: int) -> int:
+    """The Wang&Mou chunk implied by the tuned radix (paper: the fan-in).
+
+    Lives here — not at the dispatch site — so the tridiag normalizer can
+    put the derived chunk INTO the resolved config: what the TuningDB
+    records then uniquely determines the executed kernel.
+    """
+    return fit_block(min(max(radix * 16, 8), max(n // 2, 1)), n)
 
 
 # ---------------------------------------------------------------------------
@@ -328,6 +340,51 @@ def _prefix_plan(wl: Workload, cfg: Mapping[str, int], spec: HardwareProfile,
         steps_per_pass=float(len(stages)))
 
 
+def _tridiag_plan(wl: Workload, cfg: Mapping[str, int], spec: HardwareProfile
+                  ) -> StagePlan:
+    eb = effective_element_bytes(wl.op, wl.dtype)        # 4 coefficients
+    ib = dtype_bytes(wl.dtype)
+    batch = max(wl.batch, 1)
+    rows = int(cfg.get("rows_per_program", 1))
+    radix = int(cfg.get("radix", 2))
+    n = wl.n
+    trailing, lane, sub, occ = _occ(n, rows, spec)
+    ilp = int(cfg.get("unroll", 1)) * (2 if cfg.get("in_register") else 1)
+
+    if wl.variant == "pcr":
+        steps = max(1, math.ceil(math.log2(max(n, 2))))
+        stages = (2,) * steps
+        io = 5 * rows * n * ib                 # a,b,c,d in + x out
+        grid = (batch // rows,)
+        launch = Launch("pcr", grid, (rows, n), stages, io)
+        return StagePlan(
+            op=wl.op, variant=wl.variant, n=n, batch=batch, dtype=wl.dtype,
+            kind="fused", tile_n=n, rows=rows, radix=2, stages=stages,
+            seq_tiles=1, grid=grid, launches=(launch,), passes=1,
+            vmem_bytes=io,
+            stage_vmem_bytes=tuple(io + 2 * rows * n * 4 for _ in stages),
+            block_bytes=rows * n * eb, element_bytes=eb, trailing=trailing,
+            lane_eff=lane, sublane_eff=sub, occupancy=occ, ilp=ilp,
+            ragged=False, steps_per_pass=float(steps))
+
+    # plain-tensor variants (cr / lf / wm / thomas): no kernel launches; the
+    # logical circuit still has a stage structure the models consume
+    # (for wm the nominal fan-in is the tuned radix; cr/lf/thomas halve).
+    # kind "xla" keeps the JAX package's name for them.
+    nominal = radix if wl.variant == "wm" else 2
+    stages = stage_radices(n, nominal)
+    vmem = rows * n * eb * 2                    # double-buffered row estimate
+    ragged = is_ragged(stages, nominal, n)
+    return StagePlan(
+        op=wl.op, variant=wl.variant, n=n, batch=batch, dtype=wl.dtype,
+        kind="xla", tile_n=n, rows=rows, radix=radix, stages=stages,
+        seq_tiles=1, grid=(batch // max(rows, 1),), launches=(), passes=1,
+        vmem_bytes=vmem, stage_vmem_bytes=tuple(vmem for _ in stages),
+        block_bytes=rows * n * eb, element_bytes=eb, trailing=trailing,
+        lane_eff=lane, sublane_eff=sub, occupancy=occ, ilp=ilp,
+        ragged=ragged, steps_per_pass=float(max(len(stages), 1)))
+
+
 # ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
@@ -340,6 +397,8 @@ def build_plan(wl: Workload, cfg: Mapping[str, int], *,
     spec = profile if profile is not None else active_profile()
     if wl.op == "scan":
         return _prefix_plan(wl, cfg, spec, seq_limit)
+    if wl.op == "tridiag":
+        return _tridiag_plan(wl, cfg, spec)
     raise NotImplementedError(
         f"no plan builder for op={wl.op!r} in the PyTorch port yet: see "
         f"ROADMAP.md, 'Modules to port'")

@@ -1,12 +1,15 @@
 """In-kernel building blocks, in plain PyTorch.
 
-The PyTorch counterparts of ``repro.kernels.blocks.primitives`` for the
-prefix sum: ``shift_lanes``, the balanced ``_tree_fold``, one radix-r
-``shift_fold`` level, and the cross-tile carry chain.  They are the plain
-version of the CUDA scan kernel's body (``csrc/scan.cu``): the same stage
-sequence, the same neighbour fill, the same fold order for each
-``unroll``, so the kernel and its plain version add the same numbers in
-the same order.  Stage sequences come from
+The PyTorch counterparts of ``repro.kernels.blocks.primitives``:
+``shift_lanes``, the balanced ``_tree_fold``, one radix-r ``shift_fold``
+level (prefix sum), one ``linrec_level`` (the linear-recurrence pair
+monoid), one ``pcr_step`` (the tridiagonal fold), the RG-LRU input gate
+and the cross-tile carry chains.  They are the plain versions of the CUDA
+kernels' bodies (``csrc/scan.cu``, ``csrc/linrec.cu``,
+``csrc/tridiag.cu``): the same stage sequence, the same neighbour fill,
+the same fold order, one rounding per multiply and add, so a kernel and
+its plain version compute the same numbers in the same order.  Stage
+sequences come from
 ``repro_torch.kernels.blocks.plan.stage_radices`` — never recompute them
 here.
 """
@@ -61,6 +64,58 @@ def shift_fold(x: torch.Tensor, fan_in: int, stride: int, *,
     return acc
 
 
+def linrec_level(aa: torch.Tensor, bb: torch.Tensor, fan_in: int,
+                 stride: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One stage for the linear-recurrence pair monoid.
+
+    Composition (a, b)_new after (a, b)_old is (a_o * a_n, a_n * b_o + b_n);
+    the fold order is fixed by the algebra (k = 1 .. fan_in - 1: first
+    acc_b = acc_a * sb + acc_b, then acc_a = acc_a * sa), so there is no
+    unroll knob.  Off the row's start the identity a = 1, b = 0 is read.
+    """
+    tile_n = aa.shape[-1]
+    acc_a, acc_b = aa, bb
+    for k in range(1, fan_in):
+        off = k * stride
+        if off >= tile_n:
+            break
+        sa = shift_lanes(aa, off, 1.0)
+        sb = shift_lanes(bb, off, 0.0)
+        acc_b = acc_a * sb + acc_b
+        acc_a = acc_a * sa
+    return acc_a, acc_b
+
+
+def pcr_step(a, b, c, d, stride: int):
+    """One full-width cyclic-reduction level at ``stride``: every equation
+    eliminates its +-stride neighbours (identity fill b = 1, a = c = d = 0
+    keeps the pivots finite)."""
+    bm = shift_lanes(b, stride, 1.0)
+    bp = shift_lanes(b, -stride, 1.0)
+    am, ap = shift_lanes(a, stride, 0.0), shift_lanes(a, -stride, 0.0)
+    cm, cp = shift_lanes(c, stride, 0.0), shift_lanes(c, -stride, 0.0)
+    dm, dp = shift_lanes(d, stride, 0.0), shift_lanes(d, -stride, 0.0)
+    alpha = -a / bm
+    gamma = -c / bp
+    return (alpha * am,
+            b + alpha * cm + gamma * ap,
+            gamma * cp,
+            d + alpha * dm + gamma * dp)
+
+
+def rglru_gate(aa: torch.Tensor, uu: torch.Tensor) -> torch.Tensor:
+    """RG-LRU input gate b = sqrt(max(1 - a^2, 0)) * u, in-tile.
+
+    The square root is taken in float64 and rounded once, which is the
+    correctly rounded square root of the input type (the kernel's
+    ``__fsqrt_rn``).  PyTorch's float32 ``sqrt`` on the CPU is not: it is
+    off by one ulp on some inputs, and by far more on its first call in a
+    process, for one thread's share of the tensor.
+    """
+    r = torch.clamp_min(1.0 - aa * aa, 0.0)
+    return torch.sqrt(r.double()).to(r.dtype) * uu
+
+
 def carry_init(rows: int, device) -> torch.Tensor:
     """The f32 row carry at the first column tile: zero."""
     return torch.zeros(rows, 1, dtype=torch.float32, device=device)
@@ -71,3 +126,11 @@ def carry_fold_add(x: torch.Tensor, carry: torch.Tensor
     """Fold the running prefix into this tile; return it and the new carry."""
     x = x + carry
     return x, x[:, -1:]
+
+
+def carry_fold_linrec(aa: torch.Tensor, bb: torch.Tensor,
+                      carry: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h = b + a * carry for the tile; return it and the tile's exit state."""
+    h = bb + aa * carry
+    return h, h[:, -1:]

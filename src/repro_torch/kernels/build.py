@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA kernels (``repro_torch/csrc``).
 
 The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, loaded with ``ctypes``.  The
+shared library with a plain C interface, loaded with ``ctypes``: one
+``nvcc -c`` per source, all started together, then one link.  The
 library lands in ``repro_torch/_build/<hash>/`` (listed in .gitignore),
 keyed by a hash of the sources and the flags, so an edited source is
 rebuilt and an unchanged one is not.  Nothing here runs at import time:
@@ -23,9 +24,9 @@ from typing import Dict, List
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
-SOURCES = ("scan.cu",)
+SOURCES = ("scan.cu", "linrec.cu", "tridiag.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_kernels.so"
 
 # what the last build in this process reported (build seconds, ptxas log)
@@ -64,18 +65,35 @@ def build_library(force: bool = False) -> str:
             BUILD_INFO.update(path=lib, seconds=0.0, cached=True, log="")
         return lib
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_source_paths()]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(out_dir, f"{os.path.splitext(s)[0]}.{tag}.o")
+            for s in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            for obj, src in zip(objs, _source_paths())]
+    tmp = f"{lib}.{tag}"
+    cmds.append([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                 "-o", tmp, *objs])
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    logs = []
+    # every source at once, then the link
+    for batch in (cmds[:-1], cmds[-1:]):
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in batch]
+        outs = [" ".join(cmd) + "\n" + proc.communicate()[0]
+                for cmd, proc in zip(batch, procs)]
+        logs += outs
+        for proc, out in zip(procs, outs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{out}")
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log}")
+    log = "\n".join(logs)
     with open(os.path.join(out_dir, "build.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + log)
+        f.write(log)
     os.replace(tmp, lib)
+    for obj in objs:
+        os.remove(obj)
     BUILD_INFO.update(path=lib, seconds=seconds, cached=False, log=log)
     return lib
 
@@ -90,6 +108,17 @@ def load_library() -> ctypes.CDLL:
     lib.repro_scan_add.restype = i32
     lib.repro_apply_add.argtypes = [vp, vp, vp, i32, i64, i64, i32, vp]
     lib.repro_apply_add.restype = i32
+    lib.repro_linrec_scratch.argtypes = [i64, i32, i32]
+    lib.repro_linrec_scratch.restype = i64
+    lib.repro_scan_linrec.argtypes = [vp, vp, vp, vp, i32, i64, i64, i32, i32,
+                                      ctypes.POINTER(ctypes.c_int), i32, i32,
+                                      i32, vp, vp]
+    lib.repro_scan_linrec.restype = i32
+    lib.repro_apply_linrec.argtypes = [vp, vp, vp, vp, i32, i64, i64, i32, vp]
+    lib.repro_apply_linrec.restype = i32
+    lib.repro_pcr.argtypes = [vp, vp, vp, vp, vp, i32, i64, i32, i32, i32,
+                              i32, vp]
+    lib.repro_pcr.restype = i32
     lib.repro_error_string.argtypes = [i32]
     lib.repro_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,19 +1,27 @@
-"""The scan kernel's wrapper: batched radix-r prefix sum (add monoid).
+"""The scan kernels' wrappers: batched radix-r prefix sum (add monoid)
+and linear recurrence (the (a, b) pair monoid).
 
-``scan_add`` replaces ``repro.kernels.scan.kernel.scan_add_pallas``.  On a
-CUDA tensor it launches the hand-written Hopper kernel of
-``csrc/scan.cu`` (``repro_scan_add``); on a CPU tensor it runs
-``scan_add_plain``, the same function in plain PyTorch: the plan's stage
-sequence of ``primitives.shift_fold`` levels on each column tile, then the
-f32 row carry.  Any other device raises; nothing falls back.
+  * ``scan_add`` replaces ``repro.kernels.scan.kernel.scan_add_pallas``
+    (``csrc/scan.cu`` ``repro_scan_add``);
+  * ``scan_linrec`` replaces ``scan_linrec_pallas`` and
+    ``scan_linrec_prod`` replaces ``scan_linrec_prod_pallas`` (both
+    ``csrc/linrec.cu`` ``repro_scan_linrec``).
+
+On a CUDA tensor each launches its hand-written Hopper kernel; on a CPU
+tensor it runs its plain version (``*_plain``), the same function in
+plain PyTorch: the plan's stage sequence of ``primitives`` levels on each
+column tile, then the f32 row carry.  Any other device raises; nothing
+falls back.
 
 Layout: problems are rows of a (batch, n) tensor.  Knobs, all consumed:
 ``rows_per_program`` (rows per thread block), ``tile_n`` (columns per
 staged tile; the kernel loops over the n / tile_n tiles with the carry),
-``stages`` (the plan's fan-in sequence) and ``unroll`` (fold order, and
-the least elements per thread).
+``stages`` (the plan's fan-in sequence) and, for the prefix sum,
+``unroll`` (fold order, and the least elements per thread).  linrec's
+fold order is fixed by its algebra: it takes no ``unroll``.
 
-Bound on the card: memory bandwidth — one read of x, one write of y.
+Bound on the card: memory bandwidth — one read of each input, one write
+of each output.
 """
 from __future__ import annotations
 
@@ -113,3 +121,146 @@ def scan_add(x: torch.Tensor, *, rows_per_program: int, tile_n: int,
 
 # launches of the CUDA kernel (plain-version calls are not counted)
 scan_add.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Linear recurrence h_t = a_t h_{t-1} + b_t
+# ---------------------------------------------------------------------------
+
+def _check_linrec(a: torch.Tensor, b: torch.Tensor, rows: int, tile_n: int,
+                  stages: Tuple[int, ...]) -> None:
+    if a.dim() != 2 or a.shape != b.shape:
+        raise ValueError(f"scan_linrec takes two (batch, n) tensors of one "
+                         f"shape, got {tuple(a.shape)} and {tuple(b.shape)}")
+    if a.dtype not in DTYPE_CODES or b.dtype != a.dtype:
+        raise TypeError(f"scan_linrec takes float32 or bfloat16 pairs of one "
+                        f"type, got {a.dtype} and {b.dtype}")
+    if a.device != b.device:
+        raise ValueError("scan_linrec: a and b lie on different devices")
+    batch, n = a.shape
+    if rows < 1 or batch % rows:
+        raise ValueError(f"rows_per_program={rows} must divide batch={batch}")
+    if tile_n < 1 or n % tile_n:
+        raise ValueError(f"tile_n={tile_n} must divide n={n}")
+    if math.prod(stages) != tile_n:
+        raise ValueError(f"stages {stages} multiply to {math.prod(stages)}, "
+                         f"not tile_n={tile_n}")
+
+
+def _linrec_tiles(a: torch.Tensor, b: torch.Tensor, tile_n: int,
+                  stages: Tuple[int, ...], gate: bool, carry: bool):
+    """Per column tile: the f32 stage loop, then (with ``carry``) the f32
+    row carry.  Yields (column slice, h, prefix products) per tile."""
+    batch, n = a.shape
+    state = prim.carry_init(batch, a.device)
+    for j in range(n // tile_n):
+        cols = slice(j * tile_n, (j + 1) * tile_n)
+        aa = a[:, cols].to(torch.float32)
+        bb = b[:, cols].to(torch.float32)
+        if gate:
+            bb = prim.rglru_gate(aa, bb)
+        for fan_in, stride in zip(stages, stage_strides(stages)):
+            aa, bb = prim.linrec_level(aa, bb, fan_in, stride)
+        h = bb
+        if carry:
+            h, state = prim.carry_fold_linrec(aa, bb, state)
+        yield cols, h, aa
+
+
+def scan_linrec_plain(a: torch.Tensor, b: torch.Tensor, *,
+                      rows_per_program: int, tile_n: int,
+                      stages: Sequence[int], gate: bool = False
+                      ) -> torch.Tensor:
+    """The linrec kernel's function in plain PyTorch (rows are independent,
+    so one pass over all of them computes what every row block does)."""
+    stages = tuple(int(r) for r in stages)
+    _check_linrec(a, b, rows_per_program, tile_n, stages)
+    h = torch.empty_like(a)
+    for cols, t, _ in _linrec_tiles(a, b, tile_n, stages, gate, carry=True):
+        h[:, cols] = t.to(a.dtype)
+    return h
+
+
+def scan_linrec_prod_plain(a: torch.Tensor, b: torch.Tensor, *,
+                           rows_per_program: int, stages: Sequence[int],
+                           gate: bool = False
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunk kernel's function in plain PyTorch: one tile per row, no
+    carry; returns h and the prefix products of a."""
+    stages = tuple(int(r) for r in stages)
+    _check_linrec(a, b, rows_per_program, a.shape[-1], stages)
+    (_, h, p), = _linrec_tiles(a, b, a.shape[-1], stages, gate, carry=False)
+    return h.to(a.dtype), p.to(a.dtype)
+
+
+def _launch_linrec(a: torch.Tensor, b: torch.Tensor, rows: int, tile_n: int,
+                   stages: Tuple[int, ...], gate: bool, products: bool):
+    from repro_torch.kernels.build import check, load_library
+
+    _check_linrec(a, b, rows, tile_n, stages)
+    if not a.is_cuda:
+        raise ValueError(f"the CUDA linrec kernel needs CUDA tensors, got "
+                         f"ones on {a.device}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("scan_linrec takes contiguous tensors")
+    if rows * tile_n > MAX_TILE_ELEMS:
+        raise ValueError(f"a {rows} x {tile_n} tile exceeds the kernel's "
+                         f"{MAX_TILE_ELEMS} elements per block")
+    lib = load_library()
+    batch, n = a.shape
+    h = torch.empty_like(a)
+    p = torch.empty_like(a) if products else None
+    floats = lib.repro_linrec_scratch(batch, rows, tile_n)
+    scratch = torch.empty(floats, dtype=torch.float32, device=a.device) \
+        if floats else None
+    fan_in = (ctypes.c_int * max(len(stages), 1))(*stages)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        code = lib.repro_scan_linrec(
+            a.data_ptr(), b.data_ptr(), h.data_ptr(),
+            p.data_ptr() if products else None, DTYPE_CODES[a.dtype], batch,
+            n, rows, tile_n, fan_in, len(stages), int(gate),
+            0 if products else 1,
+            scratch.data_ptr() if scratch is not None else None, stream)
+    check(code, "scan_linrec launch")
+    return h, p
+
+
+def scan_linrec(a: torch.Tensor, b: torch.Tensor, *, rows_per_program: int,
+                tile_n: int, stages: Sequence[int], gate: bool = False
+                ) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t along the last axis of (batch, n) pairs.
+
+    ``gate=True`` is the fused RG-LRU chain link: ``b`` carries the raw
+    input u and the kernel applies the gate in-tile before the stage loop.
+    """
+    stages = tuple(int(r) for r in stages)
+    if not kernel_path(a):
+        return scan_linrec_plain(a, b, rows_per_program=rows_per_program,
+                                 tile_n=tile_n, stages=stages, gate=gate)
+    h, _ = _launch_linrec(a.contiguous(), b.contiguous(), rows_per_program,
+                          tile_n, stages, gate, products=False)
+    scan_linrec.launches += 1
+    return h
+
+
+def scan_linrec_prod(a: torch.Tensor, b: torch.Tensor, *,
+                     rows_per_program: int, stages: Sequence[int],
+                     gate: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-tile linrec (tile_n = n) returning (h, prefix products of a):
+    the multipass driver's chunk kernel, whose products are each chunk's
+    transfer operator."""
+    stages = tuple(int(r) for r in stages)
+    if not kernel_path(a):
+        return scan_linrec_prod_plain(a, b, rows_per_program=rows_per_program,
+                                      stages=stages, gate=gate)
+    out = _launch_linrec(a.contiguous(), b.contiguous(), rows_per_program,
+                         a.shape[-1], stages, gate, products=True)
+    scan_linrec_prod.launches += 1
+    return out
+
+
+# launches of the CUDA kernels (plain-version calls are not counted)
+scan_linrec.launches = 0
+scan_linrec_prod.launches = 0

@@ -1,4 +1,4 @@
-"""Tuned scan entry point: the row-wise prefix sum.
+"""Tuned scan entry points: the row-wise prefix sum and linear recurrence.
 
 Every call resolves its configuration through the default
 :class:`repro_torch.tuning.TunerSession` — DB hit (offline-tuned), else
@@ -23,8 +23,8 @@ import torch
 from repro_torch.core.space import Workload, fit_block, scan_space
 from repro_torch.kernels.blocks import driver
 from repro_torch.kernels.blocks.plan import plan_for
-from repro_torch.kernels.scan.kernel import scan_add
-from repro_torch.kernels.scan.ref import scan_add_ref
+from repro_torch.kernels.scan.kernel import scan_add, scan_linrec
+from repro_torch.kernels.scan.ref import scan_add_ref, scan_linrec_assoc_ref
 from repro_torch.tuning import default_session, tuned_kernel
 
 
@@ -70,3 +70,21 @@ def prefix_sum(x: torch.Tensor, variant: str = "ks",
     return driver.launch(scan_add, plan.launches[0], x,
                          rows_per_program=plan.rows, tile_n=plan.tile_n,
                          stages=plan.stages, unroll=cfg.get("unroll", 1))
+
+
+@tuned_kernel("scan", space=scan_space, kernel=scan_linrec,
+              reference=scan_linrec_assoc_ref, normalize=_normalize,
+              variants=("ks", "lf", "linrec"))
+def linear_recurrence(a: torch.Tensor, b: torch.Tensor,
+                      variant: str = "linrec",
+                      config: Optional[dict] = None) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t row-wise with tuned blocking."""
+    batch, n = a.shape
+    wl = Workload(op="scan", n=n, batch=batch, variant=variant)
+    cfg = default_session().resolve(wl, config=config)
+    plan = plan_for(_plan_workload(wl, linrec=True), cfg)
+    if plan.kind == "multipass":
+        return driver.multipass_linrec(a, b, plan)
+    return driver.launch(scan_linrec, plan.launches[0], a, b,
+                         rows_per_program=plan.rows, tile_n=plan.tile_n,
+                         stages=plan.stages)

@@ -1,6 +1,7 @@
-"""Offline tuning CLI of the port: the paper's loop on the prefix-sum scan.
+"""Offline tuning CLI of the port: the paper's loop on the prefix-sum scan
+and the tridiagonal solvers.
 
-Tune one scan workload per size and persist the winner in a TuningDB:
+Tune one workload per size and persist the winner in a TuningDB:
 
   PYTHONPATH=src python -m repro_torch.launch.tune --op scan --variant ks \\
       --sizes 1024,4096 --method bayesian --db artifacts/tuning_db_torch.json
@@ -8,13 +9,15 @@ Tune one scan workload per size and persist the winner in a TuningDB:
 Score every methodology against the exhaustive optimum (paper Table II):
 
   PYTHONPATH=src python -m repro_torch.launch.tune compare-methods \\
-      --variant ks --sizes 1024,4096 --methods exhaustive,analytical,bayesian,random
+      --op tridiag --variant pcr --sizes 256,1024 \\
+      --methods exhaustive,analytical,bayesian,random
 
 Both run on the card (``--device cuda``, the default) and time each
-candidate config with a ``WallClockObjective`` whose thunk calls
-``prefix_sum`` on device-resident input and ends in
-``torch.cuda.synchronize()``.  ``--device cpu`` runs the kernels' plain
-versions on the CPU instead (small sizes only); ``--objective cost``
+candidate config with a ``WallClockObjective`` whose thunk calls the op's
+entry point (``prefix_sum``, or ``solve`` on a diagonally dominant system)
+on device-resident input and ends in ``torch.cuda.synchronize()``.
+``--device cpu`` runs the kernels' plain versions on the CPU instead
+(small sizes only); ``--objective cost``
 scores configs on the ``h100`` cost model rather than measuring them.  The
 batch defaults to the paper's 2^26 / n problems per invocation.  A
 runner failure (a kernel that does not build or launch) aborts the run
@@ -61,14 +64,46 @@ def make_scan_runner(device: torch.device, seed: int = 0
     return run
 
 
+def make_tridiag_runner(device: torch.device, seed: int = 0
+                        ) -> Callable[[Workload, Config], Callable[[], None]]:
+    """A ``WallClockObjective`` runner: for each workload, one seeded
+    diagonally dominant system on ``device`` (made once and reused), and a
+    thunk that runs the public ``solve`` entry point with the candidate
+    config."""
+    from repro_torch.kernels.tridiag.ops import solve
+    from repro_torch.kernels.tridiag.ref import random_system
+
+    systems: Dict[str, tuple] = {}
+
+    def run(wl: Workload, cfg: Config) -> Callable[[], None]:
+        system = systems.get(wl.key)
+        if system is None:
+            gen = torch.Generator(device=device).manual_seed(seed)
+            system = tuple(v.to(_DTYPES[wl.dtype]) for v in
+                           random_system(gen, wl.batch, wl.n, device=device))
+            systems[wl.key] = system
+        return lambda: solve(*system, variant=wl.variant, config=cfg)
+
+    return run
+
+
+# op -> (runner factory, the variants its entry point takes)
+_OPS = {"scan": (make_scan_runner, ("ks", "lf", "linrec")),
+        "tridiag": (make_tridiag_runner, ("pcr", "cr", "lf", "wm", "thomas"))}
+
+
 def _workloads(args) -> List[Workload]:
-    if args.op != "scan":
-        raise SystemExit(f"--op {args.op}: only 'scan' is ported so far "
-                         f"(see ROADMAP.md)")
+    if args.op not in _OPS:
+        raise SystemExit(f"--op {args.op}: only "
+                         f"{', '.join(repr(op) for op in _OPS)} are ported "
+                         f"so far (see ROADMAP.md)")
+    if args.variant not in _OPS[args.op][1]:
+        raise SystemExit(f"--variant {args.variant}: --op {args.op} takes "
+                         f"{', '.join(_OPS[args.op][1])}")
     sizes = [int(s) for s in args.sizes.split(",") if s]
     if not sizes:
         raise SystemExit("--sizes: give at least one problem size")
-    return [Workload(op="scan", n=n,
+    return [Workload(op=args.op, n=n,
                      batch=args.batch or max(TOTAL_ELEMS // n, 1),
                      dtype=args.dtype, variant=args.variant)
             for n in sizes]
@@ -94,7 +129,7 @@ def _add_common(ap: argparse.ArgumentParser) -> None:
 
 def _objective_factory(args, device: torch.device,
                        made: List[Objective]) -> Callable[[], Objective]:
-    runner = make_scan_runner(device, args.seed)
+    runner = _OPS[args.op][0](device, args.seed)
 
     def factory() -> Objective:
         obj = CostModelObjective() if args.objective == "cost" \
@@ -167,9 +202,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    workloads = _workloads(args)
     session = TunerSession(db_path=args.db)
     factory = _objective_factory(args, device, [])
-    for wl in _workloads(args):
+    for wl in workloads:
         res = session.tune(wl, method=args.method, objective=factory(),
                            seed=args.seed, max_evals=args.max_evals)
         print(f"[tune] {wl.key}: {res.best_config} "

@@ -77,6 +77,7 @@ def tuned_kernel(op: str, *, space: Optional[SpaceBuilder] = None,
 # look the module up lazily (ops sharing a module map onto it here)
 _OP_MODULES = {
     "scan": "repro_torch.kernels.scan.ops",
+    "tridiag": "repro_torch.kernels.tridiag.ops",
 }
 
 

@@ -13,8 +13,15 @@ import torch
 from conftest import assert_kernel_close
 from repro_torch.kernels.blocks import driver
 from repro_torch.kernels.blocks.plan import stage_radices
-from repro_torch.kernels.scan.kernel import scan_add, scan_add_plain
-from repro_torch.kernels.scan.ops import prefix_sum
+from repro_torch.kernels.scan.kernel import (scan_add, scan_add_plain,
+                                             scan_linrec, scan_linrec_plain,
+                                             scan_linrec_prod,
+                                             scan_linrec_prod_plain)
+from repro_torch.kernels.scan.ops import linear_recurrence, prefix_sum
+from repro_torch.kernels.scan.ref import scan_linrec_assoc_ref
+from repro_torch.kernels.tridiag import ops as tridiag_ops
+from repro_torch.kernels.tridiag.kernel import pcr, pcr_plain
+from repro_torch.kernels.tridiag.ref import random_system, residual
 
 pytestmark = pytest.mark.cuda
 
@@ -83,3 +90,103 @@ def test_prefix_sum_on_the_card(cuda, cfg):
             y = prefix_sum(x, config=cfg)
         assert len(launched) == (3 if n // cfg["tile_n"] > 64 else 1)
         _close(y, torch.cumsum(x.double(), dim=-1), "float32")
+
+
+def _linrec_pair(gen, batch, n, dtype, device):
+    a = torch.rand(batch, n, generator=gen, device=device) * 0.19 + 0.8
+    b = torch.randn(batch, n, generator=gen, device=device)
+    return a.to(_TORCH[dtype]), b.to(_TORCH[dtype])
+
+
+@pytest.mark.parametrize("gate", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch,n,rows,tile_n,radix", [
+    (7, 96, 7, 96, 8), (4, 512, 2, 128, 4), (5, 212, 5, 106, 2),
+    (8, 16384, 1, 16384, 2), (2, 65536, 1, 32768, 8)])
+def test_scan_linrec_kernel_matches_plain(cuda, gate, dtype, batch, n, rows,
+                                          tile_n, radix):
+    """32768 elements a block puts the stage planes in global scratch."""
+    gen = torch.Generator(device=cuda).manual_seed(batch * n)
+    a, b = _linrec_pair(gen, batch, n, dtype, cuda)
+    kw = dict(rows_per_program=rows, tile_n=tile_n,
+              stages=stage_radices(tile_n, radix), gate=gate)
+    before = scan_linrec.launches
+    got = scan_linrec(a, b, **kw)
+    assert scan_linrec.launches == before + 1
+    _close(got, scan_linrec_plain(a, b, **kw), dtype)
+
+
+@pytest.mark.parametrize("gate", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch,n,rows,radix", [
+    (96, 100, 3, 4), (512, 2048, 4, 2), (7, 106, 7, 2)])
+def test_scan_linrec_prod_kernel_matches_plain(cuda, gate, dtype, batch, n,
+                                               rows, radix):
+    gen = torch.Generator(device=cuda).manual_seed(batch + n)
+    a, b = _linrec_pair(gen, batch, n, dtype, cuda)
+    kw = dict(rows_per_program=rows, stages=stage_radices(n, radix),
+              gate=gate)
+    before = scan_linrec_prod.launches
+    h, p = scan_linrec_prod(a, b, **kw)
+    assert scan_linrec_prod.launches == before + 1
+    hr, pr = scan_linrec_prod_plain(a, b, **kw)
+    _close(h, hr, dtype)
+    _close(p, pr, dtype)
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_apply_linrec_kernel_matches_plain(cuda, out_dtype):
+    h = torch.randn(96, 1000, device=cuda)
+    p = torch.rand(96, 1000, device=cuda)
+    e = torch.randn(96, 1, device=cuda)
+    got = driver.apply_linrec(h, p, e, rows=3, out_dtype=_TORCH[out_dtype])
+    ref = driver.apply_linrec_plain(h, p, e, rows=3,
+                                    out_dtype=_TORCH[out_dtype])
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch,n,rows,unroll", [
+    (64, 1024, 4, 1), (6, 96, 3, 2), (10, 100, 5, 4), (8, 1, 2, 1),
+    (4, 8192, 1, 1)])
+def test_pcr_kernel_matches_plain(cuda, dtype, batch, n, rows, unroll):
+    gen = torch.Generator(device=cuda).manual_seed(batch * n)
+    planes = [v.to(_TORCH[dtype]) for v in random_system(gen, batch, n)]
+    before = pcr.launches
+    got = pcr(*planes, rows_per_program=rows, unroll=unroll)
+    assert pcr.launches == before + 1
+    _close(got, pcr_plain(*planes, rows_per_program=rows, unroll=unroll),
+           dtype)
+
+
+@pytest.mark.parametrize("variant", ["pcr", "cr", "lf", "wm"])
+def test_solve_on_the_card(cuda, variant):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    system = random_system(gen, 256, 1024)
+    x = tridiag_ops.solve(*system, variant=variant)
+    assert float(residual(*system, x)) < 1e-4
+    _close(x, tridiag_ops.solve(*(v.cpu() for v in system),
+                                variant=variant), "float32")
+
+
+def test_lf_solve_above_multipass_min_on_the_card(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    system = random_system(gen, 2, 2 * tridiag_ops.LF_MULTIPASS_MIN)
+    with driver.capture_launches() as launched:
+        x = tridiag_ops.solve(*system, variant="lf")
+    assert len(launched) >= 2
+    assert float(residual(*system, x)) < 1e-4
+
+
+@pytest.mark.parametrize("cfg", [
+    {"tile_n": 256, "rows_per_program": 4, "radix": 4},
+    {"tile_n": 128, "rows_per_program": 2, "radix": 8}])
+def test_linear_recurrence_on_the_card(cuda, cfg):
+    """Fused (n = 1024) and multipass (n = 2^15 / 128 = 256 tiles)."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    for n in (1024, 2 ** 15):
+        a, b = _linrec_pair(gen, 16, n, "float32", cuda)
+        with driver.capture_launches() as launched:
+            h = linear_recurrence(a, b, config=cfg)
+        assert len(launched) == (3 if n // cfg["tile_n"] > 64 else 1)
+        _close(h, scan_linrec_assoc_ref(a.double(), b.double()), "float32")

@@ -48,8 +48,8 @@ def test_no_jax_or_repro_import(path):
 def test_importing_the_port_loads_neither_jax_nor_repro():
     code = ("import sys\n"
             "import repro_torch, repro_torch.kernels.scan.ops, "
-            "repro_torch.launch.tune, repro_torch.evaluation, "
-            "repro_torch.kernels.build\n"
+            "repro_torch.kernels.tridiag.ops, repro_torch.launch.tune, "
+            "repro_torch.evaluation, repro_torch.kernels.build\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or "
             "m.startswith(('jax.', 'repro.')))\n"
             "assert not bad, bad\n")
@@ -102,10 +102,29 @@ def test_entry_points_ask_for_the_card_by_default(monkeypatch):
 def test_a_tensor_off_the_cpu_never_reaches_a_plain_version():
     """A non-CPU tensor goes to the CUDA kernel or raises: here (no card)
     a meta tensor raises in every wrapper rather than falling back."""
-    from repro_torch.kernels.blocks.driver import apply_add
-    from repro_torch.kernels.scan.kernel import _launch, scan_add
-    from repro_torch.kernels.scan.ops import prefix_sum
+    from repro_torch.kernels.blocks.driver import apply_add, apply_linrec
+    from repro_torch.kernels.scan.kernel import (_launch, _launch_linrec,
+                                                 scan_add, scan_linrec,
+                                                 scan_linrec_prod)
+    from repro_torch.kernels.scan.ops import linear_recurrence, prefix_sum
+    from repro_torch.kernels.tridiag.kernel import pcr
+    from repro_torch.kernels.tridiag.ops import solve
     x = torch.empty(4, 64, device="meta")
+    meta = "no kernel for tensors on meta"
+    for call in (lambda: scan_linrec(x, x, rows_per_program=2, tile_n=64,
+                                     stages=(2,) * 6),
+                 lambda: scan_linrec_prod(x, x, rows_per_program=2,
+                                          stages=(2,) * 6),
+                 lambda: linear_recurrence(x, x),
+                 lambda: apply_linrec(x, x, torch.empty(4, 1, device="meta"),
+                                      rows=2),
+                 lambda: pcr(x, x, x, x, rows_per_program=2),
+                 lambda: solve(x, x, x, x, variant="pcr")):
+        with pytest.raises(ValueError, match=meta):
+            call()
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        _launch_linrec(torch.rand(4, 64), torch.rand(4, 64), 2, 64, (2,) * 6,
+                       False, False)
     with pytest.raises(ValueError, match="no kernel for tensors on meta"):
         scan_add(x, rows_per_program=2, tile_n=64, stages=(2,) * 6)
     with pytest.raises(ValueError, match="no kernel for tensors on meta"):
@@ -128,3 +147,34 @@ def test_a_missing_compiler_raises(monkeypatch, tmp_path):
     build.load_library.cache_clear()
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.load_library()
+
+
+def test_every_cuda_source_is_built():
+    """Each source under csrc/ is compiled into the kernel library."""
+    from repro_torch.kernels import build
+    sources = sorted(f for f in os.listdir(os.path.join(PORT, "csrc"))
+                     if f.endswith((".cu", ".cuh")))
+    assert sorted(build.SOURCES) == sources
+
+
+def test_bfloat16_spaces_build_without_jax():
+    """numpy names bfloat16 only once ml_dtypes (which JAX imports) is
+    loaded; the port's bf16 spaces and plans must not depend on that."""
+    code = ("import sys\n"
+            "from repro_torch.core.space import Workload, scan_space, "
+            "tridiag_space\n"
+            "from repro_torch.hw.profiles import dtype_bytes\n"
+            "from repro_torch.kernels.blocks.plan import plan_for\n"
+            "assert dtype_bytes('bfloat16') == 2\n"
+            "for op, fn, v in (('scan', scan_space, 'linrec'), "
+            "('tridiag', tridiag_space, 'pcr')):\n"
+            "    wl = Workload(op=op, n=1024, batch=64, dtype='bfloat16', "
+            "variant=v)\n"
+            "    cfgs = fn(wl).enumerate_valid()\n"
+            "    assert cfgs and plan_for(wl, cfgs[-1]).launches\n"
+            "assert 'ml_dtypes' not in sys.modules and 'jax' not in "
+            "sys.modules\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

@@ -30,16 +30,24 @@ WORKLOADS = [(variant, n, batch) for variant in ("ks", "lf")
              for n in (96, 256, 1024, 4096) for batch in (3, 7, 64)]
 
 
-def _pair(variant, n, batch, dtype="float32"):
-    return (j_space.Workload(op="scan", n=n, batch=batch, dtype=dtype,
+TRIDIAG_WORKLOADS = [(variant, n, batch)
+                     for variant in ("pcr", "cr", "lf", "wm", "thomas")
+                     for n in (2, 96, 100, 256, 1024) for batch in (3, 64)]
+
+
+def _pair(variant, n, batch, dtype="float32", op="scan"):
+    return (j_space.Workload(op=op, n=n, batch=batch, dtype=dtype,
                              variant=variant),
-            t_space.Workload(op="scan", n=n, batch=batch, dtype=dtype,
+            t_space.Workload(op=op, n=n, batch=batch, dtype=dtype,
                              variant=variant))
 
 
 def _assert_same(profile, jwl, twl, cfgs=None):
+    """The op's space, every plan, score and cost-model time, equal."""
     jp, tp = j_profiles.get_profile(profile), t_profiles.get_profile(profile)
-    jsp, tsp = j_space.scan_space(jwl, jp), t_space.scan_space(twl, tp)
+    builder = f"{jwl.op}_space"
+    jsp = getattr(j_space, builder)(jwl, jp)
+    tsp = getattr(t_space, builder)(twl, tp)
     valid = jsp.enumerate_valid()
     assert valid == tsp.enumerate_valid()
     assert [jsp.encode(c) for c in valid] == [tsp.encode(c) for c in valid]
@@ -156,3 +164,73 @@ def test_other_ops_are_not_ported_yet():
         t_space.build_space(wl)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_plan.build_plan(wl, {})
+
+
+@pytest.mark.parametrize("profile", PROFILES)
+@pytest.mark.parametrize("variant,n,batch", TRIDIAG_WORKLOADS)
+def test_tridiag_space_plan_score_cost_identical(profile, variant, n, batch):
+    """tridiag_space, _tridiag_plan, the analytical scores and the
+    cost-model times (scalar and batched) for every solver variant."""
+    jwl, twl = _pair(variant, n, batch, op="tridiag")
+    assert _assert_same(profile, jwl, twl)
+
+
+@pytest.mark.parametrize("profile", PROFILES)
+@pytest.mark.parametrize("variant", ["pcr", "wm"])
+def test_tridiag_bf16_space_identical(profile, variant):
+    jwl, twl = _pair(variant, 1024, 64, dtype="bfloat16", op="tridiag")
+    assert _assert_same(profile, jwl, twl)
+
+
+@pytest.mark.parametrize("profile", PROFILES)
+def test_linrec_space_plan_score_cost_identical(profile):
+    """scan_space's linrec variant (no unroll knob, three resident planes)
+    and its multipass plans, on both sides."""
+    for n, batch in ((96, 7), (1024, 64), (2 ** 16, 16)):
+        jwl, twl = _pair("linrec", n, batch)
+        assert _assert_same(profile, jwl, twl)
+    jwl, twl = _pair("linrec", 2 ** 16, 16)
+    cfgs = [{"tile_n": 256, "rows_per_program": rows, "radix": radix,
+             "unroll": 1, "in_register": 0}
+            for rows in (1, 8) for radix in (2, 4, 8)]
+    _assert_same(profile, jwl, twl, cfgs)
+    plan = t_plan.plan_for(twl, cfgs[0], profile=t_profiles.get_profile(
+        profile))
+    assert plan.kind == "multipass" and plan.launches[0].block_shape[1] == 256
+
+
+@pytest.mark.parametrize("radix", [2, 3, 4, 8, 16])
+def test_wm_chunk_identical(radix):
+    for n in range(1, 600):
+        assert t_plan.wm_chunk(radix, n) == j_plan.wm_chunk(radix, n)
+
+
+def test_h100_vmem_budget_fits_the_pcr_kernel():
+    """Every config tridiag_space(pcr) admits under h100 fits the CUDA PCR
+    kernel: at most 16384 equations a block (two f32 exchange buffers,
+    128 KiB of shared memory)."""
+    from repro_torch.kernels.tridiag.kernel import MAX_SYSTEM_ELEMS
+    h100 = t_profiles.get_profile("h100")
+    for dtype in ("float32", "bfloat16"):
+        for n, batch in ((96, 2 ** 16), (256, 2 ** 18), (1024, 2 ** 16),
+                         (8192, 2 ** 13)):
+            wl = t_space.Workload(op="tridiag", n=n, batch=batch,
+                                  dtype=dtype, variant="pcr")
+            for cfg in t_space.tridiag_space(wl, h100).enumerate_valid():
+                assert cfg["rows_per_program"] * n <= MAX_SYSTEM_ELEMS
+                assert 2 * 4 * cfg["rows_per_program"] * n <= 232448
+
+
+@pytest.mark.parametrize("n,batch,kind", [
+    (1024, 2 ** 16, "fused"), (2 ** 16, 1024, "fused"),
+    (2 ** 22, 16, "multipass")])
+def test_h100_linrec_main_path_plans(n, batch, kind):
+    """The linrec workloads chip_smoke.py drives (linear_recurrence, and
+    the LF sweeps above LF_MULTIPASS_MIN) resolve under h100 to a fused
+    plan at n <= 2^16 and the multipass driver at 2^22."""
+    h100 = t_profiles.get_profile("h100")
+    wl = t_space.Workload(op="scan", n=n, batch=batch, variant="linrec")
+    cfg = t_analytical.AnalyticalTuner().suggest(t_space.scan_space(wl, h100))
+    plan = t_plan.plan_for(wl, cfg, profile=h100)
+    assert plan.kind == kind
+    assert plan.check(h100) == []
