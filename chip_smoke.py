@@ -29,12 +29,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``linear_recurrence`` fused and multipass against float64 references,
    each call's launch list equal to its plans' and every kernel's launch
    count non-zero;
-6. the paper's loop on the card — ``compare_methods`` for scan ks at
-   n = 1024 and 4096 and tridiag pcr at n = 256 and 1024 on measured
-   times (``WallClockObjective``): exhaustive / analytical / bayesian /
-   random, the Phi table, the sweep sizes and the runner failures, which
-   must be 0;
-7. the ``kernels`` line: per kernel its launches on the main path, its
+6. the FFT: ``fft_stockham`` against ``fft_plain`` on the card over every
+   admitted config of ``fft_space`` at n = 1024 and 8192 under ``h100``
+   and the ragged and prime stage sequences, inverse on and off, at the
+   complex64 tolerance; then, at 2^26 complex64 elements a call, ``fft``
+   at n = 256 ... 8192 (one fused launch) and at 2^16, 2^20 and 2^23 (the
+   four-step driver), calls at 2^23 forced to m = 3 (tile_n = 256) and
+   m = 2 (tile_n = 4096), and ``ifft`` round trips, each held against a complex128 ``torch.fft.fft``
+   at 1e-4 relative, with the launch list equal to the plan's and the
+   kernel's launch count non-zero; and where the four-step time goes
+   (kernel launches against the torch transposes and twiddle);
+7. the paper's loop on the card — ``compare_methods`` for scan ks at
+   n = 1024 and 4096, tridiag pcr at n = 256 and 1024 and fft stockham at
+   n = 1024 and 4096 on measured times (``WallClockObjective``):
+   exhaustive / analytical / bayesian / random, the Phi table, the sweep
+   sizes and the runner failures, which must be 0;
+8. the ``kernels`` line: per kernel its launches on the main path, its
    error against the plain version, its time, the plain version's and the
    library call's (null where no one PyTorch call computes the function),
    and its bound (bytes over the card's memory rate, or operations over
@@ -47,6 +57,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -57,9 +68,12 @@ SRC = os.path.join(ROOT, "src")
 
 # the tests' shared tolerances (tests/conftest.py DTYPE_TOL): rtol, and an
 # atol relative to the reference's magnitude (prefix sums accumulate)
-DTYPE_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}
+DTYPE_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2),
+             "complex64": (1e-4, 1e-4)}
 TOTAL_ELEMS = 2 ** 26      # paper: batch = 2^26 / n problems per call
 F32_PEAK = 67e12           # H100 SXM f32 outside the tensor cores (FLOP/s)
+FFT_DEEP = (2 ** 23, 8)    # the FFT size driven at both four-step depths
+FFT_TRIPS = (1024, 2 ** 20)  # ifft(fft(x)): one fused, one four-step
 
 
 def log(msg: str) -> None:
@@ -83,6 +97,19 @@ def check_close(got, ref, dtype: str, what: str, scale: float = 1.0) -> float:
     if bool(torch.any(bad)) or not bool(torch.isfinite(g).all()):
         raise AssertionError(f"{what}: {int(bad.sum())} elements outside "
                              f"{dtype} tolerance (max abs err {err:.3e})")
+    return err
+
+
+def check_complex(got, ref, what: str) -> float:
+    """The complex64 tolerance the tests use: max |got - ref| relative to
+    max |ref| below DTYPE_TOL["complex64"]; returns that relative error."""
+    import torch
+    g, r = got.to(torch.complex128), ref.to(torch.complex128)
+    err = float((g - r).abs().max() / max(float(r.abs().max()), 1e-30))
+    if not (err < DTYPE_TOL["complex64"][0]) \
+            or not bool(torch.isfinite(torch.view_as_real(g)).all()):
+        raise AssertionError(f"{what}: relative error {err:.3e} outside the "
+                             f"complex64 tolerance")
     return err
 
 
@@ -242,10 +269,12 @@ def counted_wrappers():
     from repro_torch.kernels.blocks.driver import apply_add, apply_linrec
     from repro_torch.kernels.scan.kernel import (scan_add, scan_linrec,
                                                  scan_linrec_prod)
+    from repro_torch.kernels.fft.kernel import fft_stockham
     from repro_torch.kernels.tridiag.kernel import pcr
     return {"scan_add": scan_add, "apply_add": apply_add,
             "scan_linrec": scan_linrec, "scan_linrec_prod": scan_linrec_prod,
-            "apply_linrec": apply_linrec, "pcr": pcr}
+            "apply_linrec": apply_linrec, "pcr": pcr,
+            "fft_stockham": fft_stockham}
 
 
 def reset_counts():
@@ -317,10 +346,12 @@ def phase_loop(dev):
     from repro_torch.core import Workload
     from repro_torch.core.objective import WallClockObjective
     from repro_torch.evaluation import check_report, compare_methods, format_report
-    from repro_torch.launch.tune import make_scan_runner, make_tridiag_runner
+    from repro_torch.launch.tune import (make_fft_runner, make_scan_runner,
+                                         make_tridiag_runner)
 
     runners = {"scan": make_scan_runner(dev, seed=2),
-               "tridiag": make_tridiag_runner(dev, seed=2)}
+               "tridiag": make_tridiag_runner(dev, seed=2),
+               "fft": make_fft_runner(dev, seed=2)}
 
     def runner(wl, cfg):
         return runners[wl.op](wl, cfg)
@@ -336,6 +367,8 @@ def phase_loop(dev):
            for n in (1024, 4096)]
     wls += [Workload(op="tridiag", n=n, batch=TOTAL_ELEMS // n,
                      variant="pcr") for n in (256, 1024)]
+    wls += [Workload(op="fft", n=n, batch=TOTAL_ELEMS // n,
+                     variant="stockham") for n in (1024, 4096)]
     reset_counts()
     t0 = time.perf_counter()
     report = compare_methods(wls, ("exhaustive", "analytical", "bayesian",
@@ -357,7 +390,8 @@ def phase_loop(dev):
     if problems or failures:
         raise AssertionError(f"compare_methods: {problems}, runner "
                              f"failures {failures}")
-    require_launched(counts, ("scan_add", "pcr"), "the tuning loop")
+    require_launched(counts, ("scan_add", "pcr", "fft_stockham"),
+                     "the tuning loop")
     log("[loop] phi " + json.dumps(
         {op: {name: agg["phi"] for name, agg in per.items()}
          for op, per in report["per_op"].items()}))
@@ -776,7 +810,7 @@ def phase_tridiag_numbers(dev, systems, recs, plans, counts, errs,
             else (by_ops, "operations")
 
     def entry(name, source, replaces, fn, plain, nbytes, flops, shape,
-              config, err_name):
+              config, err_name, library=None):
         got, ref = fn(), plain()
         torch.cuda.synchronize()
         b_ms, b_by = bound(nbytes, flops)
@@ -784,7 +818,9 @@ def phase_tridiag_numbers(dev, systems, recs, plans, counts, errs,
                "replaces": replaces, "launches": counts[name],
                "max_abs_err": max(max_err(g, r) for g, r in zip(got, ref)),
                "ms": time_ms(fn, 10), "plain_ms": time_ms(plain, 3, warmup=1),
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": None if library is None else time_ms(library,
+                                                                  10),
                "shape": list(shape), "dtype": "float32", "config": config,
                "flops": flops, "check_max_abs_err": errs[err_name]}
         log(f"[numbers] {json.dumps(out, sort_keys=True)}")
@@ -830,7 +866,8 @@ def phase_tridiag_numbers(dev, systems, recs, plans, counts, errs,
         lambda: (apply_linrec(h, p, e, rows=rows),),
         lambda: (apply_linrec_plain(h, p, e, rows=rows),),
         3 * h.numel() * 4 + e.numel() * 4, 2 * h.numel(), h.shape,
-        {"rows": rows}, "apply_linrec"))
+        {"rows": rows}, "apply_linrec",
+        library=lambda: torch.addcmul(h, p, e)))
     del a, b, h, p, e
     # kernel 7 at solve(variant="pcr")'s n = 1024 call
     planes = systems[max(n for v, n, _ in tridiag_path_cases()
@@ -862,6 +899,260 @@ def phase_tridiag_numbers(dev, systems, recs, plans, counts, errs,
     return entries, ends
 
 
+def fft_stage_cases():
+    """(batch, n, rows, radix, unroll): the ragged and prime stage
+    sequences ((8, 6, 2) at 96, (2, 53) at 106, (8, 5, 5, 5) at 1000, the
+    16-point columns of a four-step call), the largest resident rows and
+    a block that holds more rows than shared memory (the kernel loops over
+    row groups)."""
+    return [(6, 96, 3, 8, 1), (7, 96, 7, 8, 2), (5, 106, 5, 2, 1),
+            (5, 106, 1, 16, 4), (4, 1000, 2, 8, 1), (7, 1000, 7, 16, 2),
+            (4096, 16, 64, 16, 1), (512, 2048, 4, 4, 4),
+            (4, 8192, 1, 16, 1), (8, 8192, 1, 2, 2), (3, 1, 3, 2, 1),
+            (64, 4096, 32, 8, 1)]
+
+
+def phase_fft_kernels(dev, quick: bool):
+    """fft_stockham against fft_plain on the card: every admitted config of
+    the paper workloads' fft_space under h100 (n = 1024 and 8192), and the
+    ragged / prime stage sequences, inverse on and off."""
+    import torch
+    from repro_torch.core.space import Workload, fft_space
+    from repro_torch.hw.profiles import get_profile
+    from repro_torch.kernels.blocks.plan import stage_radices
+    from repro_torch.kernels.fft.kernel import fft_plain, fft_stockham
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    worst = 0.0
+    cases = 0
+    for batch, n, rows, radix, unroll in fft_stage_cases():
+        x = torch.randn(batch, n, generator=gen, device=dev,
+                        dtype=torch.complex64)
+        for inverse in (False, True):
+            kw = dict(rows_per_program=rows, stages=stage_radices(n, radix),
+                      inverse=inverse)
+            got = fft_stockham(x, unroll=unroll, **kw)
+            ref = fft_plain(x, **kw)
+            torch.cuda.synchronize()
+            worst = max(worst, check_complex(
+                got, ref, f"fft_stockham ({batch},{n}) rows={rows} "
+                          f"stages={kw['stages']} unroll={unroll} "
+                          f"inverse={inverse}"))
+            cases += 1
+    log(f"[kernels] fft_stockham: {cases} shape/stage/direction cases within "
+        f"tolerance (max relative err {worst:.3e})")
+
+    h100 = get_profile("h100")
+    for n in (1024, 8192):
+        wl = Workload(op="fft", n=n, batch=TOTAL_ELEMS // n,
+                      variant="stockham")
+        cfgs = fft_space(wl, h100).enumerate_valid()
+        if quick:
+            cfgs = cfgs[::8]
+        for inverse in (False, True):
+            x = torch.randn(wl.batch, n, generator=gen, device=dev,
+                            dtype=torch.complex64)
+            plain = {}
+            for cfg in cfgs:
+                stages = stage_radices(n, cfg["radix"])
+                if stages not in plain:
+                    plain[stages] = fft_plain(x, rows_per_program=1,
+                                              stages=stages, inverse=inverse)
+                got = fft_stockham(x, rows_per_program=cfg["rows_per_program"],
+                                   stages=stages, inverse=inverse,
+                                   unroll=cfg["unroll"])
+                worst = max(worst, check_complex(
+                    got, plain[stages], f"fft_space({wl.key}) config {cfg} "
+                                        f"inverse={inverse}"))
+                del got
+            torch.cuda.synchronize()
+            del x, plain
+        log(f"[kernels] fft_space({wl.key}, h100): all {len(cfgs)} admitted "
+            f"configs launch and match the plain version, forward and "
+            f"inverse")
+    log(f"[kernels] fft_stockham: max relative err against fft_plain "
+        f"{worst:.3e}")
+    return worst
+
+
+def fft_path_cases():
+    """(n, batch): 2^26 complex64 elements a call; fused up to 8192 (the
+    h100 resident cap), four-step above."""
+    return [(n, TOTAL_ELEMS // n)
+            for n in (256, 1024, 4096, 8192, 2 ** 16, 2 ** 20, 2 ** 23)]
+
+
+def phase_fft_path(dev):
+    """fft / ifft at the paper's size, through the default session."""
+    import torch
+    from repro_torch.core.multikernel import max_resident_tile
+    from repro_torch.core.space import Workload
+    from repro_torch.kernels.blocks.driver import capture_launches
+    from repro_torch.kernels.fft.ops import fft, fft_plan, ifft
+    from repro_torch.tuning import default_session
+
+    cap = max_resident_tile(Workload(op="fft", n=TOTAL_ELEMS, batch=1))
+
+    def resolved(n, batch, cfg=None):
+        """The config fft resolves (its op: fft up to the cap, large_fft
+        above)."""
+        op = "fft" if n <= cap else "large_fft"
+        return default_session().resolve(
+            Workload(op=op, n=n, batch=batch, variant="stockham"), config=cfg)
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    inputs = {n: torch.randn(batch, n, generator=gen, device=dev,
+                             dtype=torch.complex64)
+              for n, batch in dict([*fft_path_cases(), FFT_DEEP]).items()}
+
+    # both depths at 2^23, whatever the session resolves there: tile_n =
+    # 256 (n2 = 32768 > the cap: the column side recurses, m = 3) and
+    # tile_n = 4096 (n2 = 2048: m = 2)
+    calls = [(f"fft n={n}", n, batch, None) for n, batch in fft_path_cases()]
+    deep, deep_batch = FFT_DEEP
+    for m, tile in ((3, 256), (2, 4096)):
+        calls.append((f"fft n={deep} m={m}", deep, deep_batch,
+                      dict(resolved(deep, deep_batch), tile_n=tile)))
+    torch.cuda.synchronize()
+    reset_counts()
+    outputs = []
+    for name, n, batch, cfg in calls:
+        with capture_launches() as launched:
+            y = fft(inputs[n], config=cfg)
+        outputs.append((name, n, batch, cfg, y, list(launched)))
+    trips = []
+    for n in FFT_TRIPS:
+        with capture_launches() as launched:
+            back = ifft(fft(inputs[n]))
+        trips.append((n, back, list(launched)))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"[main] launches on the FFT path: {counts}")
+    require_launched(counts, ("fft_stockham",), "the FFT path")
+
+    runs = []
+    for name, n, batch, cfg, y, launched in outputs:
+        plan = fft_plan(batch, n, cfg)
+        cfg = resolved(n, batch, cfg)
+        if tuple(launched) != plan.launches:
+            raise AssertionError(f"{name}: launched {launched} != plan "
+                                 f"{plan.launches}")
+        if n <= cap:
+            want = 1
+        elif " m=" in name:
+            want = int(name[-1])
+        else:       # m = 3 where the column side exceeds the cap
+            want = 3 if plan.children[0].kind == "multipass" else 2
+        if len(plan.launches) != want:
+            raise AssertionError(f"{name}: {len(plan.launches)} launches, "
+                                 f"expected {want}")
+        if y.shape != (batch, n) or y.dtype != torch.complex64:
+            raise AssertionError(f"{name}: output {tuple(y.shape)} {y.dtype}")
+        ref = torch.fft.fft(inputs[n].to(torch.complex128))
+        err = check_complex(y, ref, f"{name} vs complex128 torch.fft.fft")
+        del ref
+        children = [c.n for c in plan.children]
+        log(f"[main] {name} batch={batch}: {plan.kind}, "
+            f"{len(plan.launches)} launch(es), config {cfg}"
+            f"{f', n2 x n1 = {children}' if children else ''}, "
+            f"stages {[l.stages for l in plan.launches]}, max relative err "
+            f"vs complex128 {err:.3e}")
+        runs.append({"call": name, "n": n, "batch": batch, "config": cfg,
+                     "plan": plan, "err": err})
+    del outputs
+    for n, back, launched in trips:
+        batch = inputs[n].shape[0]
+        plan = fft_plan(batch, n)
+        if tuple(launched) != plan.launches * 2:
+            raise AssertionError(f"ifft(fft(x)) n={n}: launched {launched} "
+                                 f"!= twice the plan {plan.launches}")
+        err = check_complex(back, inputs[n], f"ifft(fft(x)) n={n}")
+        log(f"[main] ifft(fft(x)) n={n} batch={batch}: "
+            f"{len(launched)} launches, max relative err vs x {err:.3e}")
+    del trips
+    return inputs, runs, counts
+
+
+def phase_fft_numbers(dev, inputs, runs, counts, err, bandwidth: float):
+    """fft per call against torch.fft.fft (cuFFT), where the four-step time
+    goes, and kernel 6's entry at the n = 1024 main-path call."""
+    import torch
+    from repro_torch.kernels.blocks.driver import _twiddle, dispatch_fft
+    from repro_torch.kernels.blocks.plan import stage_radices
+    from repro_torch.kernels.fft.kernel import fft_plain, fft_stockham
+    from repro_torch.kernels.fft.ops import fft
+
+    rows = []
+    for run in runs:
+        x, plan, cfg = inputs[run["n"]], run["plan"], run["config"]
+        forced = cfg if " m=" in run["call"] else None
+        row = {"call": run["call"], "n": run["n"], "batch": run["batch"],
+               "kind": plan.kind, "launches": len(plan.launches),
+               "config": cfg, "err_vs_complex128": run["err"],
+               "fft_ms": time_ms(lambda: fft(x, config=forced), 5),
+               "torch_fft_ms": time_ms(lambda: torch.fft.fft(x), 5)}
+        if plan.kind == "multipass" and plan.passes == 2:
+            col, rowp = plan.children
+            batch, n1, n2 = run["batch"], rowp.n, col.n
+            xc = x.reshape(batch, n2, n1).transpose(1, 2).reshape(
+                batch * n1, n2)
+            xr = xc.reshape(batch * n2, n1)
+            tw = _twiddle(n1, n2, False, x.device)
+            v = torch.empty_like(xr).reshape(batch, n2, n1)
+            row["col_kernel_ms"] = time_ms(
+                lambda: dispatch_fft(xc, col, inverse=False), 5)
+            row["row_kernel_ms"] = time_ms(
+                lambda: dispatch_fft(xr, rowp, inverse=False), 5)
+            row["transpose_in_ms"] = time_ms(
+                lambda: x.reshape(batch, n2, n1).transpose(1, 2).reshape(
+                    batch * n1, n2), 5)
+            row["twiddle_ms"] = time_ms(
+                lambda: torch.mul(xc.reshape(batch, n1, n2).transpose(1, 2),
+                                  tw, out=v), 5)
+            row["transpose_out_ms"] = time_ms(
+                lambda: xr.reshape(batch, n2, n1).transpose(1, 2).reshape(
+                    batch, run["n"]), 5)
+            del xc, xr, v
+        rows.append(row)
+        log(f"[numbers] {json.dumps(row, sort_keys=True, default=str)}")
+
+    run = next(r for r in runs if r["n"] == 1024)
+    x, plan = inputs[1024], run["plan"]
+    kw = dict(rows_per_program=plan.rows, stages=plan.stages)
+    got = fft_stockham(x, unroll=int(plan.ilp), **kw)
+    ref = fft_plain(x, **kw)
+    torch.cuda.synchronize()
+    batch, n = x.shape
+    nbytes = 2 * x.numel() * x.element_size()
+    flops = 5.0 * n * math.log2(n) * batch
+    by_bytes, by_ops = nbytes / bandwidth * 1e3, flops / F32_PEAK * 1e3
+    entry = {"name": "fft_stockham", "route": "cuda",
+             "source": "src/repro_torch/csrc/fft.cu",
+             "replaces": "src/repro/kernels/fft/kernel.py:53",
+             "launches": counts["fft_stockham"],
+             "max_abs_err": float((got - ref).abs().max()),
+             "ms": time_ms(lambda: fft_stockham(x, unroll=int(plan.ilp), **kw),
+                           10),
+             "plain_ms": time_ms(lambda: fft_plain(x, **kw), 3, warmup=1),
+             "bound_ms": max(by_bytes, by_ops),
+             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+             "library_ms": time_ms(lambda: torch.fft.fft(x), 10),
+             "shape": [batch, n], "dtype": "complex64",
+             "config": {"rows": plan.rows, "stages": list(plan.stages),
+                        "unroll": int(plan.ilp)},
+             "flops": flops, "check_max_rel_err": err}
+    del got, ref
+    log(f"[numbers] {json.dumps(entry, sort_keys=True)}")
+    # the kernel over the space's radix x rows at this shape (unroll 1)
+    sweep = {f"radix {radix} rows {r}": time_ms(
+        lambda: fft_stockham(x, rows_per_program=r,
+                             stages=stage_radices(n, radix)), 10)
+        for radix in (2, 4, 8, 16) for r in (1, 2, 4, 8)}
+    log(f"[numbers] fft_stockham ms at ({batch}, {n}): "
+        f"{json.dumps(sweep)}")
+    return entry, rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -888,6 +1179,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     phase_kernels(dev, args.quick)
     errs = phase_linrec_kernels(dev, args.quick)
+    fft_err = phase_fft_kernels(dev, args.quick)
     log(f"[kernels] {time.perf_counter() - t0:.1f} s")
     if not args.quick:
         from repro_torch.hw.profiles import get_profile
@@ -910,7 +1202,19 @@ def main(argv=None) -> int:
         log(f"[numbers] {time.perf_counter() - t0:.1f} s")
         del systems, recs
         torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ffts, runs, counts = phase_fft_path(dev)
+        log(f"[main] {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        fft_entry, _ = phase_fft_numbers(dev, ffts, runs, counts, fft_err,
+                                         bandwidth)
+        entries.append(fft_entry)
+        log(f"[numbers] {time.perf_counter() - t0:.1f} s")
+        del ffts
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
         phase_loop(dev)
+        log(f"[loop] {time.perf_counter() - t0:.1f} s")
         log(json.dumps({"kernels": entries}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all (build "
         f"{build_s:.1f} s)")

@@ -11,7 +11,7 @@ cost model adds ``energy_j`` and ``peak_vmem_bytes``), with ``time_s`` the
 scalar-compatible primary field.
 
 The PyTorch port's own copy of ``repro.core.objective``, trimmed to the
-scan and tridiag ops.  The cost-model arithmetic is the JAX package's,
+scan, tridiag and FFT ops.  The cost-model arithmetic is the JAX package's,
 verbatim, so both packages model identical times.
 
   * ``WallClockObjective`` — times a runner's thunk on a torch device.  On
@@ -257,6 +257,17 @@ def _flops_and_passes(wl: Workload, cfg: Config) -> Dict[str, float]:
         out["passes"] = 1
         out["steps"] = steps
         out["mixed_radix"] = mixed(tile_n, r) if wl.variant == "wm" else 0.0
+    elif wl.op in ("fft", "large_fft"):
+        # radix-r Stockham: log_r(N) stages, each stage ~5N flops equivalent
+        stages_total = math.log(max(n, 2), r)
+        out["flops"] = 5.0 * n * math.log2(max(n, 2))  # canonical 5NlogN
+        s = math.log(max(tile_n, 2), r)
+        out["passes"] = max(1, math.ceil(stages_total / max(s, 1)))
+        out["steps"] = math.ceil(stages_total)
+        # mixed-radix penalty (paper Fig 5 jagged line): if r^k != tile_n an
+        # extra lower-radix step is required
+        k = round(math.log(tile_n, r))
+        out["mixed_radix"] = 0.0 if r ** k == tile_n else 1.0
     else:
         raise NotImplementedError(
             f"no cost model for op={wl.op!r} in the PyTorch port yet")
@@ -359,6 +370,15 @@ def _batch_work(wl: Workload, cfgs: Sequence[Config],
         out["steps"] = steps
         out["mixed_radix"] = (_mixed_radix_arr(tile_n, r)
                               if wl.variant == "wm" else 0.0 * ones)
+    elif wl.op in ("fft", "large_fft"):
+        log_r = np.log(np.maximum(r, 2))
+        stages_total = np.log(max(n, 2)) / log_r
+        out["flops"] = 5.0 * n * math.log2(max(n, 2)) * ones
+        s = np.log(np.maximum(tile_n, 2)) / log_r
+        out["passes"] = np.maximum(1, np.ceil(stages_total / np.maximum(s, 1)))
+        out["steps"] = np.ceil(stages_total)
+        k = np.rint(np.log(tile_n) / np.log(r))
+        out["mixed_radix"] = np.where(np.power(r, k) == tile_n, 0.0, 1.0)
     else:
         raise NotImplementedError(
             f"no cost model for op={wl.op!r} in the PyTorch port yet")

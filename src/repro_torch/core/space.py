@@ -1,7 +1,7 @@
 """Search spaces for kernel performance parameters (paper Table I).
 
-The PyTorch port's own copy of ``repro.core.space``, trimmed to the scan
-and tridiag ops: the numpy code that decides a space is the JAX package's,
+The PyTorch port's own copy of ``repro.core.space``, trimmed to the scan,
+tridiag and FFT ops: the numpy code that decides a space is the JAX package's,
 verbatim, so both packages enumerate identical spaces for the same
 workload and profile.  Every other op raises until its slice of the port
 lands.
@@ -301,9 +301,64 @@ def tridiag_space(wl: Workload,
     )
 
 
+def fft_space(wl: Workload,
+              spec: Optional[HardwareProfile] = None) -> SearchSpace:
+    spec = spec if spec is not None else active_profile()
+    eb = 2 * dtype_bytes(wl.dtype)  # complex: interleaved re/im
+    max_rows = floor_pow2(min(256, max(wl.batch, 1)))
+    params = [
+        ParamSpec("tile_n", (wl.n,)),
+        ParamSpec("rows_per_program", pow2_range(1, max_rows)),
+        ParamSpec("radix", (2, 4, 8, 16)),      # Stockham radix (paper: {2,4,8,16})
+        ParamSpec("unroll", (1, 2, 4)),
+        ParamSpec("in_register", (0,)),          # paper: no shuffle for FFT
+    ]
+    return SearchSpace(
+        wl,
+        params,
+        constraints=(vmem_fits(eb, spec=spec), rows_divide_batch(),
+                     radix_compatible()),
+        spec=spec,
+    )
+
+
+def large_fft_space(wl: Workload, max_tile: int = 4096,
+                    spec: Optional[HardwareProfile] = None) -> SearchSpace:
+    """Multi-pass FFT (paper §IV-C): N exceeds the on-chip tile -> m passes.
+
+    The space covers (tile_n per pass, radix per pass, rows). tile_n here is
+    the per-pass working-set S; m = ceil(log(N)/log(S)).
+    """
+    spec = spec if spec is not None else active_profile()
+    eb = 2 * dtype_bytes(wl.dtype)
+    max_rows = floor_pow2(min(64, max(wl.batch, 1)))
+    tiles = tuple(v for v in pow2_range(256, max_tile))
+    params = [
+        ParamSpec("tile_n", tiles),
+        ParamSpec("rows_per_program", pow2_range(1, max_rows)),
+        ParamSpec("radix", (2, 4, 8, 16)),
+        ParamSpec("unroll", (1, 2, 4)),
+        ParamSpec("in_register", (0,)),
+    ]
+
+    def tile_le_n(cfg: Config, w: Workload) -> bool:
+        return cfg["tile_n"] <= w.n
+
+    return SearchSpace(
+        wl,
+        params,
+        constraints=(vmem_fits(eb, spec=spec), rows_divide_batch(),
+                     radix_compatible(), tile_le_n),
+        spec=spec,
+    )
+
+
 _SPACE_BUILDERS: Dict[str, Callable[..., SearchSpace]] = {
     "scan": scan_space,
     "tridiag": tridiag_space,
+    "fft": fft_space,
+    # registered without max_tile: its builder keeps the 4096 default
+    "large_fft": large_fft_space,
 }
 
 

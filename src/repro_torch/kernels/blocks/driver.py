@@ -1,8 +1,13 @@
 """Staged-execution driver: runs a StagePlan's launch list.
 
 The PyTorch counterpart of ``repro.kernels.blocks.driver`` for the scan
-family:
+and FFT families:
 
+  * ``dispatch_fft`` / ``four_step_fft`` — the FFT's fused launch, or the
+    Bailey four-step decomposition N = n1 * n2 (paper §IV-C), recursing
+    through the plan's children (m = 2 or 3 launches of the Stockham
+    kernel, ``csrc/fft.cu``); its transposes and twiddle multiply are
+    torch ops, as they are plain XLA in the JAX package;
   * ``multipass_scan_add`` / ``multipass_linrec`` — the paper's §IV-C
     three-launch block scan (chunk scan, carry scan over the chunk sums or
     chunk transfer operators, entry broadcast), with memory roundtrips
@@ -23,6 +28,7 @@ runs is exactly what the plan promised — on the card and on the CPU.
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 from typing import Callable, List, Optional
 
@@ -61,6 +67,61 @@ def launch(kernel_fn: Callable, record: Launch, *args, **kwargs):
     """Record ``record`` and invoke the kernel wrapper."""
     record_launch(record)
     return kernel_fn(*args, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# Four-step FFT (plan-driven)
+# ---------------------------------------------------------------------------
+
+def _kernel_fft(x: torch.Tensor, plan: StagePlan,
+                inverse: bool) -> torch.Tensor:
+    from repro_torch.kernels.fft.kernel import fft_stockham
+    record_launch(plan.launches[0])
+    return fft_stockham(x, rows_per_program=plan.rows, stages=plan.stages,
+                        inverse=inverse, unroll=int(plan.ilp))
+
+
+def dispatch_fft(x: torch.Tensor, plan: StagePlan, *,
+                 inverse: bool) -> torch.Tensor:
+    """Run a (possibly multi-pass) FFT plan on complex (batch, n) rows."""
+    if plan.kind == "fused":
+        return _kernel_fft(x, plan, inverse)
+    return four_step_fft(x, plan, inverse=inverse)
+
+
+def _twiddle(n1: int, n2: int, inverse: bool,
+             device: torch.device) -> torch.Tensor:
+    """exp(sign 2 pi i k1 k2 / n) over (n2, n1), complex64: the angle from
+    the integer k1 k2, times sign 2 pi and divided by n in f32, as the JAX
+    package computes it."""
+    from repro_torch.kernels.blocks.primitives import round_f32
+    sign = 1.0 if inverse else -1.0
+    k = torch.arange(n2, device=device).reshape(n2, 1) \
+        * torch.arange(n1, device=device).reshape(1, n1)
+    ang = k.to(torch.float32) * round_f32(sign * 2.0 * math.pi) / (n1 * n2)
+    return torch.polar(torch.ones_like(ang), ang)
+
+
+def four_step_fft(x: torch.Tensor, plan: StagePlan, *,
+                  inverse: bool) -> torch.Tensor:
+    """Bailey four-step N = n1*n2: column FFTs, twiddle, row FFTs,
+    transpose — the §IV-C m-kernel path, launch list == plan.launches."""
+    col_plan, row_plan = plan.children
+    batch, n = x.shape
+    n1, n2 = row_plan.n, col_plan.n
+    v = x.reshape(batch, n2, n1)
+    # kernel(s) 1: length-n2 FFTs down the columns (batch*n1 problems);
+    # recurses when n2 itself exceeds the resident tile (m = 3)
+    vc = v.transpose(1, 2).reshape(batch * n1, n2)
+    vc = dispatch_fft(vc, col_plan, inverse=inverse)
+    # twiddle, written straight into the row-major layout of kernel 2
+    v = torch.empty(batch, n2, n1, dtype=torch.complex64, device=x.device)
+    torch.mul(vc.reshape(batch, n1, n2).transpose(1, 2),
+              _twiddle(n1, n2, inverse, x.device), out=v)
+    # kernel 2: length-n1 FFTs along rows
+    vr = dispatch_fft(v.reshape(batch * n2, n1), row_plan, inverse=inverse)
+    # transpose for self-sorting output
+    return vr.reshape(batch, n2, n1).transpose(1, 2).reshape(batch, n)
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,7 @@ launches the driver performs).  The kernel drivers execute
 same fields, so model and kernel cannot disagree.
 
 The PyTorch port's own copy of ``repro.kernels.blocks.plan``, trimmed to
-the scan and tridiag ops.  The arithmetic is the JAX package's,
+the scan, tridiag and FFT ops.  The arithmetic is the JAX package's,
 verbatim, so both packages build identical plans; the field names keep
 the JAX package's words (``grid``, ``vmem_bytes``) — on the GPU a plan's
 grid row count is the CUDA grid and its ``vmem_bytes`` the shared-memory
@@ -100,6 +100,22 @@ def is_ragged(stages: Tuple[int, ...], nominal: int, span: int) -> bool:
     place.
     """
     return bool(stages) and stages[-1] != min(nominal, span)
+
+
+def resident_tile_cap(wl: Workload,
+                      spec: Optional[HardwareProfile] = None) -> int:
+    """Largest power-of-two tile whose double-buffered footprint fits VMEM
+    with at least one problem row per program (paper §IV-C boundary).
+
+    Under ``h100`` (``vmem_budget`` = 2^17) an f32 FFT row is resident up
+    to 8192 points: two complex f32 shared-memory buffers of 64 KiB each.
+    """
+    spec = spec if spec is not None else active_profile()
+    eb = dtype_bytes(wl.dtype) * (2 if wl.op in ("fft", "large_fft") else 1)
+    tile = 256
+    while tile * 2 * eb * 2 <= spec.vmem_budget and tile * 2 <= wl.n:
+        tile *= 2
+    return tile
 
 
 def wm_chunk(radix: int, n: int) -> int:
@@ -385,20 +401,88 @@ def _tridiag_plan(wl: Workload, cfg: Mapping[str, int], spec: HardwareProfile
         ragged=ragged, steps_per_pass=float(max(len(stages), 1)))
 
 
+def _fft_fused_plan(wl: Workload, cfg: Mapping[str, int], spec: HardwareProfile
+                    ) -> StagePlan:
+    eb = effective_element_bytes("fft", wl.dtype)        # interleaved re/im
+    batch = max(wl.batch, 1)
+    rows = fit_block(int(cfg.get("rows_per_program", 4)), batch)
+    radix = int(cfg.get("radix", 2))
+    n = wl.n
+    stages = stage_radices(n, radix)
+    io = 4 * rows * n * 4                      # re/im in + re/im out, f32
+    trailing, lane, sub, occ = _occ(n, rows, spec)
+    grid = (batch // rows,)
+    launch = Launch("fft", grid, (rows, n), stages, io)
+    return StagePlan(
+        op="fft", variant=wl.variant, n=n, batch=batch, dtype=wl.dtype,
+        kind="fused", tile_n=n, rows=rows, radix=radix, stages=stages,
+        seq_tiles=1, grid=grid, launches=(launch,), passes=1, vmem_bytes=io,
+        stage_vmem_bytes=tuple(io + 2 * r * rows * (n // max(r, 1)) * 4
+                               for r in stages),
+        block_bytes=rows * n * eb, element_bytes=eb, trailing=trailing,
+        lane_eff=lane, sublane_eff=sub, occupancy=occ,
+        ilp=int(cfg.get("unroll", 1)), ragged=is_ragged(stages, radix, n),
+        steps_per_pass=float(len(stages)))
+
+
+def _large_fft_plan(wl: Workload, cfg: Mapping[str, int], spec: HardwareProfile,
+                    seq_limit: int, max_tile: Optional[int]) -> StagePlan:
+    """Four-step decomposition N = n1*n2 (paper §IV-C), recursive.
+
+    Column FFTs (length n2) and row FFTs (length n1) are child plans; the
+    launch list is their concatenation, so ``passes`` counts exactly the
+    kernel launches the driver performs (m = 2, or 3 when the column side
+    recurses — the paper's N >= 2^19 case on its 48KB-tile device).
+    """
+    cap = max_tile if max_tile is not None else resident_tile_cap(wl, spec)
+    batch = max(wl.batch, 1)
+    n = wl.n
+    n1 = fit_block(min(int(cfg.get("tile_n", cap)), cap), n)
+    n2 = max(n // n1, 1)
+    sub_cfg = dict(cfg)
+    sub_cfg["tile_n"] = n1
+    col_wl = Workload(op="fft" if n2 <= cap else "large_fft", n=n2,
+                      batch=batch * n1, dtype=wl.dtype, variant=wl.variant)
+    col = build_plan(col_wl, sub_cfg, profile=spec, seq_limit=seq_limit,
+                     max_tile=cap)
+    row = _fft_fused_plan(
+        Workload(op="fft", n=n1, batch=batch * n2, dtype=wl.dtype,
+                 variant=wl.variant), sub_cfg, spec)
+    launches = col.launches + row.launches
+    return StagePlan(
+        op=wl.op, variant=wl.variant, n=n, batch=batch, dtype=wl.dtype,
+        kind="multipass", tile_n=n1, rows=row.rows, radix=row.radix,
+        stages=row.stages, seq_tiles=1, grid=row.grid, launches=launches,
+        passes=len(launches), vmem_bytes=max(p.vmem_bytes for p in (col, row)),
+        stage_vmem_bytes=row.stage_vmem_bytes, block_bytes=row.block_bytes,
+        element_bytes=row.element_bytes, trailing=row.trailing,
+        lane_eff=row.lane_eff, sublane_eff=row.sublane_eff,
+        occupancy=row.occupancy, ilp=row.ilp, ragged=row.ragged,
+        steps_per_pass=row.steps_per_pass, children=(col, row))
+
+
 # ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
 
 def build_plan(wl: Workload, cfg: Mapping[str, int], *,
                profile: Optional[HardwareProfile] = None,
-               seq_limit: int = DEFAULT_SEQ_LIMIT) -> StagePlan:
-    """The staged execution of ``cfg`` on ``wl`` (uncached; see plan_for)."""
+               seq_limit: int = DEFAULT_SEQ_LIMIT,
+               max_tile: Optional[int] = None) -> StagePlan:
+    """The staged execution of ``cfg`` on ``wl`` (uncached; see plan_for).
+
+    ``max_tile`` bounds the resident FFT row of a four-step plan (default:
+    ``resident_tile_cap`` under ``profile``)."""
     wl = wl.canonical()
     spec = profile if profile is not None else active_profile()
     if wl.op == "scan":
         return _prefix_plan(wl, cfg, spec, seq_limit)
     if wl.op == "tridiag":
         return _tridiag_plan(wl, cfg, spec)
+    if wl.op == "fft":
+        return _fft_fused_plan(wl, cfg, spec)
+    if wl.op == "large_fft":
+        return _large_fft_plan(wl, cfg, spec, seq_limit, max_tile)
     raise NotImplementedError(
         f"no plan builder for op={wl.op!r} in the PyTorch port yet: see "
         f"ROADMAP.md, 'Modules to port'")
@@ -407,17 +491,19 @@ def build_plan(wl: Workload, cfg: Mapping[str, int], *,
 @functools.lru_cache(maxsize=65536)
 def _plan_cached(op: str, variant: str, n: int, batch: int, dtype: str,
                  cfg_items: Tuple[Tuple[str, int], ...], spec: HardwareProfile,
-                 seq_limit: int) -> StagePlan:
+                 seq_limit: int, max_tile: Optional[int]) -> StagePlan:
     wl = Workload(op=op, n=n, batch=batch, dtype=dtype, variant=variant)
-    return build_plan(wl, dict(cfg_items), profile=spec, seq_limit=seq_limit)
+    return build_plan(wl, dict(cfg_items), profile=spec, seq_limit=seq_limit,
+                      max_tile=max_tile)
 
 
 def plan_for(wl: Workload, cfg: Mapping[str, int], *,
              profile: Optional[HardwareProfile] = None,
-             seq_limit: int = DEFAULT_SEQ_LIMIT) -> StagePlan:
+             seq_limit: int = DEFAULT_SEQ_LIMIT,
+             max_tile: Optional[int] = None) -> StagePlan:
     """Memoized ``build_plan`` — the resolve/dispatch hot path and the
     sweeps hit the same plan thousands of times per space."""
     wl = wl.canonical()
     spec = profile if profile is not None else active_profile()
     return _plan_cached(wl.op, wl.variant, wl.n, wl.batch, wl.dtype,
-                        tuple(sorted(cfg.items())), spec, seq_limit)
+                        tuple(sorted(cfg.items())), spec, seq_limit, max_tile)

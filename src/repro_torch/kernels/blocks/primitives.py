@@ -3,18 +3,22 @@
 The PyTorch counterparts of ``repro.kernels.blocks.primitives``:
 ``shift_lanes``, the balanced ``_tree_fold``, one radix-r ``shift_fold``
 level (prefix sum), one ``linrec_level`` (the linear-recurrence pair
-monoid), one ``pcr_step`` (the tridiagonal fold), the RG-LRU input gate
-and the cross-tile carry chains.  They are the plain versions of the CUDA
-kernels' bodies (``csrc/scan.cu``, ``csrc/linrec.cu``,
+monoid), one Stockham ``butterfly`` stage (the complex FFT fold), one
+``pcr_step`` (the tridiagonal fold), the RG-LRU input gate and the
+cross-tile carry chains.  They are the plain versions of the CUDA
+kernels' bodies (``csrc/scan.cu``, ``csrc/linrec.cu``, ``csrc/fft.cu``,
 ``csrc/tridiag.cu``): the same stage sequence, the same neighbour fill,
 the same fold order, one rounding per multiply and add, so a kernel and
-its plain version compute the same numbers in the same order.  Stage
+its plain version compute the same numbers in the same order (the FFT's
+twiddle cos/sin aside: libdevice and PyTorch may differ by an ulp).  Stage
 sequences come from
 ``repro_torch.kernels.blocks.plan.stage_radices`` — never recompute them
 here.
 """
 from __future__ import annotations
 
+import math
+import struct
 from typing import List, Tuple
 
 import torch
@@ -84,6 +88,58 @@ def linrec_level(aa: torch.Tensor, bb: torch.Tensor, fan_in: int,
         acc_b = acc_a * sb + acc_b
         acc_a = acc_a * sa
     return acc_a, acc_b
+
+
+def round_f32(v: float) -> float:
+    """``v`` rounded to the nearest float32 (as JAX rounds a Python float
+    that meets a float32 array)."""
+    return struct.unpack("f", struct.pack("f", v))[0]
+
+
+def cmul(ar, ai, br, bi):
+    return ar * br - ai * bi, ar * bi + ai * br
+
+
+def butterfly(re: torch.Tensor, im: torch.Tensor, *, n: int, n_cur: int,
+              s: int, rr: int, sign: float
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One radix-``rr`` Stockham stage on (rows, n) split f32 planes.
+
+    The planes are viewed as (rows, n_cur, s), split into rr parts of
+    m = n_cur // rr; output j of part position p is the rr-point DFT
+    ``sum_k x[(k m + p) s + q] w^(j k)``, summed over k in order
+    (``tr += pr wr - pi wi``), times the twiddle exp(i theta_j p) with
+    ``theta_j p`` and its cos/sin in f32; it lands at ``(p rr + j) s + q``
+    — the radix digit innermost, the self-sorting layout.  ``rr`` must
+    divide ``n_cur``; plans built from ``stage_radices`` guarantee it.
+    """
+    rows = re.shape[0]
+    assert n_cur % rr == 0, (n_cur, rr)
+    m = n_cur // rr
+    vr = re.reshape(rows, n_cur, s)
+    vi = im.reshape(rows, n_cur, s)
+    parts = [(vr[:, k * m:(k + 1) * m, :], vi[:, k * m:(k + 1) * m, :])
+             for k in range(rr)]
+    p = torch.arange(m, dtype=torch.float32, device=re.device).reshape(
+        1, m, 1)
+    out_r = torch.empty(rows, m, rr, s, dtype=torch.float32, device=re.device)
+    out_i = torch.empty_like(out_r)
+    for j in range(rr):
+        tr = torch.zeros(rows, m, s, dtype=torch.float32, device=re.device)
+        ti = torch.zeros_like(tr)
+        for k in range(rr):
+            # the DFT weight in float64, each part rounded to f32
+            ang = sign * 2.0 * math.pi * ((j * k) % rr) / rr
+            wr, wi = round_f32(math.cos(ang)), round_f32(math.sin(ang))
+            pr, pi_ = parts[k]
+            tr = tr + (pr * wr - pi_ * wi)
+            ti = ti + (pr * wi + pi_ * wr)
+        # the twiddle's angle step rounded to f32, its product with p in f32
+        ang = p * round_f32(sign * 2.0 * math.pi * j / n_cur)
+        tr, ti = cmul(tr, ti, torch.cos(ang), torch.sin(ang))
+        out_r[:, :, j, :] = tr
+        out_i[:, :, j, :] = ti
+    return out_r.reshape(rows, n), out_i.reshape(rows, n)
 
 
 def pcr_step(a, b, c, d, stride: int):

@@ -1,5 +1,5 @@
-"""Offline tuning CLI of the port: the paper's loop on the prefix-sum scan
-and the tridiagonal solvers.
+"""Offline tuning CLI of the port: the paper's loop on the prefix-sum scan,
+the tridiagonal solvers and the FFT.
 
 Tune one workload per size and persist the winner in a TuningDB:
 
@@ -12,10 +12,13 @@ Score every methodology against the exhaustive optimum (paper Table II):
       --op tridiag --variant pcr --sizes 256,1024 \\
       --methods exhaustive,analytical,bayesian,random
 
+  PYTHONPATH=src python -m repro_torch.launch.tune compare-methods \\
+      --op fft --variant stockham --sizes 1024,4096
+
 Both run on the card (``--device cuda``, the default) and time each
 candidate config with a ``WallClockObjective`` whose thunk calls the op's
-entry point (``prefix_sum``, or ``solve`` on a diagonally dominant system)
-on device-resident input and ends in ``torch.cuda.synchronize()``.
+entry point (``prefix_sum``, ``solve`` on a diagonally dominant system, or
+``fft`` on complex64 rows) on device-resident input and ends in ``torch.cuda.synchronize()``.
 ``--device cpu`` runs the kernels' plain versions on the CPU instead
 (small sizes only); ``--objective cost``
 scores configs on the ``h100`` cost model rather than measuring them.  The
@@ -87,9 +90,31 @@ def make_tridiag_runner(device: torch.device, seed: int = 0
     return run
 
 
+def make_fft_runner(device: torch.device, seed: int = 0
+                    ) -> Callable[[Workload, Config], Callable[[], None]]:
+    """A ``WallClockObjective`` runner: for each workload, one seeded
+    complex64 input on ``device`` (made once and reused), and a thunk that
+    runs the public ``fft`` entry point with the candidate config."""
+    from repro_torch.kernels.fft.ops import fft
+
+    inputs: Dict[str, torch.Tensor] = {}
+
+    def run(wl: Workload, cfg: Config) -> Callable[[], None]:
+        x = inputs.get(wl.key)
+        if x is None:
+            gen = torch.Generator(device=device).manual_seed(seed)
+            x = torch.randn(wl.batch, wl.n, generator=gen, device=device,
+                            dtype=torch.complex64)
+            inputs[wl.key] = x
+        return lambda: fft(x, config=cfg)
+
+    return run
+
+
 # op -> (runner factory, the variants its entry point takes)
 _OPS = {"scan": (make_scan_runner, ("ks", "lf", "linrec")),
-        "tridiag": (make_tridiag_runner, ("pcr", "cr", "lf", "wm", "thomas"))}
+        "tridiag": (make_tridiag_runner, ("pcr", "cr", "lf", "wm", "thomas")),
+        "fft": (make_fft_runner, ("stockham",))}
 
 
 def _workloads(args) -> List[Workload]:

@@ -78,6 +78,8 @@ def tuned_kernel(op: str, *, space: Optional[SpaceBuilder] = None,
 _OP_MODULES = {
     "scan": "repro_torch.kernels.scan.ops",
     "tridiag": "repro_torch.kernels.tridiag.ops",
+    "fft": "repro_torch.kernels.fft.ops",
+    "large_fft": "repro_torch.kernels.fft.ops",
 }
 
 

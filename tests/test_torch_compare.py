@@ -116,4 +116,54 @@ def test_cli_defaults_to_cuda(monkeypatch):
 
 def test_cli_rejects_ops_not_ported():
     with pytest.raises(SystemExit, match="only 'scan'"):
-        t_tune.main(["--device", "cpu", "--op", "fft", "--sizes", "64"])
+        t_tune.main(["--device", "cpu", "--op", "ssd", "--sizes", "64"])
+
+
+def test_cli_compare_methods_fft_on_cpu(tmp_path, capsys):
+    """--op fft --variant stockham times the fft entry point's configs
+    (plain versions on the CPU) and scores every method."""
+    out = tmp_path / "report.json"
+    rc = t_tune.main(["compare-methods", "--device", "cpu", "--op", "fft",
+                      "--variant", "stockham", "--sizes", "64,128",
+                      "--batch", "4", "--reps", "1", "--max-evals", "4",
+                      "--json", str(out)])
+    assert rc == 0
+    report = json.loads(out.read_text())
+    assert report["runner_failures"] == 0
+    assert [row["workload"] for row in report["workloads"]] == [
+        "fft:stockham:n64:b4:float32", "fft:stockham:n128:b4:float32"]
+    assert set(report["overall"]) == set(METHODS)
+    assert "runner failures: 0" in capsys.readouterr().out
+
+
+def test_wallclock_times_the_fft_runner_on_cpu():
+    from repro_torch.core.space import fft_space
+    obj = WallClockObjective(t_tune.make_fft_runner(torch.device("cpu")),
+                             reps=2, device="cpu")
+    space = fft_space(TWorkload(op="fft", n=64, batch=4, variant="stockham"),
+                      t_profiles.get_profile("h100"))
+    for cfg in space.enumerate_valid()[:3]:
+        m = obj(space, cfg)
+        assert m.valid and 0 < m.time_s < PENALTY_TIME
+    assert obj.failures == 0
+
+
+@pytest.mark.parametrize("profile", ["tpu_v5e", "gpu_sm"])
+@pytest.mark.parametrize("op,n,batch", [("fft", 1024, 64),
+                                        ("large_fft", 2 ** 16, 16)])
+def test_compare_methods_fft_report_equals_repro(profile, op, n, batch):
+    """The paper's Table II on the FFT spaces, on the cost model: every
+    method's config, time and Phi equal the JAX package's."""
+    jrep = j_compare([JWorkload(op=op, n=n, batch=batch,
+                                variant="stockham")], METHODS,
+                     profile=j_profiles.get_profile(profile), max_evals=12)
+    trep = compare_methods([TWorkload(op=op, n=n, batch=batch,
+                                      variant="stockham")], METHODS,
+                           profile=t_profiles.get_profile(profile),
+                           max_evals=12)
+    (jrow,), (trow,) = jrep["workloads"], trep["workloads"]
+    assert trow["space_size"] == jrow["space_size"]
+    for name in METHODS:
+        assert trow["methods"][name] == jrow["methods"][name], name
+    assert trep["per_op"] == jrep["per_op"]
+    assert check_report(trep) == []

@@ -12,7 +12,10 @@ import torch
 
 from conftest import assert_kernel_close
 from repro_torch.kernels.blocks import driver
-from repro_torch.kernels.blocks.plan import stage_radices
+from repro_torch.core.space import Workload
+from repro_torch.kernels.blocks.plan import plan_for, stage_radices
+from repro_torch.kernels.fft import ops as fft_ops
+from repro_torch.kernels.fft.kernel import fft_plain, fft_stockham
 from repro_torch.kernels.scan.kernel import (scan_add, scan_add_plain,
                                              scan_linrec, scan_linrec_plain,
                                              scan_linrec_prod,
@@ -190,3 +193,63 @@ def test_linear_recurrence_on_the_card(cuda, cfg):
             h = linear_recurrence(a, b, config=cfg)
         assert len(launched) == (3 if n // cfg["tile_n"] > 64 else 1)
         _close(h, scan_linrec_assoc_ref(a.double(), b.double()), "float32")
+
+
+def _fft_close(got, ref):
+    assert_kernel_close(got.cpu().numpy(), ref.cpu().numpy(), "complex64")
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("batch,n,rows,radix,unroll", [
+    (8, 1024, 2, 4, 1), (8, 1024, 8, 16, 2), (6, 96, 3, 8, 1),
+    (5, 106, 5, 2, 4), (4, 1000, 2, 8, 1), (2, 8192, 1, 16, 1),
+    (4, 8192, 1, 2, 2), (512, 16, 256, 16, 4), (64, 4096, 32, 8, 1),
+    (3, 1, 3, 2, 1)])
+def test_fft_kernel_matches_plain(cuda, inverse, batch, n, rows, radix,
+                                  unroll):
+    """repro_fft against fft_plain: ragged (8, 6, 2), prime (2, 53) and
+    (8, 5, 5, 5) stages, the largest resident rows, a block that loops
+    over row groups (32 x 4096), n = 1."""
+    gen = torch.Generator(device=cuda).manual_seed(batch * n)
+    x = torch.randn(batch, n, generator=gen, device=cuda,
+                    dtype=torch.complex64)
+    kw = dict(rows_per_program=rows, stages=stage_radices(n, radix),
+              inverse=inverse)
+    before = fft_stockham.launches
+    got = fft_stockham(x, unroll=unroll, **kw)
+    assert fft_stockham.launches == before + 1
+    _fft_close(got, fft_plain(x, **kw))
+    ref = (torch.fft.ifft if inverse else torch.fft.fft)(
+        x.to(torch.complex128))
+    _fft_close(got, ref)
+
+
+@pytest.mark.parametrize("tile,m", [(64, 2), (16, 3)])
+def test_four_step_fft_on_the_card(cuda, tile, m):
+    """The four-step driver on the card at m = 2 and 3 (n = 4096, forced
+    through plan_for's max_tile), against the CPU path and torch.fft."""
+    gen = torch.Generator(device=cuda).manual_seed(tile)
+    x = torch.randn(4, 4096, generator=gen, device=cuda,
+                    dtype=torch.complex64)
+    plan = plan_for(Workload(op="large_fft", n=4096, batch=4,
+                             variant="stockham"),
+                    {"tile_n": tile, "radix": 4, "rows_per_program": 2},
+                    max_tile=tile)
+    with driver.capture_launches() as launched:
+        y = driver.four_step_fft(x, plan, inverse=False)
+    assert tuple(launched) == plan.launches and len(launched) == m
+    _fft_close(y, driver.four_step_fft(x.cpu(), plan, inverse=False))
+    _fft_close(y, torch.fft.fft(x.to(torch.complex128)))
+
+
+def test_fft_entry_points_on_the_card(cuda):
+    """fft above the h100 cap (2^14 > 8192) runs four-step; ifft inverts."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    for n in (1024, 2 ** 14):
+        x = torch.randn(4, n, generator=gen, device=cuda,
+                        dtype=torch.complex64)
+        with driver.capture_launches() as launched:
+            y = fft_ops.fft(x)
+        assert len(launched) == (1 if n <= 8192 else 2)
+        _fft_close(y, torch.fft.fft(x.to(torch.complex128)))
+        _fft_close(fft_ops.ifft(y), x)

@@ -134,3 +134,47 @@ def test_port_keeps_repro_non_latency_winners(tmp_path):
     again = JSession(db_path=path, spec=j_profiles.get_profile("gpu_sm"))
     assert again.lookup(jwl, policy="energy") == energy_cfg
     assert again.lookup(jwl) == tsession.lookup(twl)
+
+
+FFT_TUNED = [("fft", 1024, 64), ("large_fft", 2 ** 16, 16)]
+
+
+@pytest.fixture
+def repro_fft_db(tmp_path):
+    """A DB the JAX package wrote: an fft and a large_fft workload tuned
+    with random search on its tpu_v5e cost model."""
+    path = str(tmp_path / "fft_db.json")
+    session = JSession(db_path=path, spec=j_profiles.get_profile("tpu_v5e"))
+    for op, n, batch in FFT_TUNED:
+        session.tune(JWorkload(op=op, n=n, batch=batch, variant="stockham"),
+                     method="random", max_evals=12, seed=3)
+    return path, session
+
+
+@pytest.mark.parametrize("op,n,batch", FFT_TUNED)
+def test_port_resolves_a_repro_fft_db(repro_fft_db, op, n, batch):
+    """fft and large_fft DB keys and entries written by repro resolve to
+    the same config in the port (each op's normalizer, overrides too)."""
+    path, jsession = repro_fft_db
+    tsession = TSession(db_path=path, spec=t_profiles.get_profile("tpu_v5e"))
+    jwl = JWorkload(op=op, n=n, batch=batch, variant="stockham")
+    twl = TWorkload(op=op, n=n, batch=batch, variant="stockham")
+    assert twl.key == jwl.key
+    assert tsession.lookup(twl) is not None
+    assert tsession.lookup(twl) == jsession.lookup(jwl)
+    assert tsession.resolve(twl) == jsession.resolve(jwl)
+    with j_overrides(**{op: {"radix": 4}}), t_overrides(**{op: {"radix": 4}}):
+        tcfg, jcfg = tsession.resolve(twl), jsession.resolve(jwl)
+    assert tcfg == jcfg and tcfg["radix"] == 4
+
+
+@pytest.mark.parametrize("op,n,batch", FFT_TUNED)
+def test_port_fft_entries_read_back_in_repro(tmp_path, op, n, batch):
+    path = str(tmp_path / "port_fft_db.json")
+    tsession = TSession(db_path=path, spec=t_profiles.get_profile("gpu_sm"))
+    twl = TWorkload(op=op, n=n, batch=batch, variant="stockham")
+    tsession.tune(twl, method="random", max_evals=6, seed=1)
+    jsession = JSession(db_path=path, spec=j_profiles.get_profile("gpu_sm"))
+    jwl = JWorkload(op=op, n=n, batch=batch, variant="stockham")
+    assert jsession.lookup(jwl) == tsession.lookup(twl)
+    assert jsession.resolve(jwl) == tsession.resolve(twl)

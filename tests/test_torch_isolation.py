@@ -48,7 +48,9 @@ def test_no_jax_or_repro_import(path):
 def test_importing_the_port_loads_neither_jax_nor_repro():
     code = ("import sys\n"
             "import repro_torch, repro_torch.kernels.scan.ops, "
-            "repro_torch.kernels.tridiag.ops, repro_torch.launch.tune, "
+            "repro_torch.kernels.tridiag.ops, repro_torch.kernels.fft.ops, "
+            "repro_torch.kernels.fft.ref, repro_torch.core.multikernel, "
+            "repro_torch.launch.tune, "
             "repro_torch.evaluation, repro_torch.kernels.build\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or "
             "m.startswith(('jax.', 'repro.')))\n"
@@ -134,6 +136,31 @@ def test_a_tensor_off_the_cpu_never_reaches_a_plain_version():
                   torch.empty(4, 1, device="meta"), rows=2)
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
         _launch(torch.randn(4, 64), 2, 64, (2,) * 6, 1)
+
+
+def test_an_fft_off_the_cpu_never_reaches_a_plain_version():
+    """The FFT wrapper, both entry points and the four-step driver raise
+    for a meta tensor rather than falling back to fft_plain or torch.fft."""
+    from repro_torch.core.space import Workload
+    from repro_torch.kernels.blocks.driver import four_step_fft
+    from repro_torch.kernels.blocks.plan import plan_for
+    from repro_torch.kernels.fft import kernel
+    from repro_torch.kernels.fft.ops import fft, ifft
+    x = torch.empty(4, 64, dtype=torch.complex64, device="meta")
+    plan = plan_for(Workload(op="large_fft", n=64, batch=4,
+                             variant="stockham"),
+                    {"tile_n": 8, "radix": 2, "rows_per_program": 1},
+                    max_tile=8)
+    meta = "no kernel for tensors on meta"
+    for call in (lambda: kernel.fft_stockham(x, rows_per_program=2,
+                                             stages=(4, 4, 4)),
+                 lambda: fft(x), lambda: ifft(x),
+                 lambda: four_step_fft(x, plan, inverse=False)):
+        with pytest.raises(ValueError, match=meta):
+            call()
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        kernel._launch(torch.zeros(4, 64, dtype=torch.complex64), 2,
+                       (4, 4, 4), False, 1)
 
 
 def test_a_missing_compiler_raises(monkeypatch, tmp_path):

@@ -12,10 +12,12 @@ import numpy as np
 import pytest
 
 from repro.core import analytical as j_analytical
+from repro.core import multikernel as j_multikernel
 from repro.core import objective as j_objective
 from repro.core import space as j_space
 from repro.kernels.blocks import plan as j_plan
 from repro_torch.core import analytical as t_analytical
+from repro_torch.core import multikernel as t_multikernel
 from repro_torch.core import objective as t_objective
 from repro_torch.core import space as t_space
 from repro_torch.kernels.blocks import plan as t_plan
@@ -46,8 +48,8 @@ def _assert_same(profile, jwl, twl, cfgs=None):
     """The op's space, every plan, score and cost-model time, equal."""
     jp, tp = j_profiles.get_profile(profile), t_profiles.get_profile(profile)
     builder = f"{jwl.op}_space"
-    jsp = getattr(j_space, builder)(jwl, jp)
-    tsp = getattr(t_space, builder)(twl, tp)
+    jsp = getattr(j_space, builder)(jwl, spec=jp)
+    tsp = getattr(t_space, builder)(twl, spec=tp)
     valid = jsp.enumerate_valid()
     assert valid == tsp.enumerate_valid()
     assert [jsp.encode(c) for c in valid] == [tsp.encode(c) for c in valid]
@@ -159,7 +161,7 @@ def test_h100_main_path_plans(n, batch, kind):
 
 
 def test_other_ops_are_not_ported_yet():
-    wl = t_space.Workload(op="fft", n=256, batch=4)
+    wl = t_space.Workload(op="ssd", n=256, batch=4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_space.build_space(wl)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -233,4 +235,150 @@ def test_h100_linrec_main_path_plans(n, batch, kind):
     cfg = t_analytical.AnalyticalTuner().suggest(t_space.scan_space(wl, h100))
     plan = t_plan.plan_for(wl, cfg, profile=h100)
     assert plan.kind == kind
+    assert plan.check(h100) == []
+
+
+FFT_WORKLOADS = [(n, batch) for n in (64, 96, 106, 256, 1000, 1024, 4096)
+                 for batch in (3, 64)]
+
+
+@pytest.mark.parametrize("profile", PROFILES)
+@pytest.mark.parametrize("n,batch", FFT_WORKLOADS)
+def test_fft_space_plan_score_cost_identical(profile, n, batch):
+    """fft_space, _fft_fused_plan, the analytical scores and the cost-model
+    times (scalar and batched)."""
+    jwl, twl = _pair("stockham", n, batch, op="fft")
+    assert _assert_same(profile, jwl, twl)
+
+
+@pytest.mark.parametrize("profile", PROFILES)
+@pytest.mark.parametrize("n,batch", [(2 ** 12, 16), (2 ** 16, 8),
+                                     (2 ** 20, 4), (2 ** 23, 8)])
+def test_large_fft_space_plan_score_cost_identical(profile, n, batch):
+    """large_fft_space (its 4096 max_tile default) and the four-step plans
+    at the profile's resident cap."""
+    jwl, twl = _pair("stockham", n, batch, op="large_fft")
+    assert _assert_same(profile, jwl, twl)
+
+
+@pytest.mark.parametrize("profile", PROFILES)
+@pytest.mark.parametrize("n,tile,max_tile,m", [
+    (4096, 64, 64, 2), (4096, 16, 16, 3), (2 ** 16, 256, 512, 2),
+    (2 ** 20, 256, 2048, 3), (2 ** 23, 256, 8192, 3),
+    (2 ** 23, 4096, 8192, 2), (1000, 2048, 512, 2)])
+def test_four_step_plans_with_max_tile_identical(profile, n, tile, max_tile,
+                                                 m):
+    """_large_fft_plan with an explicit max_tile, down the m = 3
+    recursion: identical plans, and passes == the launches the driver
+    makes."""
+    jwl, twl = _pair("stockham", n, 8, op="large_fft")
+    jp, tp = j_profiles.get_profile(profile), t_profiles.get_profile(profile)
+    for radix in (2, 4, 8, 16):
+        cfg = {"tile_n": tile, "rows_per_program": 2, "radix": radix,
+               "unroll": 1, "in_register": 0}
+        jplan = j_plan.plan_for(jwl, cfg, profile=jp, max_tile=max_tile)
+        tplan = t_plan.plan_for(twl, cfg, profile=tp, max_tile=max_tile)
+        assert dataclasses.asdict(jplan) == dataclasses.asdict(tplan)
+        assert tplan.passes == len(tplan.launches) == m
+        assert tplan.check(tp) == jplan.check(jp)
+
+
+@pytest.mark.parametrize("profile", PROFILES + ("h100",))
+def test_resident_tile_cap_identical(profile):
+    tp = t_profiles.get_profile(profile)
+    jp = j_profiles.get_profile(profile) if profile != "h100" else None
+    for op in ("fft", "large_fft", "scan"):
+        for n in (96, 256, 1000, 4096, 8192, 2 ** 16, 2 ** 23):
+            twl = t_space.Workload(op=op, n=n, batch=4)
+            cap = t_plan.resident_tile_cap(twl, tp)
+            assert cap == t_multikernel.max_resident_tile(twl, tp)
+            if jp is not None:
+                jwl = j_space.Workload(op=op, n=n, batch=4)
+                assert cap == j_plan.resident_tile_cap(jwl, jp)
+                assert cap == j_multikernel.max_resident_tile(jwl, jp)
+
+
+def test_num_passes_identical():
+    for n in (2, 96, 1000, 2 ** 16, 2 ** 20, 2 ** 23):
+        for tile in (2, 16, 256, 4096, 8192):
+            assert t_multikernel.num_passes(n, tile) \
+                == j_multikernel.num_passes(n, tile)
+
+
+@pytest.mark.parametrize("profile", PROFILES)
+@pytest.mark.parametrize("n,batch", [(2 ** 16, 1024), (2 ** 20, 64),
+                                     (2 ** 23, 8)])
+def test_multikernel_identical(profile, monkeypatch, n, batch):
+    """analytical_multipass, MultiPassPlan.total_time and
+    MultiPassObjective over the large-N space, on both sides, with both
+    packages' active profiles set to ``profile``."""
+    monkeypatch.setenv("REPRO_HW_PROFILE", profile)
+    monkeypatch.setenv("REPRO_TORCH_HW_PROFILE", profile)
+    jp, tp = j_profiles.get_profile(profile), t_profiles.get_profile(profile)
+    jwl, twl = _pair("stockham", n, batch, op="large_fft")
+    jmp = j_multikernel.analytical_multipass(jwl, jp)
+    tmp = t_multikernel.analytical_multipass(twl, tp)
+    assert (tmp.passes, tmp.tile_n, tmp.m, tmp.method) \
+        == (jmp.passes, jmp.tile_n, jmp.m, jmp.method)
+    assert dataclasses.asdict(tmp.workload) == dataclasses.asdict(
+        jmp.workload)
+    jcost, tcost = j_objective.CostModelObjective(jp), \
+        t_objective.CostModelObjective(tp)
+    assert tmp.total_time(tcost) == jmp.total_time(jcost)
+    jobj = j_multikernel.MultiPassObjective(jcost)
+    tobj = t_multikernel.MultiPassObjective(tcost)
+    jsp = j_space.large_fft_space(jwl, spec=jp)
+    tsp = t_space.large_fft_space(twl, spec=tp)
+    valid = jsp.enumerate_valid()
+    assert valid and valid == tsp.enumerate_valid()
+    for cfg in valid:
+        jm, tm = jobj(jsp, cfg), tobj(tsp, cfg)
+        assert (jm.time_s, jm.valid, jm.meta) == (tm.time_s, tm.valid,
+                                                  tm.meta), cfg
+    # the default inner objective is the active profile's cost model
+    cfg = valid[0]
+    assert t_multikernel.MultiPassObjective()(tsp, cfg).time_s \
+        == j_multikernel.MultiPassObjective()(jsp, cfg).time_s
+
+
+def test_h100_vmem_budget_fits_the_fft_kernel():
+    """Every config fft_space admits under h100 keeps all its rows resident
+    in the CUDA Stockham kernel: two complex f32 buffers of rows * n
+    points, plus the per-stage tables, within a block's 227 KB."""
+    from repro_torch.kernels.fft.kernel import SMEM_LIMIT
+    h100 = t_profiles.get_profile("h100")
+    for k in range(6, 14):
+        n = 2 ** k
+        wl = t_space.Workload(op="fft", n=n, batch=2 ** 26 // n,
+                              variant="stockham")
+        cfgs = t_space.fft_space(wl, h100).enumerate_valid()
+        assert cfgs
+        for cfg in cfgs:
+            stages = t_plan.stage_radices(n, cfg["radix"])
+            smem = 2 * 8 * cfg["rows_per_program"] * n + 12 * sum(stages)
+            assert smem <= SMEM_LIMIT, (n, cfg)
+    assert t_plan.resident_tile_cap(
+        t_space.Workload(op="fft", n=2 ** 23, batch=8), h100) == 8192
+
+
+@pytest.mark.parametrize("n,kind,m", [
+    (256, "fused", 1), (1024, "fused", 1), (4096, "fused", 1),
+    (8192, "fused", 1), (2 ** 16, "multipass", 2),
+    (2 ** 20, "multipass", 2), (2 ** 23, "multipass", 3)])
+def test_h100_fft_main_path_plans(n, kind, m):
+    """The paper-size FFT workloads chip_smoke.py drives resolve, under
+    h100, to one launch up to n = 8192 and to the four-step driver above
+    (the analytical tile 256 at 2^23 recurses: m = 3)."""
+    h100 = t_profiles.get_profile("h100")
+    batch = 2 ** 26 // n
+    cap = t_multikernel.max_resident_tile(
+        t_space.Workload(op="fft", n=n, batch=batch), h100)
+    op = "fft" if n <= cap else "large_fft"
+    wl = t_space.Workload(op=op, n=n, batch=batch, variant="stockham")
+    cfg = t_analytical.AnalyticalTuner().suggest(
+        t_space.build_space(wl, h100))
+    plan = t_plan.plan_for(wl, cfg, profile=h100,
+                           max_tile=cap if op == "large_fft" else None)
+    assert plan.kind == kind
+    assert plan.passes == len(plan.launches) == m
     assert plan.check(h100) == []
