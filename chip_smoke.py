@@ -39,16 +39,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    at 1e-4 relative, with the launch list equal to the plan's and the
    kernel's launch count non-zero; and where the four-step time goes
    (kernel launches against the torch transposes and twiddle);
-7. the paper's loop on the card — ``compare_methods`` for scan ks at
-   n = 1024 and 4096, tridiag pcr at n = 256 and 1024 and fft stockham at
-   n = 1024 and 4096 on measured times (``WallClockObjective``):
-   exhaustive / analytical / bayesian / random, the Phi table, the sweep
-   sizes and the runner failures, which must be 0;
-8. the ``kernels`` line: per kernel its launches on the main path, its
-   error against the plain version, its time, the plain version's and the
-   library call's (null where no one PyTorch call computes the function),
-   and its bound (bytes over the card's memory rate, or operations over
-   its f32 rate, whichever is larger).
+7. the SSD chain: ``ssd_intra``, ``ssd_state_apply`` and
+   ``ssd_apply_entry`` against their plain versions (chunk 64 ... 2048,
+   nc = 1, 3 and 16, (S, P) = (8, 16), (16, 8) and (128, 64), a strong
+   decay, f32 and bf16, at the tests' SSD tolerance, DTYPE_TOL x 10); the
+   Mamba-2 block (``SSDBlock``) at mamba2-130m's width on 8 x 2048 tokens
+   with the session's config, and one decode step; the ``ssd`` op at the
+   block's shapes with chunk 128 and 256, fuse 0 and 1, and an odd chunk
+   count — each SSD output against a float64 sequential ``ssd_ref`` of
+   sampled heads, each launch list against ``plan_for_chain``, the launch
+   counts read around the block and around the whole SSD path; kernel 8
+   timed over chunk 128 ... 2048;
+8. the RG-LRU: ``rglru`` at recurrentgemma-9b's width (2 x 2048 x 4096)
+   with the gate in the kernel (fuse = 1) and in torch (fuse = 0), and a
+   multipass call at 2^22 x 16, against a float64 sequential recurrence;
+9. the paper's loop on the card — ``compare_methods`` for scan ks at
+   n = 1024 and 4096, tridiag pcr at n = 256 and 1024, fft stockham at
+   n = 1024 and 4096 and ssd chunked at n = 1024 (8 x 24 rows) on
+   measured times (``WallClockObjective``): exhaustive / analytical /
+   bayesian / random, the Phi table, the sweep sizes and the runner
+   failures, which must be 0;
+10. the ``kernels`` line: per kernel (all ten) its launches on the main
+   paths, its error against the plain version, its time, the plain
+   version's and the library call's (null where no one PyTorch call
+   computes the function), and its bound (bytes over the card's memory
+   rate, or operations over its f32 rate, whichever is larger).
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 nothing of JAX or of the JAX package.
@@ -270,11 +285,15 @@ def counted_wrappers():
     from repro_torch.kernels.scan.kernel import (scan_add, scan_linrec,
                                                  scan_linrec_prod)
     from repro_torch.kernels.fft.kernel import fft_stockham
+    from repro_torch.kernels.ssd.kernel import (ssd_apply_entry, ssd_intra,
+                                                ssd_state_apply)
     from repro_torch.kernels.tridiag.kernel import pcr
     return {"scan_add": scan_add, "apply_add": apply_add,
             "scan_linrec": scan_linrec, "scan_linrec_prod": scan_linrec_prod,
             "apply_linrec": apply_linrec, "pcr": pcr,
-            "fft_stockham": fft_stockham}
+            "fft_stockham": fft_stockham, "ssd_intra": ssd_intra,
+            "ssd_state_apply": ssd_state_apply,
+            "ssd_apply_entry": ssd_apply_entry}
 
 
 def reset_counts():
@@ -346,12 +365,14 @@ def phase_loop(dev):
     from repro_torch.core import Workload
     from repro_torch.core.objective import WallClockObjective
     from repro_torch.evaluation import check_report, compare_methods, format_report
-    from repro_torch.launch.tune import (make_fft_runner, make_scan_runner,
+    from repro_torch.launch.tune import (SSD_HEADS, make_fft_runner,
+                                         make_scan_runner, make_ssd_runner,
                                          make_tridiag_runner)
 
     runners = {"scan": make_scan_runner(dev, seed=2),
                "tridiag": make_tridiag_runner(dev, seed=2),
-               "fft": make_fft_runner(dev, seed=2)}
+               "fft": make_fft_runner(dev, seed=2),
+               "ssd": make_ssd_runner(dev, seed=2)}
 
     def runner(wl, cfg):
         return runners[wl.op](wl, cfg)
@@ -369,6 +390,9 @@ def phase_loop(dev):
                      variant="pcr") for n in (256, 1024)]
     wls += [Workload(op="fft", n=n, batch=TOTAL_ELEMS // n,
                      variant="stockham") for n in (1024, 4096)]
+    # ssd at the mamba2-130m prefill's rows (8 sequences x 24 heads)
+    wls += [Workload(op="ssd", n=n, batch=SSD_BATCH * SSD_HEADS,
+                     variant="chunked") for n in SSD_LOOP_SIZES]
     reset_counts()
     t0 = time.perf_counter()
     report = compare_methods(wls, ("exhaustive", "analytical", "bayesian",
@@ -390,8 +414,8 @@ def phase_loop(dev):
     if problems or failures:
         raise AssertionError(f"compare_methods: {problems}, runner "
                              f"failures {failures}")
-    require_launched(counts, ("scan_add", "pcr", "fft_stockham"),
-                     "the tuning loop")
+    require_launched(counts, ("scan_add", "pcr", "fft_stockham",
+                              "ssd_intra"), "the tuning loop")
     log("[loop] phi " + json.dumps(
         {op: {name: agg["phi"] for name, agg in per.items()}
          for op, per in report["per_op"].items()}))
@@ -1153,6 +1177,399 @@ def phase_fft_numbers(dev, inputs, runs, counts, err, bandwidth: float):
     return entry, rows
 
 
+# ---------------------------------------------------------------------------
+# The SSD chain, the Mamba-2 block and the RG-LRU op
+# ---------------------------------------------------------------------------
+
+# mamba2-130m's prefill on the card: 8 sequences of 2048 tokens, 24 heads
+SSD_BATCH, SSD_LEN = 8, 2048
+SSD_HEADS_SAMPLED = (0, 11, 23)   # heads held against float64 ssd_ref
+# recurrentgemma-9b's lru_width (src/repro/configs/recurrentgemma_9b.py)
+RGLRU_WIDTH = 4096
+SSD_LOOP_SIZES = (1024,)          # compare_methods on ssd
+RGLRU_LONG = (1, 2 ** 22, 16)     # the multipass call, as linrec's
+
+
+def ssd_kernel_cases():
+    """(BH, G, L, P, S, chunk, dtype, strong): chunk 64 ... 2048, nc = 1,
+    3 and 16, (S, P) = (8, 16), (16, 8) and (128, 64), shared b / c (G <
+    BH), a strong decay (a x 0.01), ragged tiles (P = 70, S = 130, Q =
+    100), f32 and bf16."""
+    return [(4, 2, 1024, 16, 8, 64, "float32", False),
+            (6, 3, 384, 8, 16, 128, "bfloat16", False),
+            (4, 2, 256, 64, 128, 256, "float32", False),
+            (2, 1, 2048, 64, 128, 2048, "float32", False),
+            (4, 2, 2048, 64, 128, 128, "float32", True),
+            (4, 2, 768, 64, 128, 256, "bfloat16", True),
+            (2, 1, 6144, 64, 128, 2048, "bfloat16", False),
+            (2, 1, 300, 70, 130, 100, "float32", False)]
+
+
+def ssd_inputs(gen, dev, BH, G, L, P, S, dtype, strong):
+    """x normal, a in [0.85, 0.999) (x 0.01 for a strong decay), b and c
+    normal x 0.3, as the tests draw them, in ``dtype``."""
+    import torch
+    x = torch.randn(BH, L, P, generator=gen, device=dev)
+    a = torch.rand(BH, L, generator=gen, device=dev) * 0.149 + 0.85
+    if strong:
+        a = a * 0.01
+    b = torch.randn(G, L, S, generator=gen, device=dev) * 0.3
+    c = torch.randn(G, L, S, generator=gen, device=dev) * 0.3
+    return tuple(v.to(dtype) for v in (x, a, b, c))
+
+
+def phase_ssd_kernels(dev, quick: bool):
+    """ssd_intra, ssd_state_apply and ssd_apply_entry against their plain
+    versions on the card, at the tests' SSD tolerance (DTYPE_TOL x 10).
+    The plain versions keep the kernels' order (and emulate their fused
+    multiply-adds exactly), so the count of elements that are not
+    bit-equal is printed beside the largest error."""
+    import torch
+    from repro_torch.kernels.ssd.kernel import (ssd_apply_entry,
+                                                ssd_apply_entry_plain,
+                                                ssd_intra, ssd_intra_plain,
+                                                ssd_state_apply,
+                                                ssd_state_apply_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    worst = {"ssd_intra": 0.0, "ssd_state_apply": 0.0, "ssd_apply_entry": 0.0}
+    unequal = dict.fromkeys(worst, 0)
+    cases = ssd_kernel_cases()[:3] if quick else ssd_kernel_cases()
+    for BH, G, L, P, S, chunk, dtype, strong in cases:
+        x, a, b, c = ssd_inputs(gen, dev, BH, G, L, P, S, dtypes[dtype],
+                                strong)
+        what = (f"BH={BH} G={G} L={L} P={P} S={S} chunk={chunk} {dtype}"
+                f"{' strong' if strong else ''}")
+        got = ssd_intra(x, a, b, c, chunk=chunk)
+        want = ssd_intra_plain(x, a, b, c, chunk=chunk)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("y", "a_chunk", "state"), got, want):
+            worst["ssd_intra"] = max(worst["ssd_intra"], check_close(
+                g, w, dtype if name == "y" else "float32",
+                f"ssd_intra {name} {what}", scale=10.0))
+            unequal["ssd_intra"] += int((g != w).sum())
+        y, ac, st = want
+        if L // chunk > 1:
+            for name, fn, plain, args in (
+                    ("ssd_state_apply", ssd_state_apply,
+                     ssd_state_apply_plain, (y, a, c, ac, st)),
+                    ("ssd_apply_entry", ssd_apply_entry,
+                     ssd_apply_entry_plain, (y, a, c, st))):
+                g, w = fn(*args, chunk=chunk), plain(*args, chunk=chunk)
+                torch.cuda.synchronize()
+                worst[name] = max(worst[name], check_close(
+                    g, w, dtype, f"{name} {what}", scale=10.0))
+                unequal[name] += int((g != w).sum())
+        log(f"[kernels] ssd {what}: within tolerance")
+    log(f"[kernels] ssd kernels: {len(cases)} cases within tolerance; max "
+        f"abs err {json.dumps(worst)}; elements not bit-equal to the plain "
+        f"version {json.dumps(unequal)}")
+    return worst
+
+
+def phase_ssd_path(dev):
+    """The Mamba-2 block at mamba2-130m's width (8 x 2048 tokens, the
+    session's config under h100), one decode step, then the ssd op at the
+    block's shapes with explicit chunks 128 / 256 and fuse 0 / 1 and an
+    odd chunk count; each SSD output held against a float64 sequential
+    scan of sampled heads, each launch list against its chain plan."""
+    import torch
+    from repro_torch.configs.mamba2_130m import CONFIG
+    from repro_torch.core.space import Workload
+    from repro_torch.kernels.blocks.driver import capture_launches
+    from repro_torch.kernels.blocks.plan import plan_for_chain
+    from repro_torch.kernels.ssd.ops import ssd
+    from repro_torch.kernels.ssd.ref import ssd_ref
+    from repro_torch.models.ssm import SSDBlock, init_ssd_cache
+    from repro_torch.tuning import default_session
+
+    cfg = CONFIG
+    gen = torch.Generator(device=dev).manual_seed(10)
+    block = SSDBlock.init(cfg, gen, device=dev)
+    x = torch.randn(SSD_BATCH, SSD_LEN, cfg.d_model, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    H = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+    S, P = cfg.ssm_state, cfg.ssm_head_dim
+    wl = Workload(op="ssd", n=SSD_LEN, batch=SSD_BATCH * H,
+                  variant="chunked")
+    resolved = default_session().resolve(wl)
+    heads = list(SSD_HEADS_SAMPLED)
+
+    def chain_of(c, L=SSD_LEN):
+        w = Workload(op="ssd", n=L, batch=SSD_BATCH * H, variant="chunked")
+        return plan_for_chain(w, {"tile_n": c["chunk"], "radix": c["radix"],
+                                  "fuse": c["fuse"]}, dims=(S, P))
+
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        reset_counts()
+        with capture_launches() as launched:
+            out, _ = block(x)
+            cache = init_ssd_cache(cfg, SSD_BATCH, device=dev)
+            step, new = block(x[:, :1], cache=cache)
+        torch.cuda.synchronize()
+        block_counts = read_counts()
+        log(f"[ssd] launches on the Mamba-2 block's path: {block_counts}")
+        require_launched(block_counts, ("ssd_intra",), "the Mamba-2 block")
+        want = chain_of(resolved).launches
+        if tuple(launched) != want:
+            raise AssertionError(f"SSDBlock: launched {list(launched)} != "
+                                 f"chain {want}")
+        for name, t, shape in (("prefill", out, x.shape),
+                               ("decode", step, (SSD_BATCH, 1, cfg.d_model)),
+                               ("decode state", new["state"],
+                                (SSD_BATCH, H, S, P))):
+            if tuple(t.shape) != tuple(shape) \
+                    or not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"SSDBlock {name}: {tuple(t.shape)} "
+                                     f"finite={bool(torch.isfinite(t).all())}")
+        # the SSD core at the block's own inputs (the same bf16 projections)
+        xh, a, b, c, _, _ = block.ssd_inputs(x)
+        args = (xh.float(), a, b.float(), c.float())
+        ref = ssd_ref(args[0][:, :, heads].double(),
+                      args[1][:, :, heads].double(), args[2].double(),
+                      args[3].double())
+        y = ssd(*args)
+        err = check_close(y[:, :, heads], ref, "float32",
+                          "SSDBlock's ssd vs float64 ssd_ref", scale=10.0)
+        log(f"[ssd] SSDBlock mamba2-130m (d_model {cfg.d_model}, {H} heads "
+            f"x {P}, state {S}) on {SSD_BATCH} x {SSD_LEN} tokens: config "
+            f"{resolved}, {len(want)} launch(es) {[l.name for l in want]}; "
+            f"ssd vs float64 ssd_ref on heads {heads}: max abs err "
+            f"{err:.3e} (max |ref| {float(ref.abs().max()):.3e}); decode "
+            f"step finite")
+
+        # the op at the block's shapes, explicit configs, and an odd nc
+        calls = [({"chunk": ch, "radix": 2, "fuse": fu}, SSD_LEN)
+                 for ch in (128, 256) for fu in (0, 1)]
+        calls += [({"chunk": 128, "radix": 2, "fuse": fu}, 384)
+                  for fu in (0, 1)]
+        runs = []
+        for c, L in calls:
+            part = tuple(v[:, :L] for v in args)
+            with capture_launches() as launched:
+                yo = ssd(*part, config={"tile_n": c["chunk"],
+                                        "radix": c["radix"],
+                                        "fuse": c["fuse"]})
+            runs.append((c, L, part, yo, list(launched)))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        log(f"[ssd] launches on the SSD path (block, then the op): {counts}")
+        require_launched(counts, ("ssd_intra", "ssd_state_apply",
+                                  "ssd_apply_entry", "scan_linrec"),
+                         "the SSD path")
+        refs = {SSD_LEN: ref}
+        ops = []
+        for c, L, part, yo, launched in runs:
+            want = chain_of(c, L).launches
+            if tuple(launched) != want:
+                raise AssertionError(f"ssd {c} L={L}: launched {launched} "
+                                     f"!= chain {want}")
+            if L not in refs:
+                refs[L] = ssd_ref(part[0][:, :, heads].double(),
+                                  part[1][:, :, heads].double(),
+                                  part[2].double(), part[3].double())
+            err = check_close(yo[:, :, heads], refs[L], "float32",
+                              f"ssd {c} L={L} vs float64 ssd_ref",
+                              scale=10.0)
+            ops.append({"config": c, "L": L, "launches":
+                        [l.name for l in launched], "err": err})
+            log(f"[ssd] ssd {c} L={L}: {[l.name for l in launched]}, max "
+                f"abs err vs float64 {err:.3e} (max |ref| "
+                f"{float(refs[L].abs().max()):.3e})")
+    return {"block": block, "x": x, "args": args, "resolved": resolved,
+            "ops": ops, "block_counts": block_counts, "counts": counts}
+
+
+def phase_ssd_numbers(dev, run, errs, bandwidth: float):
+    """Times at the block's shapes: the block, the op at the resolved and
+    the forced configs, kernel 8 over chunk 128 ... 2048, and the kernels
+    line's entries for kernels 8, 9 and 10 at chunk 128."""
+    import torch
+    from repro_torch.kernels.ssd.kernel import (ssd_apply_entry,
+                                                ssd_apply_entry_plain,
+                                                ssd_intra, ssd_intra_plain,
+                                                ssd_state_apply,
+                                                ssd_state_apply_plain)
+    from repro_torch.kernels.ssd.ops import ssd
+
+    block, x, args = run["block"], run["x"], run["args"]
+    B, L, H, P = args[0].shape
+    S = args[2].shape[-1]
+    BH = B * H
+    with torch.inference_mode():
+        times = {"block_prefill_ms": time_ms(lambda: block(x), 5),
+                 "ssd_resolved_ms": time_ms(lambda: ssd(*args), 5),
+                 "resolved": run["resolved"]}
+        for op in run["ops"]:
+            if op["L"] != L:
+                continue
+            c = op["config"]
+            cfg = {"tile_n": c["chunk"], "radix": c["radix"],
+                   "fuse": c["fuse"]}
+            times[f"ssd_chunk{c['chunk']}_fuse{c['fuse']}_ms"] = time_ms(
+                lambda: ssd(*args, config=cfg), 5)
+        xbh = args[0].permute(0, 2, 1, 3).reshape(BH, L, P)
+        abh = args[1].permute(0, 2, 1).reshape(BH, L)
+        b, c = args[2], args[3]
+        intra = {}
+        for chunk in (ch for ch in (128, 256, 512, 1024, 2048) if ch <= L):
+            intra[chunk] = time_ms(lambda: ssd_intra(xbh, abh, b, c,
+                                                     chunk=chunk), 5)
+        times["ssd_intra_ms_by_chunk"] = intra
+        log(f"[numbers] ssd at ({B}, {L}, {H}, {P}), state {S}: "
+            f"{json.dumps(times, sort_keys=True)}")
+
+        chunk = 128
+        nc = L // chunk
+        y, ac, st = ssd_intra(xbh, abh, b, c, chunk=chunk)
+        f4 = 4
+        # bytes each function must move: inputs read once, outputs written
+        # once (b and c read per sequence, as the kernels read them)
+        x_bytes = xbh.numel() * f4
+        bc_bytes = 2 * b.numel() * f4
+        a_bytes = abh.numel() * f4
+        st_bytes = st.numel() * f4
+        pairs = chunk * (chunk + 1) // 2            # s <= t in a chunk
+        # intra: per (row, chunk) the causal pairs' S-dot, decay multiply
+        # and P-term (2S + 2 + 2P), the state's S x P x Q fma and b x decay
+        intra_flops = BH * nc * (pairs * (2 * S + 2 + 2 * P)
+                                 + 2 * chunk * S * P + chunk * S)
+        # apply: the Q x P x S dot, the decay multiply and the add, and (the
+        # fused kernel) the S x P carry fma per chunk
+        apply_flops = BH * nc * (2 * chunk * S * P + 2 * chunk * P)
+
+        def entry(name, replaces, fn, plain, nbytes, flops, err_name):
+            got, want = fn(), plain()
+            torch.cuda.synchronize()
+            if not isinstance(got, tuple):
+                got, want = (got,), (want,)
+            log(f"[numbers] {name} against its plain version at the "
+                f"block's shape, per output: " + json.dumps(
+                    [{"max_abs_err": max_err(g, w),
+                      "not_bit_equal": int((g != w).sum()),
+                      "elements": g.numel(),
+                      "max_abs": float(w.abs().max())}
+                     for g, w in zip(got, want)]))
+            by_bytes = nbytes / bandwidth * 1e3
+            by_ops = flops / F32_PEAK * 1e3
+            out = {"name": name, "route": "cuda",
+                   "source": "src/repro_torch/csrc/ssd.cu",
+                   "replaces": replaces, "launches": run["counts"][name],
+                   "max_abs_err": max(max_err(g, w)
+                                      for g, w in zip(got, want)),
+                   "ms": time_ms(fn, 10),
+                   "plain_ms": time_ms(plain, 2, warmup=1),
+                   "bound_ms": max(by_bytes, by_ops),
+                   "bound_by": "bytes" if by_bytes >= by_ops
+                   else "operations",
+                   "library_ms": None,
+                   "shape": [BH, L, P, S], "dtype": "float32",
+                   "config": {"chunk": chunk}, "bytes": nbytes,
+                   "flops": flops, "check_max_abs_err": errs[err_name]}
+            log(f"[numbers] {json.dumps(out, sort_keys=True)}")
+            return out
+
+        entries = [
+            entry("ssd_intra", "src/repro/kernels/ssd/kernel.py:74",
+                  lambda: ssd_intra(xbh, abh, b, c, chunk=chunk),
+                  lambda: ssd_intra_plain(xbh, abh, b, c, chunk=chunk),
+                  2 * x_bytes + a_bytes + bc_bytes + st_bytes + BH * nc * f4,
+                  intra_flops, "ssd_intra"),
+            entry("ssd_state_apply", "src/repro/kernels/ssd/kernel.py:136",
+                  lambda: ssd_state_apply(y, abh, c, ac, st, chunk=chunk),
+                  lambda: ssd_state_apply_plain(y, abh, c, ac, st,
+                                                chunk=chunk),
+                  2 * x_bytes + a_bytes + bc_bytes // 2 + st_bytes
+                  + BH * nc * f4, apply_flops + BH * nc * 2 * S * P,
+                  "ssd_state_apply"),
+            entry("ssd_apply_entry", "src/repro/kernels/ssd/kernel.py:169",
+                  lambda: ssd_apply_entry(y, abh, c, st, chunk=chunk),
+                  lambda: ssd_apply_entry_plain(y, abh, c, st, chunk=chunk),
+                  2 * x_bytes + a_bytes + bc_bytes // 2 + st_bytes,
+                  apply_flops, "ssd_apply_entry")]
+    return entries, times
+
+
+def rglru_f64_sequential(a, u):
+    """h_t = a_t h_{t-1} + sqrt(max(1 - a_t^2, 0)) u_t in float64, one step
+    after another (Python floats on the CPU), for (rows, L) tensors."""
+    import torch
+    a64 = a.double().cpu()
+    b64 = torch.sqrt(torch.clamp_min(1.0 - a64 * a64, 0.0)) * u.double().cpu()
+    return linrec_f64_sequential(a64, b64)
+
+
+def phase_rglru_path(dev):
+    """rglru at recurrentgemma-9b's width (B = 2, L = 2048, D = 4096) with
+    the session's config (fuse = 1: the gate in scan_linrec) and forced to
+    fuse = 0 (the gate in torch), and one multipass call at B = 1, L =
+    2^22, D = 16 (the gate in scan_linrec_prod), held against a float64
+    sequential recurrence of sampled channels."""
+    import torch
+    from repro_torch.core.space import Workload
+    from repro_torch.kernels.blocks.driver import capture_launches
+    from repro_torch.kernels.blocks.plan import plan_for_chain
+    from repro_torch.kernels.rglru.ops import rglru
+    from repro_torch.tuning import default_session
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    shapes = {"wide": (2, 2048, RGLRU_WIDTH), "long": RGLRU_LONG}
+    inputs = {k: (torch.rand(*s, generator=gen, device=dev) * 0.19 + 0.8,
+                  torch.randn(*s, generator=gen, device=dev))
+              for k, s in shapes.items()}
+    calls = []
+    for key, (B, L, D) in shapes.items():
+        wl = Workload(op="rglru", n=L, batch=B * D)
+        cfg = default_session().resolve(wl)
+        calls.append((key, wl, cfg))
+        if key == "wide":
+            calls.append((key, wl, dict(cfg, fuse=1 - cfg["fuse"])))
+    torch.cuda.synchronize()
+    reset_counts()
+    outs = []
+    for key, wl, cfg in calls:
+        with capture_launches() as launched:
+            h = rglru(*inputs[key], config=cfg)
+        outs.append((key, wl, cfg, h, list(launched)))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"[rglru] launches on the RG-LRU path: {counts}")
+    require_launched(counts, ("scan_linrec", "scan_linrec_prod",
+                              "apply_linrec"), "the RG-LRU path")
+    runs = []
+    for key, wl, cfg, h, launched in outs:
+        chain = plan_for_chain(wl, cfg)
+        if tuple(launched) != chain.launches:
+            raise AssertionError(f"rglru {wl.key} {cfg}: launched "
+                                 f"{launched} != chain {chain.launches}")
+        a, u = inputs[key]
+        B, L, D = a.shape
+        chans = (0, D - 1) if L <= 2 ** 16 else (0,)
+        ref = rglru_f64_sequential(a[:1, :, chans].permute(0, 2, 1)
+                                   .reshape(-1, L),
+                                   u[:1, :, chans].permute(0, 2, 1)
+                                   .reshape(-1, L))
+        got = h[:1, :, chans].permute(0, 2, 1).reshape(-1, L).cpu()
+        err = check_close(got, ref, "float32", f"rglru {wl.key} {cfg} vs "
+                          f"float64 sequential")
+        log(f"[rglru] {wl.key}: {chain.plan.kind}, config {cfg}, "
+            f"{len(launched)} launch(es), gate "
+            f"{'in the kernel' if cfg['fuse'] else 'in torch'}, max abs err "
+            f"vs float64 of channels {chans} {err:.3e}")
+        runs.append({"key": key, "wl": wl, "cfg": cfg, "plan": chain.plan,
+                     "err": err})
+    times = {}
+    for run in runs:
+        args = inputs[run["key"]]
+        cfg = run["cfg"]
+        times[f"{run['wl'].key} fuse={cfg['fuse']}"] = time_ms(
+            lambda: rglru(*args, config=cfg), 5)
+    log(f"[numbers] rglru ms: {json.dumps(times)}")
+    return counts, runs, times
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -1180,6 +1597,7 @@ def main(argv=None) -> int:
     phase_kernels(dev, args.quick)
     errs = phase_linrec_kernels(dev, args.quick)
     fft_err = phase_fft_kernels(dev, args.quick)
+    ssd_errs = phase_ssd_kernels(dev, args.quick)
     log(f"[kernels] {time.perf_counter() - t0:.1f} s")
     if not args.quick:
         from repro_torch.hw.profiles import get_profile
@@ -1212,6 +1630,30 @@ def main(argv=None) -> int:
         log(f"[numbers] {time.perf_counter() - t0:.1f} s")
         del ffts
         torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ssd_run = phase_ssd_path(dev)
+        log(f"[ssd] {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        ssd_entries, _ = phase_ssd_numbers(dev, ssd_run, ssd_errs, bandwidth)
+        log(f"[numbers] {time.perf_counter() - t0:.1f} s")
+        ssd_counts = ssd_run["counts"]
+        del ssd_run
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rglru_counts, _, _ = phase_rglru_path(dev)
+        log(f"[rglru] {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        # kernels 2, 3 and 5 run on three paths: the linear recurrence and
+        # tridiagonal solvers, SSD phase B and the RG-LRU
+        for entry in entries:
+            name = entry["name"]
+            if name in ("scan_linrec", "scan_linrec_prod", "apply_linrec"):
+                paths = {"linrec/tridiag": entry["launches"],
+                         "ssd": ssd_counts[name],
+                         "rglru": rglru_counts[name]}
+                entry["launches_by_path"] = paths
+                entry["launches"] = sum(paths.values())
+        entries += ssd_entries
         t0 = time.perf_counter()
         phase_loop(dev)
         log(f"[loop] {time.perf_counter() - t0:.1f} s")

@@ -11,8 +11,8 @@ cost model adds ``energy_j`` and ``peak_vmem_bytes``), with ``time_s`` the
 scalar-compatible primary field.
 
 The PyTorch port's own copy of ``repro.core.objective``, trimmed to the
-scan, tridiag and FFT ops.  The cost-model arithmetic is the JAX package's,
-verbatim, so both packages model identical times.
+scan, tridiag, FFT, SSD and RG-LRU ops.  The cost-model arithmetic is the
+JAX package's, verbatim, so both packages model identical times.
 
   * ``WallClockObjective`` — times a runner's thunk on a torch device.  On
     a CUDA device the timed region ends in ``torch.cuda.synchronize()``, so
@@ -241,12 +241,23 @@ def _flops_and_passes(wl: Workload, cfg: Config) -> Dict[str, float]:
         k = round(math.log(max(tile, 2), radix)) if radix > 1 else 1
         return 0.0 if radix**k == tile else 1.0
 
-    if wl.op == "scan":
+    if wl.op in ("scan", "ssd", "rglru"):
         steps = math.ceil(math.log(max(tile_n, 2), r))
         # Kogge-Stone does N work per step; Ladner-Fischer ~2N total but more
         # steps of structure; model KS-like: n ops/step, radix-r node = r-1 adds
         out["flops"] = steps * n * (r - 1) / max(r / 2, 1)
-        out["passes"] = math.ceil(math.log(max(n, 2), r) / math.log(max(tile_n, 2), r)) if tile_n < n else 1
+        base_passes = math.ceil(math.log(max(n, 2), r) / math.log(max(tile_n, 2), r)) if tile_n < n else 1
+        fuse = cfg.get("fuse", 0)
+        if wl.op == "ssd":
+            # chain passes: intra + (linrec + apply, or the fused
+            # state-apply launch) — fuse=1 saves one HBM pass
+            out["passes"] = (3.0 - fuse) if tile_n < n else 1.0
+        elif wl.op == "rglru":
+            # gate link: a separate XLA pass unless folded into the scan
+            # kernel's first stage (fuse=1)
+            out["passes"] = base_passes + (1.0 - fuse)
+        else:
+            out["passes"] = base_passes
         out["steps"] = steps
         out["mixed_radix"] = mixed(tile_n, r)
     elif wl.op == "tridiag":
@@ -348,14 +359,21 @@ def _batch_work(wl: Workload, cfgs: Sequence[Config],
     out: Dict[str, np.ndarray] = {}
     ones = np.ones(len(cfgs), dtype=np.float64)
 
-    if wl.op == "scan":
+    if wl.op in ("scan", "ssd", "rglru"):
         log_r = np.log(np.maximum(r, 2))
         log_tile = np.log(np.maximum(tile_n, 2))
         steps = np.ceil(log_tile / log_r)
         out["flops"] = steps * n * (r - 1) / np.maximum(r / 2, 1)
-        out["passes"] = np.where(
+        base_passes = np.where(
             tile_n < n,
             np.ceil(np.log(max(n, 2)) / log_r / (log_tile / log_r)), 1.0)
+        fuse = cols.get("fuse", 0)
+        if wl.op == "ssd":
+            out["passes"] = np.where(tile_n < n, 3.0 - fuse, 1.0)
+        elif wl.op == "rglru":
+            out["passes"] = base_passes + (1.0 - fuse)
+        else:
+            out["passes"] = base_passes
         out["steps"] = steps
         out["mixed_radix"] = _mixed_radix_arr(tile_n, r)
     elif wl.op == "tridiag":

@@ -1,7 +1,7 @@
 """Search spaces for kernel performance parameters (paper Table I).
 
 The PyTorch port's own copy of ``repro.core.space``, trimmed to the scan,
-tridiag and FFT ops: the numpy code that decides a space is the JAX package's,
+tridiag, FFT, SSD and RG-LRU ops: the numpy code that decides a space is the JAX package's,
 verbatim, so both packages enumerate identical spaces for the same
 workload and profile.  Every other op raises until its slice of the port
 lands.
@@ -243,6 +243,14 @@ def scan_space(wl: Workload,
         ParamSpec("unroll", unroll_dom),        # node-ops per VPU step
         ParamSpec("in_register", (0, 1)),
     ]
+    if wl.op in ("ssd", "rglru"):
+        # chain-fusion boundary knob: 1 folds the op's neighbouring chain
+        # links into a shared launch (rglru's gate into the scan kernel's
+        # first stage, SSD's phase B + apply into one sequential launch),
+        # 0 breaks at the historical kernel boundaries — each break is a
+        # full HBM roundtrip the analytical model charges as a pass.
+        # Plain scans have no chain, so the knob would be dead there.
+        params.append(ParamSpec("fuse", (0, 1)))
     return SearchSpace(
         wl,
         params,
@@ -255,6 +263,13 @@ def scan_space(wl: Workload,
         ),
         spec=spec,
     )
+
+
+def linrec_space(wl: Workload,
+                 spec: Optional[HardwareProfile] = None) -> SearchSpace:
+    """Scan space with the linrec-dead knobs pruned (rglru & friends)."""
+    return scan_space(dataclasses.replace(wl, variant=wl.variant or "linrec"),
+                      spec)
 
 
 def tridiag_space(wl: Workload,
@@ -359,6 +374,8 @@ _SPACE_BUILDERS: Dict[str, Callable[..., SearchSpace]] = {
     "fft": fft_space,
     # registered without max_tile: its builder keeps the 4096 default
     "large_fft": large_fft_space,
+    "ssd": scan_space,        # the SSD inter-chunk scan shares the scan space
+    "rglru": linrec_space,    # rglru IS a linrec: dead unroll knob pruned
 }
 
 

@@ -9,8 +9,12 @@ launches the driver performs).  The kernel drivers execute
 ``plan.launches`` verbatim and ``core.analytical.resources`` reads the
 same fields, so model and kernel cannot disagree.
 
+Composite ops (rglru's gate→linrec, SSD's intra→linrec→apply) are chains
+of links (``plan_for_chain``): the ``fuse`` knob decides whether
+neighbouring links share a launch or break at the historical boundaries.
+
 The PyTorch port's own copy of ``repro.kernels.blocks.plan``, trimmed to
-the scan, tridiag and FFT ops.  The arithmetic is the JAX package's,
+the scan, tridiag, FFT, SSD and RG-LRU ops.  The arithmetic is the JAX package's,
 verbatim, so both packages build identical plans; the field names keep
 the JAX package's words (``grid``, ``vmem_bytes``) — on the GPU a plan's
 grid row count is the CUDA grid and its ``vmem_bytes`` the shared-memory
@@ -161,8 +165,10 @@ class StagePlan:
     n: int
     batch: int
     dtype: str
-    kind: str                       # "fused" | "multipass"; dispatchers
-    #                                 branch on == "multipass" only
+    kind: str                       # "fused" | "multipass" | "three-phase"
+    #                                 (ssd unfused) | "two-phase" (ssd
+    #                                 fused) | "xla"; dispatchers branch
+    #                                 on == "multipass" only
     tile_n: int                     # elements resident per program
     rows: int                       # problem rows per program
     radix: int                      # nominal (tuned) fan-in
@@ -292,7 +298,7 @@ def _occ(tile_n: int, rows: int, spec: HardwareProfile) -> Tuple[int, float, flo
 
 
 def _is_linrec(wl: Workload) -> bool:
-    return wl.variant in _LINREC_VARIANTS
+    return wl.op in ("rglru",) or wl.variant in _LINREC_VARIANTS
 
 
 def _prefix_plan(wl: Workload, cfg: Mapping[str, int], spec: HardwareProfile,
@@ -312,6 +318,11 @@ def _prefix_plan(wl: Workload, cfg: Mapping[str, int], spec: HardwareProfile,
     trailing, lane, sub, occ = _occ(tile_n, rows, spec)
     stage_vmem = tuple(io + carry + r * rows * tile_n * 4 for r in stages)
     ragged = is_ragged(stages, radix, tile_n)
+    # rglru is a gate→linrec chain: fused, the elementwise gate runs inside
+    # the scan kernel's first stage (same launches, one fewer HBM pass);
+    # unfused, the torch gate materializes b = sqrt(1-a^2)*u through device
+    # memory — one extra pass that never shows up as a kernel launch
+    gate_xla = 1 if wl.op == "rglru" and not int(cfg.get("fuse", 0)) else 0
 
     if seq_tiles > seq_limit and tile_n < wl.n:
         # §IV-C m-kernel path: per-chunk scan, chunk-carry scan, apply.
@@ -334,7 +345,8 @@ def _prefix_plan(wl: Workload, cfg: Mapping[str, int], spec: HardwareProfile,
             op=wl.op, variant=wl.variant, n=wl.n, batch=batch, dtype=wl.dtype,
             kind="multipass", tile_n=tile_n, rows=rows, radix=radix,
             stages=stages, seq_tiles=seq_tiles, grid=l1.grid,
-            launches=launches, passes=len(launches),
+            launches=launches, passes=len(launches) + gate_xla,
+            xla_passes=gate_xla,
             vmem_bytes=max(l.vmem_bytes for l in launches),
             stage_vmem_bytes=stage_vmem,
             block_bytes=rows * tile_n * eb, element_bytes=eb,
@@ -348,12 +360,55 @@ def _prefix_plan(wl: Workload, cfg: Mapping[str, int], spec: HardwareProfile,
         op=wl.op, variant=wl.variant, n=wl.n, batch=batch, dtype=wl.dtype,
         kind="fused", tile_n=tile_n, rows=rows, radix=radix, stages=stages,
         seq_tiles=seq_tiles, grid=grid, launches=(launch,),
-        passes=1,
+        passes=1 + gate_xla, xla_passes=gate_xla,
         vmem_bytes=launch.vmem_bytes, stage_vmem_bytes=stage_vmem,
         block_bytes=rows * tile_n * eb, element_bytes=eb, trailing=trailing,
         lane_eff=lane, sublane_eff=sub, occupancy=occ,
         ilp=unroll * (2 if cfg.get("in_register") else 1), ragged=ragged,
         steps_per_pass=float(len(stages)))
+
+
+def _ssd_plan(wl: Workload, cfg: Mapping[str, int], spec: HardwareProfile,
+              seq_limit: int) -> StagePlan:
+    """SSD chain: intra-chunk kernel → linrec over chunk transitions →
+    apply.  Unfused, phase B is a child prefix plan on the shared blocks
+    and the chain runs as three launches with HBM roundtrips between;
+    ``fuse=1`` collapses phase B + apply into one sequential-grid launch
+    whose VMEM carry holds the running (S, P) entry state — the chunk
+    states feed the recurrence without ever leaving the core (two-phase).
+
+    Model-level plan: the phase count and chunk staging are exact, but the
+    state dims (S, P) are runtime shapes a ``Workload`` does not carry, so
+    the unfused phase-B child models the nc-length transition scan per
+    (batch) row, not the S*P row fan-out ``driver.linrec_rows`` resolves
+    at launch.  ``plan_for_chain(wl, cfg, dims=(S, P))`` rebuilds the
+    exact embedded launches for the conformance suite."""
+    base = _prefix_plan(wl, cfg, spec, seq_limit)
+    chunk = base.tile_n
+    nc = max(wl.n // max(chunk, 1), 1)
+    if nc <= 1:
+        # single chunk: intra kernel alone already yields the answer
+        return dataclasses.replace(base, kind="fused", seq_tiles=1)
+    intra = Launch("ssd-intra", (base.batch, nc), (1, chunk), (),
+                   base.vmem_bytes)
+    if int(cfg.get("fuse", 0)):
+        state_apply = Launch("ssd-state-apply", (base.batch, nc),
+                             (1, chunk), (), base.vmem_bytes)
+        launches = (intra, state_apply)
+        return dataclasses.replace(
+            base, kind="two-phase", seq_tiles=nc, launches=launches,
+            passes=len(launches), children=())
+    child = _prefix_plan(
+        Workload(op="scan", n=nc, batch=base.batch, dtype=wl.dtype,
+                 variant="linrec"),
+        {"tile_n": nc, "rows_per_program": 1,
+         "radix": cfg.get("radix", 2)}, spec, seq_limit)
+    apply_ = Launch("ssd-apply", (base.batch, nc), (1, chunk), (),
+                    base.vmem_bytes)
+    launches = (intra,) + child.launches + (apply_,)
+    return dataclasses.replace(
+        base, kind="three-phase", seq_tiles=nc, launches=launches,
+        passes=len(launches), children=(child,))
 
 
 def _tridiag_plan(wl: Workload, cfg: Mapping[str, int], spec: HardwareProfile
@@ -475,7 +530,9 @@ def build_plan(wl: Workload, cfg: Mapping[str, int], *,
     ``resident_tile_cap`` under ``profile``)."""
     wl = wl.canonical()
     spec = profile if profile is not None else active_profile()
-    if wl.op == "scan":
+    if wl.op in ("scan", "ssd", "rglru"):
+        if wl.op == "ssd":
+            return _ssd_plan(wl, cfg, spec, seq_limit)
         return _prefix_plan(wl, cfg, spec, seq_limit)
     if wl.op == "tridiag":
         return _tridiag_plan(wl, cfg, spec)
@@ -486,6 +543,167 @@ def build_plan(wl: Workload, cfg: Mapping[str, int], *,
     raise NotImplementedError(
         f"no plan builder for op={wl.op!r} in the PyTorch port yet: see "
         f"ROADMAP.md, 'Modules to port'")
+
+
+# ---------------------------------------------------------------------------
+# Chain planning: sequences of ops as one staged execution
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ChainLink:
+    """One op of a chain and what executing it costs.
+
+    ``kind`` records where the link's work happens: ``"pallas"`` links own
+    the launches in ``launches``; ``"xla"`` links run as plain tensor ops
+    costing ``passes`` memory roundtrips with no kernel launch; ``"fused"``
+    links are folded into a neighbouring link's launch (zero launches, zero
+    passes of their own — the whole point of the ``fuse`` knob).  The kind
+    names are the JAX package's, so both packages' chains compare equal: in
+    the port a ``"pallas"`` link launches the hand-written CUDA kernels.
+    """
+
+    name: str                       # link tag ("gate", "linrec", "intra"...)
+    kind: str                       # "pallas" | "xla" | "fused"
+    launches: Tuple[Launch, ...]    # launches this link issues itself
+    passes: int                     # HBM roundtrips this link costs
+    plan: Optional[StagePlan] = None   # the link's own plan when it has one
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainPlan:
+    """A sequence of ops planned as one staged execution.
+
+    ``plan`` is the flattened :class:`StagePlan` (what ``resources()``,
+    the analytical model and the featurizer consume — built by
+    ``plan_for`` with the same config); ``links`` is the per-op view the
+    drivers dispatch from.  ``launches`` concatenates the links' launch
+    lists in driver order — the conformance contract is that a
+    ``capture_launches`` trace of the chain's execution equals it.
+    """
+
+    op: str
+    links: Tuple[ChainLink, ...]
+    plan: StagePlan
+
+    @property
+    def launches(self) -> Tuple[Launch, ...]:
+        return tuple(l for link in self.links for l in link.launches)
+
+    @property
+    def passes(self) -> int:
+        return sum(link.passes for link in self.links)
+
+    def check(self, spec: HardwareProfile) -> List[str]:
+        """Chain-level violations on top of the flattened plan's own."""
+        out = self.plan.check(spec)
+        if self.passes != self.plan.passes:
+            out.append(f"chain passes {self.passes} disagree with the "
+                       f"flattened plan's {self.plan.passes}")
+        for link in self.links:
+            if link.kind == "fused" and (link.launches or link.passes):
+                out.append(f"link {link.name}: fused links own no launches "
+                           f"or passes")
+            if link.kind == "pallas" and link.passes != len(link.launches):
+                out.append(f"link {link.name}: {link.passes} passes vs "
+                           f"{len(link.launches)} launches")
+        return out
+
+
+def _rglru_chain(wl: Workload, cfg: Mapping[str, int], plan: StagePlan
+                 ) -> ChainPlan:
+    fused = bool(int(cfg.get("fuse", 0)))
+    gate = ChainLink("gate", "fused" if fused else "xla", (), 0 if fused
+                     else 1)
+    linrec = ChainLink("linrec", "pallas", plan.launches,
+                       len(plan.launches), plan=plan)
+    return ChainPlan(op=wl.op, links=(gate, linrec), plan=plan)
+
+
+def _ssd_chain(wl: Workload, cfg: Mapping[str, int], plan: StagePlan,
+               spec: HardwareProfile, seq_limit: int,
+               dims: Optional[Tuple[int, int]]) -> ChainPlan:
+    if plan.kind == "fused":            # nc <= 1: intra kernel alone
+        intra = ChainLink("intra", "pallas", plan.launches,
+                          len(plan.launches), plan=plan)
+        return ChainPlan(op=wl.op, links=(intra,), plan=plan)
+    nc = plan.seq_tiles
+    intra = ChainLink("intra", "pallas", plan.launches[:1], 1)
+    if plan.kind == "two-phase":
+        # phase B + apply share the sequential state-apply launch: the
+        # linrec link's carry lives in that launch's VMEM scratch
+        linrec = ChainLink("linrec", "fused", (), 0)
+        apply_ = ChainLink("apply", "pallas", plan.launches[1:], 1)
+        return ChainPlan(op=wl.op, links=(intra, linrec, apply_), plan=plan)
+    # unfused: phase B is the embedded linrec block.  With the runtime
+    # state dims the embedded plan is exact — the (S, P) fan-out
+    # ``driver.linrec_rows`` resolves at launch; without them, fall back
+    # to the flattened plan's model-level child.
+    if dims is not None and _linrec_space_valid_model(nc):
+        s, p = dims
+        embed_batch = plan.batch * s * p
+        embed_wl = Workload(op="scan", n=nc, batch=embed_batch,
+                            dtype="float32", variant="linrec")
+        # mirror the scan normalizer's defaults for the threaded config
+        # ({"tile_n": nc, "radix": cfg radix}): rows fit from the default 8
+        embed_cfg = {"tile_n": nc,
+                     "rows_per_program": fit_block(8, embed_batch),
+                     "radix": int(cfg.get("radix", 2))}
+        child = build_plan(embed_wl, embed_cfg, profile=spec,
+                           seq_limit=seq_limit)
+        linrec = ChainLink("linrec", "pallas", child.launches,
+                           len(child.launches), plan=child)
+    elif dims is not None:
+        # odd nc: the embedded block falls back to the XLA reference
+        linrec = ChainLink("linrec", "xla", (), 1)
+    else:
+        child = plan.children[0] if plan.children else None
+        launches = child.launches if child is not None else ()
+        linrec = ChainLink("linrec", "pallas", launches, len(launches),
+                           plan=child)
+    apply_ = ChainLink("apply", "pallas", plan.launches[-1:], 1)
+    chain_plan = plan
+    if dims is not None:
+        # re-flatten around the exact embedded launches so chain-level
+        # pass accounting stays consistent (launch count can only match)
+        launches = plan.launches[:1] + linrec.launches + plan.launches[-1:]
+        chain_plan = dataclasses.replace(
+            plan, launches=launches, passes=len(launches) + plan.xla_passes
+            + (1 if linrec.kind == "xla" else 0),
+            xla_passes=plan.xla_passes + (1 if linrec.kind == "xla" else 0),
+            children=(linrec.plan,) if linrec.plan is not None else ())
+    return ChainPlan(op=wl.op, links=(intra, linrec, apply_),
+                     plan=chain_plan)
+
+
+def _linrec_space_valid_model(n: int) -> bool:
+    """Planner-side mirror of ``driver._linrec_space_valid`` (kept here so
+    the pure-Python planner never imports the torch-backed driver)."""
+    return n >= 2 and n % 2 == 0
+
+
+def plan_for_chain(wl: Workload, cfg: Mapping[str, int], *,
+                   dims: Optional[Tuple[int, int]] = None,
+                   profile: Optional[HardwareProfile] = None,
+                   seq_limit: int = DEFAULT_SEQ_LIMIT) -> ChainPlan:
+    """Plan ``wl``'s op — a chain for composite ops — as one staged
+    execution.
+
+    For ``rglru`` the chain is gate→linrec; for ``ssd`` it is
+    intra→linrec→apply, and passing the runtime state dims ``dims=(S, P)``
+    makes the embedded phase-B launches exact (a ``capture_launches``
+    trace of the executed chain equals ``chain.launches``).  Every other
+    op is a single-link chain around its regular ``plan_for`` plan.
+    """
+    wl = wl.canonical()
+    spec = profile if profile is not None else active_profile()
+    plan = plan_for(wl, cfg, profile=spec, seq_limit=seq_limit)
+    if wl.op == "rglru":
+        return _rglru_chain(wl, cfg, plan)
+    if wl.op == "ssd":
+        return _ssd_chain(wl, cfg, plan, spec, seq_limit, dims)
+    link = ChainLink(wl.op or "op", "pallas" if plan.launches else "xla",
+                     plan.launches, plan.passes, plan=plan)
+    return ChainPlan(op=wl.op, links=(link,), plan=plan)
 
 
 @functools.lru_cache(maxsize=65536)

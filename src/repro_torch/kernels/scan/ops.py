@@ -39,8 +39,12 @@ def _normalize(cfg, wl, dims=None):
         "tile_n": fit_block(cfg.get("tile_n", wl.n), wl.n),
         "radix": cfg.get("radix", 2),
     }
-    if wl.variant != "linrec":
+    if wl.variant != "linrec" and wl.op != "rglru":
         out["unroll"] = cfg.get("unroll", 1)
+    if wl.op == "rglru":
+        # chain-fusion boundary: keep the knob in the resolved config so
+        # the dispatch (and the plan it records) sees the tuned value
+        out["fuse"] = cfg.get("fuse", 0)
     return out
 
 

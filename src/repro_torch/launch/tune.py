@@ -1,5 +1,5 @@
 """Offline tuning CLI of the port: the paper's loop on the prefix-sum scan,
-the tridiagonal solvers and the FFT.
+the tridiagonal solvers, the FFT, the SSD op and the RG-LRU.
 
 Tune one workload per size and persist the winner in a TuningDB:
 
@@ -15,14 +15,22 @@ Score every methodology against the exhaustive optimum (paper Table II):
   PYTHONPATH=src python -m repro_torch.launch.tune compare-methods \\
       --op fft --variant stockham --sizes 1024,4096
 
+  PYTHONPATH=src python -m repro_torch.launch.tune compare-methods \\
+      --op ssd --variant chunked --sizes 1024,2048      # 8 x 24 heads
+  PYTHONPATH=src python -m repro_torch.launch.tune compare-methods \\
+      --op rglru --sizes 2048 --batch 4096               # one sequence
+
 Both run on the card (``--device cuda``, the default) and time each
 candidate config with a ``WallClockObjective`` whose thunk calls the op's
-entry point (``prefix_sum``, ``solve`` on a diagonally dominant system, or
-``fft`` on complex64 rows) on device-resident input and ends in ``torch.cuda.synchronize()``.
-``--device cpu`` runs the kernels' plain versions on the CPU instead
-(small sizes only); ``--objective cost``
-scores configs on the ``h100`` cost model rather than measuring them.  The
-batch defaults to the paper's 2^26 / n problems per invocation.  A
+entry point (``prefix_sum``, ``solve`` on a diagonally dominant system,
+``fft`` on complex64 rows, ``ssd`` on mamba2-130m's head layout, or
+``rglru`` on one sequence of ``batch`` channels) on device-resident input
+and ends in ``torch.cuda.synchronize()``.  ``--device cpu`` runs the
+kernels' plain versions on the CPU instead (small sizes only);
+``--objective cost`` scores configs on the ``h100`` cost model rather than
+measuring them.  The batch defaults to the paper's 2^26 / n problems per
+invocation (for ssd, 8 sequences x 24 heads).  ``--variant`` defaults to
+ks (rglru takes none).  A
 runner failure (a kernel that does not build or launch) aborts the run
 with a non-zero exit; ``compare-methods`` also exits non-zero when any
 method beats the exhaustive sweep (Phi > 1 is a bug, not a result).
@@ -111,10 +119,75 @@ def make_fft_runner(device: torch.device, seed: int = 0
     return run
 
 
+# the Mamba-2 block's SSD widths (mamba2-130m: 24 heads of 64, state 128)
+SSD_HEADS, SSD_HEAD_DIM, SSD_STATE = 24, 64, 128
+
+
+def make_ssd_runner(device: torch.device, seed: int = 0
+                    ) -> Callable[[Workload, Config], Callable[[], None]]:
+    """A ``WallClockObjective`` runner: for each workload (n = L, batch =
+    B x SSD_HEADS), one seeded (x, a, b, c) at mamba2-130m's head width
+    and state on ``device`` (made once and reused; a in [0.85, 0.999), as
+    the tests draw it), and a thunk that runs the public ``ssd`` entry
+    point with the candidate config."""
+    from repro_torch.kernels.ssd.ops import ssd
+
+    inputs: Dict[str, tuple] = {}
+
+    def run(wl: Workload, cfg: Config) -> Callable[[], None]:
+        args = inputs.get(wl.key)
+        if args is None:
+            heads, head_dim, state = SSD_HEADS, SSD_HEAD_DIM, SSD_STATE
+            if wl.batch % heads:
+                raise ValueError(f"ssd runner: batch {wl.batch} is not a "
+                                 f"multiple of {heads} heads")
+            B, L = wl.batch // heads, wl.n
+            gen = torch.Generator(device=device).manual_seed(seed)
+            dt = _DTYPES[wl.dtype]
+            x = torch.randn(B, L, heads, head_dim, generator=gen,
+                            device=device)
+            a = torch.rand(B, L, heads, generator=gen, device=device) \
+                * 0.149 + 0.85
+            b = torch.randn(B, L, state, generator=gen, device=device) * 0.3
+            c = torch.randn(B, L, state, generator=gen, device=device) * 0.3
+            args = tuple(v.to(dt) for v in (x, a, b, c))
+            inputs[wl.key] = args
+        return lambda: ssd(*args, config=cfg)
+
+    return run
+
+
+def make_rglru_runner(device: torch.device, seed: int = 0
+                      ) -> Callable[[Workload, Config], Callable[[], None]]:
+    """A ``WallClockObjective`` runner: for each workload (n = L, batch =
+    the channels D of one sequence), one seeded (a, u) of shape (1, L, D)
+    on ``device`` (a in [0.8, 0.99)), and a thunk that runs the public
+    ``rglru`` entry point with the candidate config."""
+    from repro_torch.kernels.rglru.ops import rglru
+
+    inputs: Dict[str, tuple] = {}
+
+    def run(wl: Workload, cfg: Config) -> Callable[[], None]:
+        args = inputs.get(wl.key)
+        if args is None:
+            gen = torch.Generator(device=device).manual_seed(seed)
+            dt = _DTYPES[wl.dtype]
+            a = torch.rand(1, wl.n, wl.batch, generator=gen,
+                           device=device) * 0.19 + 0.8
+            u = torch.randn(1, wl.n, wl.batch, generator=gen, device=device)
+            args = (a.to(dt), u.to(dt))
+            inputs[wl.key] = args
+        return lambda: rglru(*args, config=cfg)
+
+    return run
+
+
 # op -> (runner factory, the variants its entry point takes)
 _OPS = {"scan": (make_scan_runner, ("ks", "lf", "linrec")),
         "tridiag": (make_tridiag_runner, ("pcr", "cr", "lf", "wm", "thomas")),
-        "fft": (make_fft_runner, ("stockham",))}
+        "fft": (make_fft_runner, ("stockham",)),
+        "ssd": (make_ssd_runner, ("chunked",)),
+        "rglru": (make_rglru_runner, ("",))}
 
 
 def _workloads(args) -> List[Workload]:
@@ -122,24 +195,34 @@ def _workloads(args) -> List[Workload]:
         raise SystemExit(f"--op {args.op}: only "
                          f"{', '.join(repr(op) for op in _OPS)} are ported "
                          f"so far (see ROADMAP.md)")
+    if args.variant is None:
+        # ks, as before; an op without variants (rglru) takes none
+        args.variant = "" if _OPS[args.op][1] == ("",) else "ks"
     if args.variant not in _OPS[args.op][1]:
         raise SystemExit(f"--variant {args.variant}: --op {args.op} takes "
                          f"{', '.join(_OPS[args.op][1])}")
     sizes = [int(s) for s in args.sizes.split(",") if s]
     if not sizes:
         raise SystemExit("--sizes: give at least one problem size")
-    return [Workload(op=args.op, n=n,
-                     batch=args.batch or max(TOTAL_ELEMS // n, 1),
-                     dtype=args.dtype, variant=args.variant)
-            for n in sizes]
+
+    def batch(n: int) -> int:
+        # problems per invocation: 2^26 / n rows for the paper's ops, the
+        # mamba2-130m prefill's 8 sequences x 24 heads for ssd
+        if args.batch:
+            return args.batch
+        return 8 * SSD_HEADS if args.op == "ssd" else max(TOTAL_ELEMS // n, 1)
+
+    return [Workload(op=args.op, n=n, batch=batch(n), dtype=args.dtype,
+                     variant=args.variant) for n in sizes]
 
 
 def _add_common(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--op", default="scan")
-    ap.add_argument("--variant", default="ks")
+    ap.add_argument("--variant", default=None)
     ap.add_argument("--sizes", default="1024")
     ap.add_argument("--batch", type=int, default=0,
-                    help="problems per invocation (default 2^26 / n)")
+                    help="problems per invocation (default 2^26 / n; for "
+                         "ssd 8 sequences x 24 heads)")
     ap.add_argument("--dtype", default="float32", choices=sorted(_DTYPES))
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; the kernels) or cpu (their plain "

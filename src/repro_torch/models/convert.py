@@ -1,0 +1,58 @@
+"""Parameters from the JAX package's models into the port's modules.
+
+The JAX package keeps a model's parameters as a nested dict (a pytree) of
+arrays, drawn with ``jax.random``, which torch cannot reproduce.  The port
+takes them as numpy arrays (``jax.tree.map(np.asarray, params)`` on the
+JAX side) and loads them by name: a module's parameter ``in_proj.w`` is
+the tree's ``params["in_proj"]["w"]``.  This is how the tests make both
+packages compute the same block.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def _tensor(arr) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        # numpy has no bfloat16 of its own (ml_dtypes adds it): move the
+        # 16-bit patterns and reinterpret them
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
+def state_dict_from_params(params: Mapping, prefix: str = ""
+                           ) -> Dict[str, torch.Tensor]:
+    """Flatten a nested parameter dict of numpy arrays into a state dict
+    whose keys join the tree's path with dots."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, value in params.items():
+        key = f"{prefix}{name}"
+        if isinstance(value, Mapping):
+            out.update(state_dict_from_params(value, prefix=key + "."))
+        else:
+            out[key] = _tensor(value)
+    return out
+
+
+def load_params(module: nn.Module, params: Mapping) -> nn.Module:
+    """Load a JAX parameter tree (numpy leaves) into ``module``: every
+    parameter must be present with its shape, and nothing else; each is
+    cast to the module's parameter type."""
+    state = state_dict_from_params(params)
+    own = module.state_dict()
+    if sorted(state) != sorted(own):
+        raise KeyError(f"parameter names differ: tree {sorted(state)}, "
+                       f"module {sorted(own)}")
+    for key, value in state.items():
+        if tuple(value.shape) != tuple(own[key].shape):
+            raise ValueError(f"{key}: tree shape {tuple(value.shape)}, "
+                             f"module {tuple(own[key].shape)}")
+        state[key] = value.to(own[key].dtype)
+    module.load_state_dict(state)
+    return module

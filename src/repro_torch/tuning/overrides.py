@@ -8,9 +8,10 @@ innermost block winning, and every block restores the previous state on
 exit (including on exceptions). The stack is thread-local, so concurrent
 request threads cannot see each other's experiments.
 
-Keys are op names (``scan`` in this port so far); values are partial
-config dicts merged on top of whatever the session resolves (DB hit,
-analytical suggestion, or an explicit ``config=`` argument).
+Keys are op names (``scan``, ``tridiag``, ``fft``, ``large_fft``, ``ssd``,
+``rglru``); values are partial config dicts merged on top of whatever the
+session resolves (DB hit, analytical suggestion, or an explicit
+``config=`` argument).
 
 The PyTorch port's own copy of ``repro.tuning.overrides``.
 """

@@ -80,6 +80,8 @@ _OP_MODULES = {
     "tridiag": "repro_torch.kernels.tridiag.ops",
     "fft": "repro_torch.kernels.fft.ops",
     "large_fft": "repro_torch.kernels.fft.ops",
+    "ssd": "repro_torch.kernels.ssd.ops",
+    "rglru": "repro_torch.kernels.rglru.ops",
 }
 
 

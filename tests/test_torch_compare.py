@@ -115,8 +115,10 @@ def test_cli_defaults_to_cuda(monkeypatch):
 
 
 def test_cli_rejects_ops_not_ported():
-    with pytest.raises(SystemExit, match="only 'scan'"):
-        t_tune.main(["--device", "cpu", "--op", "ssd", "--sizes", "64"])
+    with pytest.raises(SystemExit, match="--op attention: only 'scan', "
+                                         "'tridiag', 'fft', 'ssd', 'rglru'"):
+        t_tune.main(["--device", "cpu", "--op", "attention", "--sizes",
+                     "64"])
 
 
 def test_cli_compare_methods_fft_on_cpu(tmp_path, capsys):
@@ -159,6 +161,90 @@ def test_compare_methods_fft_report_equals_repro(profile, op, n, batch):
                      profile=j_profiles.get_profile(profile), max_evals=12)
     trep = compare_methods([TWorkload(op=op, n=n, batch=batch,
                                       variant="stockham")], METHODS,
+                           profile=t_profiles.get_profile(profile),
+                           max_evals=12)
+    (jrow,), (trow,) = jrep["workloads"], trep["workloads"]
+    assert trow["space_size"] == jrow["space_size"]
+    for name in METHODS:
+        assert trow["methods"][name] == jrow["methods"][name], name
+    assert trep["per_op"] == jrep["per_op"]
+    assert check_report(trep) == []
+
+
+def _narrow_ssd(monkeypatch):
+    """The ssd runner at 2 heads of 16 and state 8 (mamba2-130m's 24 x 64
+    and 128 are slow on the CPU's plain versions)."""
+    monkeypatch.setattr(t_tune, "SSD_HEADS", 2)
+    monkeypatch.setattr(t_tune, "SSD_HEAD_DIM", 16)
+    monkeypatch.setattr(t_tune, "SSD_STATE", 8)
+
+
+@pytest.mark.parametrize("argv,keys", [
+    (["--op", "ssd", "--variant", "chunked", "--sizes", "32,64", "--batch",
+      "4"],
+     ["ssd:chunked:n32:b4:float32", "ssd:chunked:n64:b4:float32"]),
+    (["--op", "rglru", "--sizes", "64,128", "--batch", "8"],
+     ["rglru:default:n64:b8:float32", "rglru:default:n128:b8:float32"]),
+])
+def test_cli_compare_methods_ssd_rglru_on_cpu(tmp_path, capsys, monkeypatch,
+                                              argv, keys):
+    """--op ssd (variant chunked) and --op rglru time their entry points'
+    configs (plain versions on the CPU) and score every method."""
+    _narrow_ssd(monkeypatch)
+    out = tmp_path / "report.json"
+    rc = t_tune.main(["compare-methods", "--device", "cpu", *argv, "--reps",
+                      "1", "--max-evals", "4", "--json", str(out)])
+    assert rc == 0
+    report = json.loads(out.read_text())
+    assert report["runner_failures"] == 0
+    assert [row["workload"] for row in report["workloads"]] == keys
+    assert set(report["overall"]) == set(METHODS)
+    assert "runner failures: 0" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv,err", [
+    (["--op", "ssd", "--variant", "ks"], "--op ssd takes chunked"),
+    (["--op", "rglru", "--variant", "linrec"], "--op rglru takes"),
+])
+def test_cli_checks_the_variant_against_the_op(argv, err):
+    with pytest.raises(SystemExit, match=err):
+        t_tune.main(["--device", "cpu", *argv, "--sizes", "64"])
+
+
+def _h100_space(wl):
+    from repro_torch.core.space import build_space
+    return build_space(wl, t_profiles.get_profile("h100"))
+
+
+def test_wallclock_times_the_ssd_runner_on_cpu(monkeypatch):
+    _narrow_ssd(monkeypatch)
+    obj = WallClockObjective(t_tune.make_ssd_runner(torch.device("cpu")),
+                             reps=1, device="cpu")
+    space = _h100_space(TWorkload(op="ssd", n=64, batch=4,
+                                       variant="chunked"))
+    for cfg in space.enumerate_valid()[:3]:
+        m = obj(space, cfg)
+        assert m.valid and 0 < m.time_s < PENALTY_TIME
+    assert obj.failures == 0
+    bad = TWorkload(op="ssd", n=64, batch=3, variant="chunked")
+    with pytest.raises(RunnerError):
+        obj(_h100_space(bad), space.enumerate_valid()[0])
+    assert obj.failures == 1
+
+
+@pytest.mark.parametrize("profile", ["tpu_v5e", "gpu_sm"])
+@pytest.mark.parametrize("op,variant,n,batch", [("ssd", "chunked", 2048, 192),
+                                                ("rglru", "", 2048, 8192)])
+def test_compare_methods_chain_report_equals_repro(profile, op, variant, n,
+                                                   batch):
+    """The paper's Table II on the ssd and rglru spaces (with the fuse
+    knob), on the cost model: every method's config, time and Phi equal
+    the JAX package's."""
+    jrep = j_compare([JWorkload(op=op, n=n, batch=batch, variant=variant)],
+                     METHODS, profile=j_profiles.get_profile(profile),
+                     max_evals=12)
+    trep = compare_methods([TWorkload(op=op, n=n, batch=batch,
+                                      variant=variant)], METHODS,
                            profile=t_profiles.get_profile(profile),
                            max_evals=12)
     (jrow,), (trow,) = jrep["workloads"], trep["workloads"]

@@ -253,3 +253,141 @@ def test_fft_entry_points_on_the_card(cuda):
         assert len(launched) == (1 if n <= 8192 else 2)
         _fft_close(y, torch.fft.fft(x.to(torch.complex128)))
         _fft_close(fft_ops.ifft(y), x)
+
+
+# ---------------------------------------------------------------------------
+# The SSD chain, the RG-LRU op and the Mamba-2 block
+# ---------------------------------------------------------------------------
+
+def _ssd_rows(gen, BH, G, L, P, S, dtype, device, strong=False):
+    x = torch.randn(BH, L, P, generator=gen, device=device)
+    a = torch.rand(BH, L, generator=gen, device=device) * 0.149 + 0.85
+    if strong:
+        a = a * 0.01
+    b = torch.randn(G, L, S, generator=gen, device=device) * 0.3
+    c = torch.randn(G, L, S, generator=gen, device=device) * 0.3
+    return [v.to(_TORCH[dtype]) for v in (x, a, b, c)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("BH,G,L,P,S,chunk,strong", [
+    (4, 2, 192, 16, 8, 64, False), (6, 3, 384, 8, 16, 128, False),
+    (4, 2, 512, 64, 128, 128, True), (3, 1, 2048, 64, 128, 2048, False),
+    (2, 1, 300, 70, 130, 100, False), (2, 2, 96, 16, 8, 96, False)])
+def test_ssd_kernels_match_plain(cuda, dtype, BH, G, L, P, S, chunk, strong):
+    """Kernels 8, 9 and 10 against their plain versions: chunk 64 ...
+    2048, nc = 1, 3, 4, ragged tiles (P = 70, S = 130, Q = 100), a strong
+    decay, shared b / c (G < BH)."""
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    gen = torch.Generator(device=cuda).manual_seed(BH * L + P)
+    x, a, b, c = _ssd_rows(gen, BH, G, L, P, S, dtype, cuda, strong)
+    before = ssd_kernel.ssd_intra.launches
+    got = ssd_kernel.ssd_intra(x, a, b, c, chunk=chunk)
+    assert ssd_kernel.ssd_intra.launches == before + 1
+    want = ssd_kernel.ssd_intra_plain(x, a, b, c, chunk=chunk)
+    for g, w in zip(got, want):
+        assert_kernel_close(g.float().cpu().numpy(), w.float().cpu().numpy(),
+                            dtype, scale=10.0)
+    y, ac, st = want
+    if L // chunk > 1:
+        fused = ssd_kernel.ssd_state_apply(y, a, c, ac, st, chunk=chunk)
+        _close(fused, ssd_kernel.ssd_state_apply_plain(y, a, c, ac, st,
+                                                       chunk=chunk), dtype)
+        entry = ssd_kernel.ssd_apply_entry(y, a, c, st, chunk=chunk)
+        _close(entry, ssd_kernel.ssd_apply_entry_plain(y, a, c, st,
+                                                       chunk=chunk), dtype)
+
+
+@pytest.mark.parametrize("fuse", [0, 1])
+@pytest.mark.parametrize("L,chunk", [(1024, 128), (384, 128), (256, 256)])
+def test_ssd_on_the_card(cuda, fuse, L, chunk):
+    """The op at nc = 8, 3 (odd) and 1 against a float64 sequential scan,
+    with the chain plan's launch list."""
+    from repro_torch.kernels.blocks.plan import plan_for_chain
+    from repro_torch.kernels.ssd.ops import ssd
+    from repro_torch.kernels.ssd.ref import ssd_ref
+    gen = torch.Generator(device=cuda).manual_seed(L + fuse)
+    B, H, P, S = 2, 4, 64, 128
+    x = torch.randn(B, L, H, P, generator=gen, device=cuda)
+    a = torch.rand(B, L, H, generator=gen, device=cuda) * 0.149 + 0.85
+    b = torch.randn(B, L, S, generator=gen, device=cuda) * 0.3
+    c = torch.randn(B, L, S, generator=gen, device=cuda) * 0.3
+    cfg = {"tile_n": chunk, "radix": 2, "fuse": fuse}
+    with driver.capture_launches() as launched:
+        y = ssd(x, a, b, c, config=cfg)
+    wl = Workload(op="ssd", n=L, batch=B * H, variant="chunked")
+    assert tuple(launched) == plan_for_chain(wl, cfg, dims=(S, P)).launches
+    ref = ssd_ref(*(v.double() for v in (x, a, b, c)))
+    assert_kernel_close(y.cpu().numpy(), ref.cpu().numpy(), "float32",
+                        scale=10.0)
+
+
+@pytest.mark.parametrize("fuse", [0, 1])
+@pytest.mark.parametrize("B,L,D,cfg", [
+    (2, 2048, 64, {"tile_n": 2048, "rows_per_program": 4, "radix": 2}),
+    (1, 2 ** 15, 4, {"tile_n": 128, "rows_per_program": 2, "radix": 4})])
+def test_rglru_on_the_card(cuda, fuse, B, L, D, cfg):
+    """Fused and multipass, the gate in the kernel (fuse = 1) or in torch,
+    against a float64 sequential recurrence."""
+    from repro_torch.kernels.rglru.ops import rglru
+    from repro_torch.kernels.rglru.ref import rglru_ref
+    gen = torch.Generator(device=cuda).manual_seed(L + fuse)
+    a = torch.rand(B, L, D, generator=gen, device=cuda) * 0.19 + 0.8
+    u = torch.randn(B, L, D, generator=gen, device=cuda)
+    with driver.capture_launches() as launched:
+        h = rglru(a, u, config=dict(cfg, fuse=fuse))
+    assert len(launched) == (1 if L // cfg["tile_n"] <= 64 else 3)
+    ref = rglru_ref(a.double().cpu(), u.double().cpu())
+    assert_kernel_close(h.cpu().numpy(), ref.numpy(), "float32", scale=10.0)
+
+
+def test_ssd_block_on_the_card(cuda):
+    """The reduced Mamba-2 block on the card against the same weights on
+    the CPU (the plain versions), f32 compute: prefill and one decode
+    step."""
+    from repro_torch.configs.mamba2_130m import CONFIG
+    from repro_torch.models.ssm import SSDBlock, init_ssd_cache
+    cfg = CONFIG.reduced()
+    block = SSDBlock.init(cfg, torch.Generator().manual_seed(0))
+    card = SSDBlock(cfg, device=cuda)
+    card.load_state_dict(block.state_dict())
+    x = torch.randn(2, 256, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    f32 = torch.float32
+    with torch.no_grad():
+        want, _ = block(x, compute_dtype=f32)
+        got, _ = card(x.to(cuda), compute_dtype=f32)
+        _close(got, want, "float32")
+        cache = init_ssd_cache(cfg, 2)
+        want, wnew = block(x[:, :1], cache=cache, compute_dtype=f32)
+        got, gnew = card(x[:, :1].to(cuda),
+                         cache={k: v.to(cuda) for k, v in cache.items()},
+                         compute_dtype=f32)
+        _close(got, want, "float32")
+        _close(gnew["state"], wnew["state"], "float32")
+
+
+def test_ssd_block_bf16_core_on_the_card(cuda):
+    """bf16 compute: the block's SSD core at its own (bf16-projected)
+    inputs against a float64 sequential scan, and a finite output.  The
+    whole block in bf16 is not held to another device's bf16 run: its
+    RMS norm scales each position by 1 / rms, and positions whose rms is
+    near 0 turn one-ulp differences of the two devices' bf16 products into
+    large ones."""
+    from repro_torch.configs.mamba2_130m import CONFIG
+    from repro_torch.kernels.ssd.ops import ssd
+    from repro_torch.kernels.ssd.ref import ssd_ref
+    from repro_torch.models.ssm import SSDBlock
+    cfg = CONFIG.reduced()
+    card = SSDBlock.init(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda)
+    x = torch.randn(2, 256, cfg.d_model, device=cuda)
+    with torch.no_grad():
+        out, _ = card(x)
+        assert out.dtype == torch.bfloat16 and bool(torch.isfinite(out).all())
+        xh, a, b, c, _, _ = card.ssd_inputs(x)
+        args = (xh.float(), a, b.float(), c.float())
+        y = ssd(*args)
+        ref = ssd_ref(*(v.double() for v in args))
+    assert_kernel_close(y.cpu().numpy(), ref.cpu().numpy(), "float32",
+                        scale=10.0)

@@ -178,3 +178,54 @@ def test_port_fft_entries_read_back_in_repro(tmp_path, op, n, batch):
     jwl = JWorkload(op=op, n=n, batch=batch, variant="stockham")
     assert jsession.lookup(jwl) == tsession.lookup(twl)
     assert jsession.resolve(jwl) == tsession.resolve(twl)
+
+
+CHAIN_TUNED = [("ssd", "chunked", 512, 48), ("rglru", "", 1024, 256)]
+
+
+@pytest.fixture
+def repro_chain_db(tmp_path):
+    """A DB the JAX package wrote: an ssd and an rglru workload (both with
+    the chain-fusion knob) tuned with random search on its tpu_v5e cost
+    model."""
+    path = str(tmp_path / "chain_db.json")
+    session = JSession(db_path=path, spec=j_profiles.get_profile("tpu_v5e"))
+    for op, variant, n, batch in CHAIN_TUNED:
+        session.tune(JWorkload(op=op, n=n, batch=batch, variant=variant),
+                     method="random", max_evals=12, seed=3)
+    return path, session
+
+
+@pytest.mark.parametrize("op,variant,n,batch", CHAIN_TUNED)
+def test_port_resolves_a_repro_chain_db(repro_chain_db, op, variant, n,
+                                        batch):
+    """ssd and rglru DB keys and entries written by repro resolve to the
+    same launch knobs in the port (each op's normalizer: chunk / radix /
+    fuse for ssd, the scan knobs and fuse for rglru), overrides too."""
+    path, jsession = repro_chain_db
+    tsession = TSession(db_path=path, spec=t_profiles.get_profile("tpu_v5e"))
+    jwl = JWorkload(op=op, n=n, batch=batch, variant=variant)
+    twl = TWorkload(op=op, n=n, batch=batch, variant=variant)
+    assert twl.key == jwl.key
+    assert tsession.lookup(twl) is not None
+    assert tsession.lookup(twl) == jsession.lookup(jwl)
+    assert "fuse" in tsession.lookup(twl)
+    assert tsession.resolve(twl) == jsession.resolve(jwl)
+    assert "fuse" in tsession.resolve(twl)
+    with j_overrides(**{op: {"fuse": 1, "radix": 4}}), \
+            t_overrides(**{op: {"fuse": 1, "radix": 4}}):
+        tcfg, jcfg = tsession.resolve(twl), jsession.resolve(jwl)
+    assert tcfg == jcfg and (tcfg["fuse"], tcfg["radix"]) == (1, 4)
+
+
+@pytest.mark.parametrize("op,variant,n,batch", CHAIN_TUNED)
+def test_port_chain_entries_read_back_in_repro(tmp_path, op, variant, n,
+                                               batch):
+    path = str(tmp_path / "port_chain_db.json")
+    tsession = TSession(db_path=path, spec=t_profiles.get_profile("gpu_sm"))
+    twl = TWorkload(op=op, n=n, batch=batch, variant=variant)
+    tsession.tune(twl, method="random", max_evals=6, seed=1)
+    jsession = JSession(db_path=path, spec=j_profiles.get_profile("gpu_sm"))
+    jwl = JWorkload(op=op, n=n, batch=batch, variant=variant)
+    assert jsession.lookup(jwl) == tsession.lookup(twl)
+    assert jsession.resolve(jwl) == tsession.resolve(twl)

@@ -51,7 +51,11 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.kernels.tridiag.ops, repro_torch.kernels.fft.ops, "
             "repro_torch.kernels.fft.ref, repro_torch.core.multikernel, "
             "repro_torch.launch.tune, "
-            "repro_torch.evaluation, repro_torch.kernels.build\n"
+            "repro_torch.evaluation, repro_torch.kernels.build, "
+            "repro_torch.kernels.ssd.ops, repro_torch.kernels.ssd.ref, "
+            "repro_torch.kernels.rglru.ops, repro_torch.kernels.rglru.ref, "
+            "repro_torch.configs.base, repro_torch.configs.mamba2_130m, "
+            "repro_torch.models.ssm, repro_torch.models.convert\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or "
             "m.startswith(('jax.', 'repro.')))\n"
             "assert not bad, bad\n")
@@ -161,6 +165,47 @@ def test_an_fft_off_the_cpu_never_reaches_a_plain_version():
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
         kernel._launch(torch.zeros(4, 64, dtype=torch.complex64), 2,
                        (4, 4, 4), False, 1)
+
+
+def test_the_ssd_chain_off_the_cpu_never_reaches_a_plain_version():
+    """The three SSD wrappers, the ssd and rglru entry points and the
+    Mamba-2 block raise for a meta tensor rather than running a plain
+    version; the launch helpers refuse CPU tensors."""
+    from repro_torch.configs.mamba2_130m import CONFIG
+    from repro_torch.kernels.rglru.ops import rglru
+    from repro_torch.kernels.ssd import kernel
+    from repro_torch.kernels.ssd.ops import ssd
+    from repro_torch.models.ssm import SSDBlock
+    meta = "no kernel for tensors on meta"
+    x = torch.empty(4, 64, 16, device="meta")
+    a = torch.empty(4, 64, device="meta")
+    b = torch.empty(2, 64, 8, device="meta")
+    ac = torch.empty(4, 2, device="meta")
+    st = torch.empty(4, 2, 8, 16, device="meta")
+    for call in (lambda: kernel.ssd_intra(x, a, b, b, chunk=32),
+                 lambda: kernel.ssd_state_apply(x, a, b, ac, st, chunk=32),
+                 lambda: kernel.ssd_apply_entry(x, a, b, st, chunk=32),
+                 lambda: ssd(torch.empty(2, 64, 2, 16, device="meta"),
+                             torch.empty(2, 64, 2, device="meta"), b, b),
+                 lambda: rglru(torch.empty(2, 64, 8, device="meta"),
+                               torch.empty(2, 64, 8, device="meta")),
+                 lambda: SSDBlock(CONFIG.reduced(), device="meta")(
+                     torch.empty(2, 64, 64, device="meta"),
+                     compute_dtype=torch.float32)):
+        with pytest.raises(ValueError, match=meta):
+            call()
+    cpu = (torch.randn(4, 64, 16), torch.rand(4, 64), torch.randn(2, 64, 8))
+    with pytest.raises(ValueError, match="need CUDA tensors"):
+        kernel._launch_intra(*cpu, cpu[2], 32)
+    with pytest.raises(ValueError, match="need CUDA tensors"):
+        kernel._launch_apply("ssd_apply_entry", cpu[0], cpu[1], cpu[2], 32,
+                             None, torch.zeros(4, 2, 8, 16), False)
+
+
+def test_the_ssd_source_is_built():
+    from repro_torch.kernels import build
+    assert "ssd.cu" in build.SOURCES
+    assert os.path.exists(os.path.join(build.CSRC, "ssd.cu"))
 
 
 def test_a_missing_compiler_raises(monkeypatch, tmp_path):

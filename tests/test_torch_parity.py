@@ -44,10 +44,10 @@ def _pair(variant, n, batch, dtype="float32", op="scan"):
                              variant=variant))
 
 
-def _assert_same(profile, jwl, twl, cfgs=None):
+def _assert_same(profile, jwl, twl, cfgs=None, builder=None):
     """The op's space, every plan, score and cost-model time, equal."""
     jp, tp = j_profiles.get_profile(profile), t_profiles.get_profile(profile)
-    builder = f"{jwl.op}_space"
+    builder = builder or f"{jwl.op}_space"
     jsp = getattr(j_space, builder)(jwl, spec=jp)
     tsp = getattr(t_space, builder)(twl, spec=tp)
     valid = jsp.enumerate_valid()
@@ -161,7 +161,7 @@ def test_h100_main_path_plans(n, batch, kind):
 
 
 def test_other_ops_are_not_ported_yet():
-    wl = t_space.Workload(op="ssd", n=256, batch=4)
+    wl = t_space.Workload(op="attention", n=256, batch=4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_space.build_space(wl)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -382,3 +382,137 @@ def test_h100_fft_main_path_plans(n, kind, m):
     assert plan.kind == kind
     assert plan.passes == len(plan.launches) == m
     assert plan.check(h100) == []
+
+
+SSD_WORKLOADS = [(n, batch) for n in (64, 256, 1024, 2048)
+                 for batch in (4, 192)]
+
+
+@pytest.mark.parametrize("profile", PROFILES)
+@pytest.mark.parametrize("n,batch", SSD_WORKLOADS)
+def test_ssd_space_plan_score_cost_identical(profile, n, batch):
+    """scan_space with the fuse knob under op="ssd", _ssd_plan (fused,
+    two-phase and three-phase), the analytical scores and the cost-model
+    times (scalar and batched)."""
+    jwl, twl = _pair("chunked", n, batch, op="ssd")
+    valid = _assert_same(profile, jwl, twl, builder="scan_space")
+    assert {cfg["fuse"] for cfg in valid} == {0, 1}
+
+
+@pytest.mark.parametrize("profile", PROFILES)
+@pytest.mark.parametrize("n,batch", [(64, 32), (256, 32), (2048, 8192),
+                                     (8192, 4096), (2 ** 16, 16)])
+def test_rglru_space_plan_score_cost_identical(profile, n, batch):
+    """linrec_space under op="rglru" (no unroll, the fuse knob) and its
+    plans with the unfused gate's extra pass."""
+    jwl, twl = _pair("", n, batch, op="rglru")
+    jp, tp = j_profiles.get_profile(profile), t_profiles.get_profile(profile)
+    jsp, tsp = j_space.linrec_space(jwl, spec=jp), \
+        t_space.linrec_space(twl, spec=tp)
+    assert jsp.enumerate_valid() == tsp.enumerate_valid()
+    assert t_space.build_space(twl, tp).enumerate_valid() \
+        == tsp.enumerate_valid()
+    jcost, tcost = j_objective.CostModelObjective(jp), \
+        t_objective.CostModelObjective(tp)
+    valid = tsp.enumerate_valid()
+    assert valid and {cfg["unroll"] for cfg in valid} == {1}
+    for cfg in valid:
+        jplan = j_plan.plan_for(jwl, cfg, profile=jp)
+        tplan = t_plan.plan_for(twl, cfg, profile=tp)
+        assert dataclasses.asdict(jplan) == dataclasses.asdict(tplan), cfg
+        assert tplan.xla_passes == 1 - cfg["fuse"]
+        assert j_analytical.score(jsp, cfg).key() \
+            == t_analytical.score(tsp, cfg).key()
+        jm, tm = jcost(jsp, cfg), tcost(tsp, cfg)
+        assert (jm.time_s, jm.metrics, jm.meta) \
+            == (tm.time_s, tm.metrics, tm.meta), cfg
+    jcols = jcost.batch_eval_metrics(jsp, valid)
+    tcols = tcost.batch_eval_metrics(tsp, valid)
+    for name in jcols:
+        np.testing.assert_array_equal(jcols[name], tcols[name])
+    assert j_analytical.AnalyticalTuner().suggest(jsp) \
+        == t_analytical.AnalyticalTuner().suggest(tsp)
+
+
+def _chain_dicts(chain):
+    return (dataclasses.asdict(chain.plan),
+            [dataclasses.asdict(link) for link in chain.links],
+            chain.passes, [dataclasses.asdict(l) for l in chain.launches])
+
+
+@pytest.mark.parametrize("profile", PROFILES + ("h100",))
+@pytest.mark.parametrize("dims", [None, (8, 16), (128, 64)])
+@pytest.mark.parametrize("n,chunk", [(512, 128), (384, 128), (128, 128),
+                                     (2048, 128), (2048, 2048), (96, 32)])
+def test_ssd_chain_plans_identical(profile, dims, n, chunk):
+    """plan_for_chain for the SSD chain, with and without the runtime
+    state dims, both fuse arms, even, odd and single chunk counts: the same
+    links, launches and passes, and ChainPlan.check finds nothing."""
+    tp = t_profiles.get_profile(profile)
+    jp = j_profiles.get_profile(profile) if profile != "h100" else None
+    for fuse in (0, 1):
+        cfg = {"tile_n": chunk, "radix": 2, "fuse": fuse}
+        twl = t_space.Workload(op="ssd", n=n, batch=192, variant="chunked")
+        tchain = t_plan.plan_for_chain(twl, cfg, dims=dims, profile=tp)
+        assert tchain.check(tp) == []
+        nc = n // chunk
+        kinds = [link.kind for link in tchain.links]
+        if nc <= 1:
+            assert kinds == ["pallas"] and len(tchain.launches) == 1
+        elif fuse:
+            assert kinds == ["pallas", "fused", "pallas"]
+        elif dims is not None and nc % 2:
+            assert kinds == ["pallas", "xla", "pallas"]
+        if jp is not None:
+            jwl = j_space.Workload(op="ssd", n=n, batch=192,
+                                   variant="chunked")
+            jchain = j_plan.plan_for_chain(jwl, cfg, dims=dims, profile=jp)
+            assert _chain_dicts(tchain) == _chain_dicts(jchain)
+            assert tchain.check(tp) == jchain.check(jp)
+
+
+@pytest.mark.parametrize("profile", PROFILES)
+def test_single_link_chains_identical(profile):
+    """Every other op is a one-link chain around its plan_for plan."""
+    jp, tp = j_profiles.get_profile(profile), t_profiles.get_profile(profile)
+    for op, variant, n in (("scan", "ks", 1024), ("tridiag", "lf", 256),
+                           ("fft", "stockham", 1024)):
+        jwl, twl = _pair(variant, n, 64, op=op)
+        cfg = t_space.build_space(twl, tp).enumerate_valid()[0]
+        assert _chain_dicts(t_plan.plan_for_chain(twl, cfg, profile=tp)) \
+            == _chain_dicts(j_plan.plan_for_chain(jwl, cfg, profile=jp))
+
+
+@pytest.mark.parametrize("op,n,batch,tile_n,fuse,kind", [
+    # the session's picks under h100 (the numpy the port keeps verbatim):
+    # one chunk as long as the mamba2-130m prefill, and a fused rglru
+    ("ssd", 2048, 8 * 24, 2048, 0, "fused"),
+    ("ssd", 1024, 24, 1024, 0, "fused"),
+    ("rglru", 2048, 8192, 2048, 1, "fused"),
+    ("rglru", 8192, 4096, 2048, 1, "fused"),
+])
+def test_h100_ssd_rglru_picks(op, n, batch, tile_n, fuse, kind):
+    h100 = t_profiles.get_profile("h100")
+    wl = t_space.Workload(op=op, n=n, batch=batch,
+                          variant="chunked" if op == "ssd" else "")
+    cfg = t_analytical.AnalyticalTuner().suggest(t_space.build_space(wl,
+                                                                     h100))
+    assert (cfg["tile_n"], cfg["fuse"]) == (tile_n, fuse)
+    if op == "rglru":
+        assert (cfg["rows_per_program"], cfg["radix"]) == (4, 2)
+    plan = t_plan.plan_for(wl, cfg, profile=h100)
+    assert plan.kind == kind and plan.check(h100) == []
+
+
+def test_h100_ssd_space_admits_chunks_to_16384():
+    """The f32 space under h100 admits chunks up to 16384 (vmem_budget
+    2^17): the intra kernel has to run every one (it holds no Q x Q tile);
+    at mamba2-130m's L = 2048 every power of two from 128."""
+    h100 = t_profiles.get_profile("h100")
+    wl = t_space.Workload(op="ssd", n=2 ** 16, batch=8, variant="chunked")
+    chunks = {c["tile_n"] for c in t_space.build_space(
+        wl, h100).enumerate_valid()}
+    assert max(chunks) == 16384
+    wl = t_space.Workload(op="ssd", n=2048, batch=192, variant="chunked")
+    assert {c["tile_n"] for c in t_space.build_space(
+        wl, h100).enumerate_valid()} == {128, 256, 512, 1024, 2048}
