@@ -53,17 +53,42 @@ Phases, each of which fails the run (non-zero exit, no result line):
 8. the RG-LRU: ``rglru`` at recurrentgemma-9b's width (2 x 2048 x 4096)
    with the gate in the kernel (fuse = 1) and in torch (fuse = 0), and a
    multipass call at 2^22 x 16, against a float64 sequential recurrence;
-9. the paper's loop on the card — ``compare_methods`` for scan ks at
+9. flash attention and the tiled matmul: ``flash_attention`` against
+   ``flash_attention_plain`` over every config of the h100 attention
+   space at n = 2048 (bf16 and f32) and over head dims 16 ... 256, causal
+   and full, a 2048 window at L = 4096, Lq < Lk, block_k 4 (Lk = 1500),
+   f32 and bf16 — bf16 at FLASH_BF16_TOL (one bf16 ulp passes), f32 at
+   DTYPE_TOL; ``matmul_tiled`` against ``matmul_plain`` over the h100
+   matmul space at (8192, 1024) @ (1024, 2816), f32 and bf16, at
+   DTYPE_TOL;
+10. the dense path: qwen1.5-0.5b's ``Model`` at full width (24 layers,
+   bf16, random weights at the JAX init's scales, ``use_pallas``):
+   ``forward`` on 4 x 2048 tokens with one flash launch per layer, its
+   logits against the same weights on the plain-op path, a 63-token
+   ``prefill`` and 8 greedy ``decode_step``s against the forward, and
+   the forward's time split into the flash kernel and the rest; one
+   full-depth mamba2-130m ``Model.forward`` on 8 x 2048 tokens;
+11. the multipass ``prefix_sum`` and ``linear_recurrence`` at 2^22 x 16
+   forced to tile_n 128, rows 2, whose carry-scan tile (2, 32768) is
+   walked in staged pieces, against float64, launch lists equal to the
+   plans'; ``matmul`` at (8192, 1024) @ (1024, 2816) bf16 against
+   float64;
+12. the paper's loop on the card — ``compare_methods`` for scan ks at
    n = 1024 and 4096, tridiag pcr at n = 256 and 1024, fft stockham at
-   n = 1024 and 4096 and ssd chunked at n = 1024 (8 x 24 rows) on
-   measured times (``WallClockObjective``): exhaustive / analytical /
-   bayesian / random, the Phi table, the sweep sizes and the runner
-   failures, which must be 0;
-10. the ``kernels`` line: per kernel (all ten) its launches on the main
+   n = 1024 and 4096, ssd chunked at n = 1024 (8 x 24 rows), attention
+   flash at n = 2048 (64 rows of head dim 64, bf16) and matmul tiled at
+   n = 2816 (M = 8192, K = 1024, bf16) on measured times
+   (``WallClockObjective``): exhaustive / analytical / bayesian / random,
+   the Phi table, the sweep sizes and the runner failures, which must be
+   0;
+13. the ``kernels`` line: per kernel (all twelve) its launches on the main
    paths, its error against the plain version, its time, the plain
    version's and the library call's (null where no one PyTorch call
-   computes the function), and its bound (bytes over the card's memory
-   rate, or operations over its f32 rate, whichever is larger).
+   computes the function; ``scaled_dot_product_attention`` and
+   ``torch.matmul`` for kernels 11 and 12, timed as yardsticks and never
+   called by the port), and its bound (bytes over the card's memory
+   rate, or operations over its rate for the type — f32 67 TFLOP/s, bf16
+   989 TFLOP/s on the tensor cores — whichever is larger).
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 nothing of JAX or of the JAX package.
@@ -288,12 +313,15 @@ def counted_wrappers():
     from repro_torch.kernels.ssd.kernel import (ssd_apply_entry, ssd_intra,
                                                 ssd_state_apply)
     from repro_torch.kernels.tridiag.kernel import pcr
+    from repro_torch.kernels.attention.kernel import flash_attention
+    from repro_torch.kernels.matmul.kernel import matmul_tiled
     return {"scan_add": scan_add, "apply_add": apply_add,
             "scan_linrec": scan_linrec, "scan_linrec_prod": scan_linrec_prod,
             "apply_linrec": apply_linrec, "pcr": pcr,
             "fft_stockham": fft_stockham, "ssd_intra": ssd_intra,
             "ssd_state_apply": ssd_state_apply,
-            "ssd_apply_entry": ssd_apply_entry}
+            "ssd_apply_entry": ssd_apply_entry,
+            "flash_attention": flash_attention, "matmul": matmul_tiled}
 
 
 def reset_counts():
@@ -365,14 +393,18 @@ def phase_loop(dev):
     from repro_torch.core import Workload
     from repro_torch.core.objective import WallClockObjective
     from repro_torch.evaluation import check_report, compare_methods, format_report
-    from repro_torch.launch.tune import (SSD_HEADS, make_fft_runner,
+    from repro_torch.launch.tune import (ATTN_HEADS, SSD_HEADS,
+                                         make_attention_runner,
+                                         make_fft_runner, make_matmul_runner,
                                          make_scan_runner, make_ssd_runner,
                                          make_tridiag_runner)
 
     runners = {"scan": make_scan_runner(dev, seed=2),
                "tridiag": make_tridiag_runner(dev, seed=2),
                "fft": make_fft_runner(dev, seed=2),
-               "ssd": make_ssd_runner(dev, seed=2)}
+               "ssd": make_ssd_runner(dev, seed=2),
+               "attention": make_attention_runner(dev, seed=2),
+               "matmul": make_matmul_runner(dev, seed=2)}
 
     def runner(wl, cfg):
         return runners[wl.op](wl, cfg)
@@ -393,6 +425,13 @@ def phase_loop(dev):
     # ssd at the mamba2-130m prefill's rows (8 sequences x 24 heads)
     wls += [Workload(op="ssd", n=n, batch=SSD_BATCH * SSD_HEADS,
                      variant="chunked") for n in SSD_LOOP_SIZES]
+    # one qwen layer's attention (4 x 16 heads of 2048) and its MLP
+    # up-projection (M = 8192 token rows, K = 1024, N = 2816), bf16
+    wls += [Workload(op="attention", n=DENSE_LEN,
+                     batch=DENSE_BATCH * ATTN_HEADS, dtype="bfloat16",
+                     variant="flash"),
+            Workload(op="matmul", n=MATMUL_SHAPE[2], batch=MATMUL_SHAPE[0],
+                     dtype="bfloat16", variant="tiled")]
     reset_counts()
     t0 = time.perf_counter()
     report = compare_methods(wls, ("exhaustive", "analytical", "bayesian",
@@ -415,11 +454,12 @@ def phase_loop(dev):
         raise AssertionError(f"compare_methods: {problems}, runner "
                              f"failures {failures}")
     require_launched(counts, ("scan_add", "pcr", "fft_stockham",
-                              "ssd_intra"), "the tuning loop")
+                              "ssd_intra", "flash_attention", "matmul"),
+                     "the tuning loop")
     log("[loop] phi " + json.dumps(
         {op: {name: agg["phi"] for name, agg in per.items()}
          for op, per in report["per_op"].items()}))
-    return report
+    return report, counts
 
 
 def phase_numbers(dev, inputs, runs, counts, bandwidth: float):
@@ -1570,6 +1610,493 @@ def phase_rglru_path(dev):
     return counts, runs, times
 
 
+# ---------------------------------------------------------------------------
+# Flash attention (kernel 11), the dense model, the tiled matmul (kernel 12)
+# ---------------------------------------------------------------------------
+
+BF16_PEAK = 989e12          # H100 SXM dense bf16 tensor-core rate (FLOP/s)
+DENSE_BATCH, DENSE_LEN = 4, 2048   # qwen1.5-0.5b forward: 4 x 2048 tokens
+PROMPT, DECODE_STEPS = 64, 8       # prefill a 64-token prompt, 8 decodes
+MAMBA_BATCH = 8                    # mamba2-130m forward: 8 x 2048 tokens
+MATMUL_SHAPE = (8192, 1024, 2816)  # qwen's MLP up-projection, 4 x 2048 rows
+# the flash path's logits against the plain-op path's (bf16 compute, 24
+# layers): max |diff| over max |logits|.  Both round every projection,
+# norm and residual to bf16; they differ in the attention core (f32 scores
+# and one rounding of the output in the kernel, bf16 scores and
+# probabilities in the plain path), and 24 layers carry those differences
+# on, so the bound is the bf16 tolerance, not the f32 one.
+DENSE_LOGITS_TOL = 2e-2
+# decode after prefill against the forward: JAX's test_decode_matches_forward
+DECODE_TOL = 2e-2
+# kernel 11 against its plain version in bf16, element by element: |got -
+# want| <= atol + rtol |want|.  Both compute in f32 and round the output
+# once, so they may differ by one bf16 ulp (at most 2^-7 |want|); DTYPE_TOL's
+# 2e-2 of max |want| (about 3 here, the first query row is v[0]) would pass
+# errors as large as a typical output (about 0.05 over 1000 causal keys).
+FLASH_BF16_TOL = (4e-3, 8e-3)
+
+
+def check_flash(got, want, dtype: str, what: str) -> float:
+    """Hold kernel 11 to its plain version: FLASH_BF16_TOL in bf16,
+    DTYPE_TOL in f32; returns the max error."""
+    import torch
+    if dtype != "bfloat16":
+        return check_close(got, want, dtype, what)
+    atol, rtol = FLASH_BF16_TOL
+    g, r = got.double(), want.double()
+    bad = (g - r).abs() > atol + rtol * r.abs()
+    err = max_err(got, want)
+    if bool(torch.any(bad)) or not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{what}: {int(bad.sum())} elements outside "
+                             f"|diff| <= {atol} + {rtol} |want| (max abs err "
+                             f"{err:.3e})")
+    return err
+
+
+def attention_kernel_cases():
+    """(BH, Lq, Lk, head_dim, block_q, block_k, causal, window, dtype)
+    beside the h100 space sweep: every head dim the kernel takes, causal
+    and full, recurrentgemma's 2048 window at L = 4096, queries in the last
+    slots (Lq < Lk), whisper's 1500-long memory (block_k 4), f32."""
+    cases = [(4, 1024, 1024, d, 128, 128, causal, None, "bfloat16")
+             for d in (16, 64, 128, 256) for causal in (True, False)]
+    return cases + [
+        (2, 4096, 4096, 256, 256, 512, True, 2048, "bfloat16"),
+        (8, 512, 2048, 64, 128, 256, True, None, "float32"),
+        (8, 512, 2048, 128, 256, 128, True, 1024, "bfloat16"),
+        (8, 64, 1500, 64, 64, 4, False, None, "bfloat16"),
+        (4, 1024, 1024, 64, 256, 256, True, None, "float32"),
+        (4, 1024, 1024, 256, 64, 1024, False, None, "float32")]
+
+
+def phase_attention_kernels(dev, quick: bool):
+    """flash_attention against flash_attention_plain on the card: every
+    config of the h100 attention space at n = 2048 (8 rows of 2048, head
+    dim 64, causal) in bf16 and in f32, then attention_kernel_cases(); bf16
+    held to FLASH_BF16_TOL, f32 to DTYPE_TOL.  Both compute in f32 and
+    round the output once; they differ in the order of the dot products'
+    sums.  Returns the max error."""
+    import torch
+    from repro_torch.core.space import Workload, attention_space
+    from repro_torch.hw.profiles import get_profile
+    from repro_torch.kernels.attention.kernel import (flash_attention,
+                                                      flash_attention_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    space = attention_space(Workload(op="attention", n=2048, batch=8,
+                                     variant="flash"), get_profile("h100"))
+    sweep = [(8, 2048, 2048, 64, c["block_q"], c["block_k"], True, None,
+              dtype) for dtype in ("bfloat16", "float32")
+             for c in space.enumerate_valid()]
+    cases = sweep + attention_kernel_cases()
+    if quick:
+        cases = sweep[:2] + sweep[-2:] + attention_kernel_cases()[:2]
+    worst, unequal, qkv = {}, 0, {}
+    for BH, lq, lk, d, bq, bk, causal, window, dtype in cases:
+        key = (BH, lq, lk, d, dtype)
+        if key not in qkv:
+            qkv[key] = tuple(torch.randn(BH, n, d, generator=gen,
+                                         device=dev).to(dtypes[dtype])
+                             for n in (lq, lk, lk))
+        q, k, v = qkv[key]
+        kw = dict(block_q=bq, block_k=bk, causal=causal, window=window)
+        got = flash_attention(q, k, v, **kw)
+        want = flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        what = (f"flash_attention ({BH}, {lq}, {lk}, {d}) {dtype} {kw}")
+        worst[dtype] = max(worst.get(dtype, 0.0),
+                           check_flash(got, want, dtype, what))
+        unequal += int((got != want).sum())
+    log(f"[kernels] flash_attention: {len(cases)} cases ({len(sweep) // 2} "
+        f"h100 configs at n = 2048, bf16 and f32) within tolerance; max abs "
+        f"err {json.dumps(worst)}; elements not bit-equal to the plain "
+        f"version {unequal}")
+    return max(worst.values())
+
+
+def phase_matmul_kernels(dev, quick: bool):
+    """matmul_tiled against matmul_plain on the card over every config the
+    h100 matmul space admits at qwen's MLP up-projection, (8192, 1024) @
+    (1024, 2816), fitted as the entry point fits it, f32 and bf16, at
+    DTYPE_TOL."""
+    import torch
+    from repro_torch.core.space import Workload, matmul_space
+    from repro_torch.hw.profiles import get_profile
+    from repro_torch.kernels.matmul.kernel import matmul_plain, matmul_tiled
+    from repro_torch.kernels.matmul.ops import _normalize
+
+    m, k, n = MATMUL_SHAPE
+    wl = Workload(op="matmul", n=n, batch=m, variant="tiled")
+    fitted = []
+    for cfg in matmul_space(wl, get_profile("h100")).enumerate_valid():
+        kw = _normalize(cfg, wl, {"m": m, "k": k})
+        if kw not in fitted:
+            fitted.append(kw)
+    if quick:
+        fitted = fitted[:2]
+    gen = torch.Generator(device=dev).manual_seed(22)
+    worst, unequal = 0.0, 0
+    for dtype, dt in (("float32", torch.float32),
+                      ("bfloat16", torch.bfloat16)):
+        a = torch.randn(m, k, generator=gen, device=dev).to(dt)
+        b = torch.randn(k, n, generator=gen, device=dev).to(dt)
+        for kw in fitted:
+            got = matmul_tiled(a, b, **kw)
+            want = matmul_plain(a, b, **kw)
+            torch.cuda.synchronize()
+            worst = max(worst, check_close(got, want, dtype,
+                                           f"matmul {dtype} {kw}"))
+            unequal += int((got != want).sum())
+    log(f"[kernels] matmul: {len(fitted)} fitted configs x 2 dtypes at "
+        f"{MATMUL_SHAPE} within tolerance; max abs err {worst:.3e}; "
+        f"elements not bit-equal to the plain version {unequal}")
+    return worst
+
+
+def phase_dense_path(dev):
+    """qwen1.5-0.5b at full width (24 layers, d_model 1024, 16 heads of 64,
+    d_ff 2816, vocab 151936, QKV bias, bf16), random weights at the JAX
+    init's scales, use_pallas on: forward on 4 x 2048 tokens (one flash
+    launch per layer), held against the same weights on the plain-op path;
+    then a 63-token prefill, the prompt's last token and 7 greedy tokens
+    through decode_step, held against the forward's logits."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.qwen15_05b import CONFIG
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(CONFIG, use_pallas=True)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    t0 = time.perf_counter()
+    model = Model.init(cfg, gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (DENSE_BATCH, DENSE_LEN),
+                           generator=gen, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[dense] {cfg.arch}: {n_params / 1e9:.3f} B parameters "
+        f"({sum(p.numel() * p.element_size() for p in model.parameters()) / 2**30:.2f} GiB) "
+        f"drawn on the card in {time.perf_counter() - t0:.1f} s")
+    reset_counts()
+    with torch.inference_mode():
+        logits, _ = model(tokens)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"[dense] launches in one forward: {counts}")
+    if counts["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"forward launched flash_attention "
+                             f"{counts['flash_attention']} times, not one "
+                             f"per layer ({cfg.n_layers})")
+    want_shape = (DENSE_BATCH, DENSE_LEN, cfg.vocab)
+    if tuple(logits.shape) != want_shape or logits.dtype != torch.float32 \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"forward logits {tuple(logits.shape)} "
+                             f"{logits.dtype}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    model.cfg = dataclasses.replace(cfg, use_pallas=False)
+    with torch.inference_mode():
+        ref, _ = model(tokens)
+    model.cfg = cfg
+    scale = float(ref.abs().max())
+    rel = float((logits - ref).abs().max()) / scale
+    mean_rel = float((logits - ref).abs().mean()) / float(ref.abs().mean())
+    agree = float((logits.argmax(-1) == ref.argmax(-1)).float().mean())
+    del ref
+    log(f"[dense] flash path vs plain-op path: max |diff| / max |logits| "
+        f"{rel:.3e} (bound {DENSE_LOGITS_TOL}), mean |diff| / mean |logits| "
+        f"{mean_rel:.3e}, argmax agreement {agree:.4f}")
+    if not rel < DENSE_LOGITS_TOL:
+        raise AssertionError(f"flash-path logits off the plain path by "
+                             f"{rel:.3e} relative")
+
+    # prefill + greedy decode, against the forward
+    B = DENSE_BATCH
+    prompt = tokens[:, :PROMPT]
+    with torch.inference_mode():
+        cache = model.init_cache(B, PROMPT + DECODE_STEPS, device=dev)
+        steps = prompt[:, :PROMPT - 1].T.contiguous()
+        pos = torch.arange(PROMPT - 1, device=dev)[:, None].expand(
+            PROMPT - 1, B).contiguous()
+        cache = model.prefill(steps, cache, pos, torch.ones(
+            PROMPT - 1, B, dtype=torch.bool, device=dev))
+        tok = prompt[:, PROMPT - 1:]
+        fed, dec = [], []
+        for t in range(DECODE_STEPS):
+            fed.append(tok)
+            lg, cache = model.decode_step(
+                tok, cache, torch.full((B, 1), PROMPT - 1 + t, device=dev))
+            dec.append(lg[:, 0])
+            tok = lg[:, 0].argmax(-1, keepdim=True)
+        seq = torch.cat([prompt[:, :PROMPT - 1]] + fed, dim=1)
+        # the forward's flash path needs L >= 128: causal logits at the
+        # first positions do not depend on the padding after them
+        padded = torch.cat([seq, torch.zeros(B, 128 - seq.shape[1],
+                                             dtype=seq.dtype, device=dev)],
+                           dim=1)
+        full, _ = model(padded)
+    torch.cuda.synchronize()
+    fwd = full[:, PROMPT - 1:PROMPT - 1 + DECODE_STEPS]
+    got = torch.stack(dec, dim=1)
+    dec_rel = float((got - fwd).abs().max()) / float(fwd.abs().max())
+    log(f"[dense] prefill {PROMPT - 1} + {DECODE_STEPS} greedy decode steps "
+        f"vs forward: max |diff| / max |logits| {dec_rel:.3e} (bound "
+        f"{DECODE_TOL}); greedy tokens {torch.cat(fed[1:], 1).tolist()}")
+    if not dec_rel < DECODE_TOL:
+        raise AssertionError(f"decode logits off the forward by {dec_rel:.3e}"
+                             f" relative")
+    del logits, full
+    torch.cuda.empty_cache()
+    return {"model": model, "tokens": tokens, "counts": counts,
+            "rel": rel, "mean_rel": mean_rel, "decode_rel": dec_rel}
+
+
+def phase_dense_numbers(dev, run):
+    """The forward's time on the card, split into the flash kernel's
+    launches (timed alone at the forward's shapes and config) and the rest
+    (projections, MLP, norms, rope, the f32 unembedding)."""
+    import torch
+    from repro_torch.core.space import Workload
+    from repro_torch.kernels.attention.kernel import flash_attention
+    from repro_torch.models import layers as L
+    from repro_torch.tuning import default_session
+
+    model, tokens = run["model"], run["tokens"]
+    cfg = model.cfg
+    BH, hd = DENSE_BATCH * cfg.n_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(14)
+    q, k, v = (torch.randn(BH, DENSE_LEN, hd, generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    blocks = default_session().resolve(
+        Workload(op="attention", n=DENSE_LEN, batch=BH, variant="flash"),
+        dims={"lq": DENSE_LEN, "lk": DENSE_LEN})
+    x = torch.randn(DENSE_BATCH, DENSE_LEN, cfg.d_model, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    with torch.inference_mode():
+        forward_ms = time_ms(lambda: model(tokens), 3, warmup=1)
+        flash_ms = time_ms(lambda: flash_attention(q, k, v, causal=True,
+                                                   **blocks), 10)
+        unembed_ms = time_ms(lambda: L.unembed(model.embed, x), 3)
+    out = {"forward_ms": forward_ms, "flash_ms_per_layer": flash_ms,
+           "flash_ms": flash_ms * cfg.n_layers,
+           "flash_share": flash_ms * cfg.n_layers / forward_ms,
+           "unembed_ms": unembed_ms,
+           "rest_ms": forward_ms - flash_ms * cfg.n_layers,
+           "config": blocks, "tokens": DENSE_BATCH * DENSE_LEN,
+           "tokens_per_s": DENSE_BATCH * DENSE_LEN / (forward_ms / 1e3),
+           "logits_rel_vs_plain_path": run["rel"],
+           "decode_rel_vs_forward": run["decode_rel"]}
+    log(f"[numbers] dense forward {json.dumps(out, sort_keys=True)}")
+    return out
+
+
+def phase_mamba_model(dev):
+    """One full-depth mamba2-130m Model.forward (24 SSD groups, 8 x 2048
+    tokens, random weights, bf16): finite logits of the right shape, the
+    SSD kernels launched."""
+    import torch
+    from repro_torch.configs.mamba2_130m import CONFIG
+    from repro_torch.models.model import Model
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    model = Model.init(CONFIG, gen, device=dev)
+    tokens = torch.randint(0, CONFIG.vocab, (MAMBA_BATCH, 2048),
+                           generator=gen, device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.inference_mode():
+        logits, _ = model(tokens)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"[mamba] {CONFIG.arch} forward launches: {counts}")
+    require_launched(counts, ("ssd_intra",), "the ssm Model.forward")
+    if tuple(logits.shape) != (MAMBA_BATCH, 2048, CONFIG.vocab) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"mamba2 forward logits {tuple(logits.shape)}, "
+                             f"finite {bool(torch.isfinite(logits).all())}")
+    del logits
+    with torch.inference_mode():
+        ms = time_ms(lambda: model(tokens), 2, warmup=1)
+    log(f"[numbers] mamba2-130m forward ({MAMBA_BATCH} x 2048 tokens): "
+        f"{ms:.3f} ms")
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_long_carry(dev):
+    """The repaired multipass case: prefix_sum and linear_recurrence at
+    n = 2^22 x 16 forced to tile_n 128, rows 2, whose carry scan is a
+    (2, 32768) block, twice the kernels' staging: each against float64
+    (cumsum; a sequential recurrence of row 0), the launch list equal to
+    the plan's."""
+    import torch
+    from repro_torch.core.space import Workload
+    from repro_torch.kernels.blocks.driver import capture_launches
+    from repro_torch.kernels.blocks.plan import plan_for
+    from repro_torch.kernels.scan.ops import (_plan_workload,
+                                              linear_recurrence, prefix_sum)
+    from repro_torch.tuning import default_session
+
+    cfg = {"tile_n": 128, "rows_per_program": 2, "radix": 2, "unroll": 1,
+           "in_register": 0}
+    n, batch = 2 ** 22, 16
+    gen = torch.Generator(device=dev).manual_seed(16)
+    x = torch.randn(batch, n, generator=gen, device=dev)
+    a = torch.rand(batch, n, generator=gen, device=dev) * 0.19 + 0.8
+    reset_counts()
+    with capture_launches() as sum_launches:
+        y = prefix_sum(x, config=cfg)
+    with capture_launches() as rec_launches:
+        h = linear_recurrence(a, x, config=cfg)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for linrec, launched in ((False, sum_launches), (True, rec_launches)):
+        wl = Workload(op="scan", n=n, batch=batch,
+                      variant="linrec" if linrec else "ks")
+        plan = plan_for(_plan_workload(wl, linrec=linrec),
+                        default_session().resolve(wl, config=cfg))
+        if tuple(launched) != plan.launches:
+            raise AssertionError(f"{wl.key}: launched {launched} != plan "
+                                 f"{plan.launches}")
+    # the carry-scan launch alone against its plain version (which walks
+    # the same pieces), on a (batch, 32768) row of chunk sums
+    from repro_torch.kernels.scan.kernel import (scan_add, scan_add_plain,
+                                                 scan_linrec,
+                                                 scan_linrec_plain)
+    l2 = plan.launches[1]
+    kw = dict(rows_per_program=l2.block_shape[0], tile_n=l2.block_shape[1],
+              stages=l2.stages)
+    sums = torch.randn(batch, l2.block_shape[1], generator=gen, device=dev)
+    ops = a[:, :l2.block_shape[1]].contiguous()
+    pairs = ((scan_add(sums, **kw), scan_add_plain(sums, **kw)),
+             (scan_linrec(ops, sums, **kw), scan_linrec_plain(ops, sums, **kw)))
+    torch.cuda.synchronize()
+    unequal = [int((got != want).sum()) for got, want in pairs]
+    for (got, want), name in zip(pairs, ("scan_add", "scan_linrec")):
+        check_close(got, want, "float32", f"{name} carry tile {kw}")
+    err_sum = check_close(y, torch.cumsum(x.double(), dim=-1), "float32",
+                          "prefix_sum 2^22 carry tile (2, 32768)")
+    err_rec = check_close(h[:1].cpu(), linrec_f64_sequential(a[:1], x[:1]),
+                          "float32", "linear_recurrence 2^22 carry tile "
+                          "(2, 32768)")
+    log(f"[long] carry tile (2, 32768) at 2^22 x 16: launches {counts}; "
+        f"prefix_sum max abs err vs float64 {err_sum:.3e}, "
+        f"linear_recurrence {err_rec:.3e}; the carry launch alone, elements "
+        f"not bit-equal to the plain version: scan_add {unequal[0]}, "
+        f"scan_linrec {unequal[1]}")
+    return counts
+
+
+def phase_matmul_path(dev):
+    """The matmul entry point at qwen's MLP up-projection (bf16), the
+    session's config under h100, against a float64 product."""
+    import torch
+    from repro_torch.core.space import Workload
+    from repro_torch.kernels.matmul.ops import matmul
+    from repro_torch.tuning import default_session
+
+    m, k, n = MATMUL_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(23)
+    a = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+    b = torch.randn(k, n, generator=gen, device=dev).to(torch.bfloat16)
+    cfg = default_session().resolve(
+        Workload(op="matmul", n=n, batch=m, variant="tiled"),
+        dims={"m": m, "k": k})
+    torch.cuda.synchronize()
+    reset_counts()
+    c = matmul(a, b)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    require_launched(counts, ("matmul",), "the matmul entry point")
+    err = check_close(c, a.double() @ b.double(), "bfloat16",
+                      "matmul vs float64")
+    log(f"[matmul] {MATMUL_SHAPE} bf16, config {cfg}: max abs err vs "
+        f"float64 {err:.3e}; launches {counts['matmul']}")
+    return {"a": a, "b": b, "cfg": cfg, "counts": counts}
+
+
+def phase_attention_matmul_numbers(dev, dense_counts, mm, loop_counts, errs,
+                                   bandwidth: float):
+    """The kernels line's entries for kernels 11 and 12 at the main paths'
+    shapes: the flash kernel at one qwen layer's attention (64 rows of
+    2048, head dim 64, bf16, causal, the session's blocks), the matmul at
+    qwen's MLP up-projection (bf16, the session's blocks)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.space import Workload
+    from repro_torch.kernels.attention.kernel import (flash_attention,
+                                                      flash_attention_plain)
+    from repro_torch.kernels.matmul.kernel import matmul_plain, matmul_tiled
+    from repro_torch.tuning import default_session
+
+    BH, L, D = DENSE_BATCH * 16, DENSE_LEN, 64
+    gen = torch.Generator(device=dev).manual_seed(24)
+    q, k, v = (torch.randn(BH, L, D, generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    blocks = default_session().resolve(
+        Workload(op="attention", n=L, batch=BH, variant="flash"),
+        dims={"lq": L, "lk": L})
+    got = flash_attention(q, k, v, causal=True, **blocks)
+    want = flash_attention_plain(q, k, v, causal=True, **blocks)
+    torch.cuda.synchronize()
+    check_flash(got, want, "bfloat16",
+                f"flash_attention ({BH}, {L}, {L}, {D}) bf16 {blocks}")
+    # SDPA's (B, H, L, D) layout of the same rows, for library_ms
+    heads = tuple(t.view(DENSE_BATCH, BH // DENSE_BATCH, L, D)
+                  for t in (q, k, v))
+    pairs = BH * L * (L + 1) // 2               # causal (query, key) pairs
+    ops_ms = pairs * 4 * D / BF16_PEAK * 1e3
+    bytes_ms = 4 * q.numel() * q.element_size() / bandwidth * 1e3
+    with torch.inference_mode():
+        flash = {
+            "name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/attention.cu",
+            "replaces": "src/repro/kernels/attention/kernel.py:87",
+            "launches": dense_counts["flash_attention"],
+            "launches_by_path": {"dense forward": dense_counts[
+                "flash_attention"], "tuning loop": loop_counts[
+                "flash_attention"]},
+            "max_abs_err": max(max_err(got, want), errs["flash"]),
+            "ms": time_ms(lambda: flash_attention(q, k, v, causal=True,
+                                                  **blocks), 10),
+            "plain_ms": time_ms(lambda: flash_attention_plain(
+                q, k, v, causal=True, **blocks), 3, warmup=1),
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                *heads, is_causal=True), 10),
+            "shape": [BH, L, D], "dtype": "bfloat16",
+            "config": {key: blocks[key] for key in sorted(blocks)}}
+    del got, want, q, k, v, heads
+    a, b, cfg = mm["a"], mm["b"], mm["cfg"]
+    m, kk = a.shape
+    n = b.shape[1]
+    got = matmul_tiled(a, b, **cfg)
+    want = matmul_plain(a, b, **cfg)
+    torch.cuda.synchronize()
+    ops_ms = 2 * m * n * kk / BF16_PEAK * 1e3
+    bytes_ms = (a.numel() + b.numel() + m * n) * 2 / bandwidth * 1e3
+    matmul = {
+        "name": "matmul", "route": "cuda",
+        "source": "src/repro_torch/csrc/matmul.cu",
+        "replaces": "src/repro/kernels/matmul/kernel.py:37",
+        "launches": mm["counts"]["matmul"] + loop_counts["matmul"],
+        "launches_by_path": {"matmul entry point": mm["counts"]["matmul"],
+                             "tuning loop": loop_counts["matmul"]},
+        "max_abs_err": max(max_err(got, want), errs["matmul"]),
+        "ms": time_ms(lambda: matmul_tiled(a, b, **cfg), 10),
+        "plain_ms": time_ms(lambda: matmul_plain(a, b, **cfg), 5),
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": time_ms(lambda: torch.matmul(a, b), 10),
+        "shape": [m, kk, n], "dtype": "bfloat16",
+        "config": {key: cfg[key] for key in sorted(cfg)}}
+    for entry in (flash, matmul):
+        log(f"[numbers] {json.dumps(entry, sort_keys=True)}")
+    return [flash, matmul]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -1598,6 +2125,8 @@ def main(argv=None) -> int:
     errs = phase_linrec_kernels(dev, args.quick)
     fft_err = phase_fft_kernels(dev, args.quick)
     ssd_errs = phase_ssd_kernels(dev, args.quick)
+    kernel_errs = {"flash": phase_attention_kernels(dev, args.quick),
+                   "matmul": phase_matmul_kernels(dev, args.quick)}
     log(f"[kernels] {time.perf_counter() - t0:.1f} s")
     if not args.quick:
         from repro_torch.hw.profiles import get_profile
@@ -1655,8 +2184,29 @@ def main(argv=None) -> int:
                 entry["launches"] = sum(paths.values())
         entries += ssd_entries
         t0 = time.perf_counter()
-        phase_loop(dev)
+        dense = phase_dense_path(dev)
+        log(f"[dense] {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_dense_numbers(dev, dense)
+        log(f"[numbers] {time.perf_counter() - t0:.1f} s")
+        dense_counts = dense["counts"]
+        del dense
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        phase_mamba_model(dev)
+        log(f"[mamba] {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_long_carry(dev)
+        log(f"[long] {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        mm = phase_matmul_path(dev)
+        t0 = time.perf_counter()
+        _, loop_counts = phase_loop(dev)
         log(f"[loop] {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        entries += phase_attention_matmul_numbers(
+            dev, dense_counts, mm, loop_counts, kernel_errs, bandwidth)
+        log(f"[numbers] {time.perf_counter() - t0:.1f} s")
         log(json.dumps({"kernels": entries}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all (build "
         f"{build_s:.1f} s)")

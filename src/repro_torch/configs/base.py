@@ -1,9 +1,10 @@
 """Model configuration schema and registry of the port.
 
 The PyTorch port's own copy of ``repro.configs.base`` (``ModelConfig``,
-``register``, ``reduced()``), field for field, so a configuration and its
-reduced smoke-test variant are the same in both packages.  The port runs
-one configuration so far (``mamba2_130m``).
+``register``, ``reduced()``, ``get_arch``), field for field, so a
+configuration and its reduced smoke-test variant are the same in both
+packages.  The port runs two configurations so far (``mamba2_130m``,
+``qwen15_05b``).
 """
 from __future__ import annotations
 
@@ -58,8 +59,8 @@ class ModelConfig:
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
     remat: str = "full"                   # none | full
-    use_pallas: bool = False              # the JAX package's switch; the port's
-    #                                       device decides
+    use_pallas: bool = False              # flip on for real deployments: the
+    #                                       tuned flash kernel in prefill
     activation_strategy: str = "sp"       # sp | tp (residual-stream sharding;
     #                                       sp shrinks per-layer remat saves
     #                                       by the model-axis size)
@@ -121,3 +122,22 @@ _REGISTRY: Dict[str, ModelConfig] = {}
 def register(cfg: ModelConfig) -> ModelConfig:
     _REGISTRY[cfg.arch] = cfg
     return cfg
+
+
+def get_arch(name: str) -> ModelConfig:
+    # a config module imported on its own registers only itself
+    if name not in _REGISTRY:
+        _load_all()
+    return _REGISTRY[name]
+
+
+def all_archs() -> Tuple[str, ...]:
+    _load_all()
+    return tuple(sorted(_REGISTRY))
+
+
+def _load_all() -> None:
+    # importing the config modules populates the registry
+    import importlib
+    for mod in ("qwen15_05b", "mamba2_130m"):
+        importlib.import_module(f"repro_torch.configs.{mod}")

@@ -10,8 +10,8 @@ A :class:`Measurement` carries a **metric vector** (``time_s`` always; the
 cost model adds ``energy_j`` and ``peak_vmem_bytes``), with ``time_s`` the
 scalar-compatible primary field.
 
-The PyTorch port's own copy of ``repro.core.objective``, trimmed to the
-scan, tridiag, FFT, SSD and RG-LRU ops.  The cost-model arithmetic is the
+The PyTorch port's own copy of ``repro.core.objective``, for the scan,
+tridiag, FFT, SSD, RG-LRU, attention and matmul ops.  The cost-model arithmetic is the
 JAX package's, verbatim, so both packages model identical times.
 
   * ``WallClockObjective`` — times a runner's thunk on a torch device.  On
@@ -279,6 +279,15 @@ def _flops_and_passes(wl: Workload, cfg: Config) -> Dict[str, float]:
         # extra lower-radix step is required
         k = round(math.log(tile_n, r))
         out["mixed_radix"] = 0.0 if r ** k == tile_n else 1.0
+    elif wl.op == "attention":
+        head_dim = 128
+        out["flops"] = 4.0 * n * head_dim  # per q-row, per kv token: 2 matmuls
+        out["passes"] = 1
+        out["steps"] = max(n // cfg.get("block_k", 128), 1)
+    elif wl.op == "matmul":
+        out["flops"] = 2.0 * n * n  # per row of M
+        out["passes"] = 1
+        out["steps"] = max(n // cfg.get("block_k", 128), 1)
     else:
         raise NotImplementedError(
             f"no cost model for op={wl.op!r} in the PyTorch port yet")
@@ -397,6 +406,15 @@ def _batch_work(wl: Workload, cfgs: Sequence[Config],
         out["steps"] = np.ceil(stages_total)
         k = np.rint(np.log(tile_n) / np.log(r))
         out["mixed_radix"] = np.where(np.power(r, k) == tile_n, 0.0, 1.0)
+    elif wl.op == "attention":
+        head_dim = 128
+        out["flops"] = 4.0 * n * head_dim * ones
+        out["passes"] = ones.copy()
+        out["steps"] = np.maximum(np.floor(n / cols.get("block_k", 128)), 1)
+    elif wl.op == "matmul":
+        out["flops"] = 2.0 * n * n * ones
+        out["passes"] = ones.copy()
+        out["steps"] = np.maximum(np.floor(n / cols.get("block_k", 128)), 1)
     else:
         raise NotImplementedError(
             f"no cost model for op={wl.op!r} in the PyTorch port yet")
@@ -462,24 +480,44 @@ class CostModelObjective(Objective):
         rows = cfg.get("rows_per_program", 1)
         tile_n = cfg.get("tile_n", wl.n)
 
-        grid = max(batch // rows, 1) * max(wl.n // tile_n, 1)
-        block_bytes = rows * tile_n * eb
-        total_bytes = 2.0 * batch * wl.n * eb * work["passes"]
-        total_flops = batch * work["flops"]
-        trailing = min(tile_n, spec.lane_count * 8) if not cfg.get("in_register") else tile_n
+        if wl.op == "attention":
+            block_q, block_k = cfg["block_q"], cfg["block_k"]
+            grid = max(batch, 1) * max(wl.n // block_q, 1)
+            block_bytes = (block_q + 2 * block_k) * 128 * eb
+            total_bytes = batch * wl.n * 128 * eb * 3
+            total_flops = batch * wl.n * work["flops"]
+            trailing = block_k
+        elif wl.op == "matmul":
+            bm, bn, bk = cfg["block_m"], cfg["block_n"], cfg["block_k"]
+            grid = max(batch // bm, 1) * max(wl.n // bn, 1)
+            block_bytes = (bm * bk + bk * bn) * eb
+            total_bytes = (batch * wl.n + wl.n * wl.n) * eb
+            total_flops = batch * work["flops"]
+            trailing = bn
+        else:
+            grid = max(batch // rows, 1) * max(wl.n // tile_n, 1)
+            block_bytes = rows * tile_n * eb
+            total_bytes = 2.0 * batch * wl.n * eb * work["passes"]
+            total_flops = batch * work["flops"]
+            trailing = min(tile_n, spec.lane_count * 8) if not cfg.get("in_register") else tile_n
 
         # --- memory term ---
         t_mem = total_bytes / (spec.hbm_bandwidth * dma_efficiency(int(block_bytes), spec))
-        # --- compute term (vector units for prefix ops) ---
-        util = lane_utilization(trailing, spec)
-        sub = sublane_utilization(rows * max(tile_n // spec.lane_count, 1), spec)
-        eff = max(util * max(sub, 0.25)
-                  * ilp_factor(cfg.get("unroll", 1), spec), 1e-3)
-        t_comp = total_flops / (spec.peak_vpu_flops * eff)
-        if cfg.get("in_register"):
-            t_comp *= 0.8   # no scratch roundtrip between steps
+        # --- compute term (VPU for prefix ops; MXU for matmul/attention) ---
+        if wl.op in ("matmul", "attention"):
+            peak = spec.peak_bf16_flops if wl.dtype == "bfloat16" else spec.peak_f32_flops
+            mxu_util = min(trailing / spec.mxu_dim, 1.0)
+            t_comp = total_flops / (peak * max(mxu_util, 1e-3))
         else:
-            t_comp *= 1.0 + 0.05 * work["steps"]  # scratch traffic per step
+            util = lane_utilization(trailing, spec)
+            sub = sublane_utilization(rows * max(tile_n // spec.lane_count, 1), spec)
+            eff = max(util * max(sub, 0.25)
+                      * ilp_factor(cfg.get("unroll", 1), spec), 1e-3)
+            t_comp = total_flops / (spec.peak_vpu_flops * eff)
+            if cfg.get("in_register"):
+                t_comp *= 0.8   # no scratch roundtrip between steps
+            else:
+                t_comp *= 1.0 + 0.05 * work["steps"]  # scratch traffic per step
 
         # --- overlap: need >=2 programs in flight (occupancy premise) ---
         overlap = 1.0 if grid >= 4 else (0.85 if grid >= 2 else 0.55)
@@ -537,27 +575,52 @@ class CostModelObjective(Objective):
         tile_n = cols.get("tile_n", wl.n)
         in_reg = cols.get("in_register", 0)
 
-        grid = np.maximum(np.floor(batch / rows), 1) \
-            * np.maximum(np.floor(wl.n / tile_n), 1)
-        block_bytes = rows * tile_n * eb
-        total_bytes = 2.0 * batch * wl.n * eb * work["passes"]
-        total_flops = batch * work["flops"]
-        trailing = np.where(in_reg, tile_n,
-                            np.minimum(tile_n, spec.lane_count * 8))
+        if wl.op == "attention":
+            block_q = cols.get("block_q", 128)
+            block_k = cols.get("block_k", 128)
+            grid = max(batch, 1) * np.maximum(np.floor(wl.n / block_q), 1)
+            block_bytes = (block_q + 2 * block_k) * 128 * eb
+            total_bytes = batch * wl.n * 128 * eb * 3.0 + 0.0 * grid
+            total_flops = batch * wl.n * work["flops"]
+            trailing = block_k
+        elif wl.op == "matmul":
+            bm = cols.get("block_m", 128)
+            bn = cols.get("block_n", 128)
+            bk = cols.get("block_k", 128)
+            grid = np.maximum(np.floor(batch / bm), 1) \
+                * np.maximum(np.floor(wl.n / bn), 1)
+            block_bytes = (bm * bk + bk * bn) * eb
+            total_bytes = (batch * wl.n + wl.n * wl.n) * eb + 0.0 * grid
+            total_flops = batch * work["flops"]
+            trailing = bn
+        else:
+            grid = np.maximum(np.floor(batch / rows), 1) \
+                * np.maximum(np.floor(wl.n / tile_n), 1)
+            block_bytes = rows * tile_n * eb
+            total_bytes = 2.0 * batch * wl.n * eb * work["passes"]
+            total_flops = batch * work["flops"]
+            trailing = np.where(in_reg, tile_n,
+                                np.minimum(tile_n, spec.lane_count * 8))
 
         with np.errstate(all="ignore"):
             t_mem = total_bytes / (spec.hbm_bandwidth
                                    * dma_efficiency_arr(block_bytes, spec))
-            util = lane_utilization_arr(trailing, spec)
-            sub = sublane_utilization_arr(
-                rows * np.maximum(np.floor(tile_n / spec.lane_count), 1),
-                spec)
-            eff = np.maximum(util * np.maximum(sub, 0.25)
-                             * ilp_factor_arr(cols.get("unroll", 1), spec),
-                             1e-3)
-            t_comp = total_flops / (spec.peak_vpu_flops * eff)
-            t_comp = np.where(in_reg, t_comp * 0.8,
-                              t_comp * (1.0 + 0.05 * work["steps"]))
+            if wl.op in ("matmul", "attention"):
+                peak = spec.peak_bf16_flops if wl.dtype == "bfloat16" \
+                    else spec.peak_f32_flops
+                mxu_util = np.minimum(trailing / spec.mxu_dim, 1.0)
+                t_comp = total_flops / (peak * np.maximum(mxu_util, 1e-3))
+            else:
+                util = lane_utilization_arr(trailing, spec)
+                sub = sublane_utilization_arr(
+                    rows * np.maximum(np.floor(tile_n / spec.lane_count), 1),
+                    spec)
+                eff = np.maximum(util * np.maximum(sub, 0.25)
+                                 * ilp_factor_arr(cols.get("unroll", 1), spec),
+                                 1e-3)
+                t_comp = total_flops / (spec.peak_vpu_flops * eff)
+                t_comp = np.where(in_reg, t_comp * 0.8,
+                                  t_comp * (1.0 + 0.05 * work["steps"]))
 
             overlap = np.where(grid >= 4, 1.0, np.where(grid >= 2, 0.85, 0.55))
             t_body = np.maximum(t_comp, t_mem) / overlap \

@@ -1,10 +1,11 @@
 """Search spaces for kernel performance parameters (paper Table I).
 
-The PyTorch port's own copy of ``repro.core.space``, trimmed to the scan,
-tridiag, FFT, SSD and RG-LRU ops: the numpy code that decides a space is the JAX package's,
-verbatim, so both packages enumerate identical spaces for the same
-workload and profile.  Every other op raises until its slice of the port
-lands.
+The PyTorch port's own copy of ``repro.core.space``: the numpy code that
+decides a space is the JAX package's, verbatim, so both packages enumerate
+identical spaces for the same workload and profile.  One deliberate
+difference: under a profile whose backend is "cuda" (``h100``) the
+attention and matmul spaces admit a config by the shared memory the CUDA
+kernels really use, not by the TPU footprint (see ``attention_space``).
 
 A space is declared per (operation, input-parameters) pair:
   - Input Parameters (paper: `A`): problem size N, batch G, dtype — they
@@ -368,6 +369,105 @@ def large_fft_space(wl: Workload, max_tile: int = 4096,
     )
 
 
+# ---------------------------------------------------------------------------
+# Attention and matmul: the JAX package's spaces, and what the CUDA kernels
+# (csrc/attention.cu, csrc/matmul.cu) stage in shared memory
+# ---------------------------------------------------------------------------
+# The JAX fit constraints count a TPU VMEM footprint (bf16 tiles of head_dim
+# 128, double-buffered, plus the f32 score block); under h100's 2^17-byte
+# vmem_budget they admit no config at all.  Under a profile whose backend is
+# "cuda" the constraint counts instead what the hand-written kernels really
+# hold in a block's shared memory, against the 227 KB a block may use.
+
+# shared memory one thread block may use on Hopper (227 KB)
+CUDA_SMEM_LIMIT = 232448
+# head dims the flash kernel is built for (the reduced configs' 16; qwen /
+# whisper 64; minitron / llama-vision 128; gemma / recurrentgemma 256)
+FLASH_HEAD_DIMS = (16, 64, 128, 256)
+FLASH_QT_MAX = 64            # query rows a flash block works on at once
+FLASH_SCORE_FLOATS = 16384   # f32 score tile: query rows x block_k
+
+
+def flash_tiles(block_q: int, block_k: int, head_dim: int) -> Tuple[int, int]:
+    """(query rows per sub-tile, keys per staged K/V sub-tile) of the flash
+    kernel: the whole block_k span of scores for qt rows stays in shared
+    memory, so qt shrinks as block_k grows."""
+    qt = max(1, min(int(block_q), FLASH_QT_MAX,
+                    FLASH_SCORE_FLOATS // max(int(block_k), 1)))
+    kt = min(int(block_k), 64 if head_dim <= 128 else 32)
+    return qt, kt
+
+
+def flash_smem_bytes(block_q: int, block_k: int, head_dim: int) -> int:
+    """Shared memory of one flash-attention block: the f32 Q sub-tile and
+    K sub-tile (rows padded by one float), the V sub-tile, the score tile
+    (rows padded by one) and the per-row m, l and rescale factor."""
+    qt, kt = flash_tiles(block_q, block_k, head_dim)
+    floats = (qt * (head_dim + 1) + kt * (head_dim + 1) + kt * head_dim
+              + qt * (int(block_k) + 1) + 3 * qt)
+    return 4 * floats
+
+
+def attention_space(wl: Workload,
+                    spec: Optional[HardwareProfile] = None) -> SearchSpace:
+    """Flash-attention block sizes (beyond-paper application of the method).
+
+    wl.n = kv sequence length; wl.batch = #(batch*heads) rows.
+    """
+    spec = spec if spec is not None else active_profile()
+    # no `unroll` knob: the flash kernel's inner loop is the block_k walk —
+    # there is nothing to unroll independently of block_k, so sweeping it
+    # only duplicated configs (the repro.analysis dead-knob detector flags
+    # exactly this class; same pruning as linrec's unroll)
+    params = [
+        ParamSpec("block_q", (128, 256, 512, 1024)),
+        ParamSpec("block_k", (128, 256, 512, 1024, 2048)),
+        ParamSpec("rows_per_program", (1,)),
+        ParamSpec("radix", (2,)),
+        ParamSpec("in_register", (0,)),
+    ]
+
+    def blocks_fit(cfg: Config, w: Workload) -> bool:
+        head_dim = 128
+        eb = 2  # bf16
+        # q-block + k-block + v-block + scores
+        foot = (cfg["block_q"] + 2 * cfg["block_k"]) * head_dim * eb
+        foot += cfg["block_q"] * cfg["block_k"] * 4
+        return foot * 2 <= spec.vmem_budget and cfg["block_k"] <= w.n \
+            and cfg["block_q"] <= w.n
+
+    def blocks_fit_cuda(cfg: Config, w: Workload) -> bool:
+        # every head dim the kernel takes must fit: the largest needs most
+        foot = max(flash_smem_bytes(cfg["block_q"], cfg["block_k"], hd)
+                   for hd in FLASH_HEAD_DIMS)
+        return foot <= CUDA_SMEM_LIMIT and cfg["block_k"] <= w.n \
+            and cfg["block_q"] <= w.n
+
+    fit = blocks_fit_cuda if spec.backend == "cuda" else blocks_fit
+    return SearchSpace(wl, params, constraints=(fit,), spec=spec)
+
+
+def matmul_space(wl: Workload,
+                 spec: Optional[HardwareProfile] = None) -> SearchSpace:
+    """Tiled matmul (M=batch, K=N=wl.n simplification for tuning demos)."""
+    spec = spec if spec is not None else active_profile()
+    params = [
+        ParamSpec("block_m", (128, 256, 512)),
+        ParamSpec("block_n", (128, 256, 512, 1024)),
+        ParamSpec("block_k", (128, 256, 512, 1024, 2048)),
+    ]
+
+    def fits(cfg: Config, w: Workload) -> bool:
+        eb = 2
+        foot = (cfg["block_m"] * cfg["block_k"] + cfg["block_k"] * cfg["block_n"]) * eb
+        foot += cfg["block_m"] * cfg["block_n"] * 4
+        return foot * 2 <= spec.vmem_budget
+
+    # the CUDA kernel stages a fixed 16.5 KB whatever the blocks: no fit
+    constraints = () if spec.backend == "cuda" else (fits,)
+    return SearchSpace(wl, params, constraints=constraints, spec=spec)
+
+
 _SPACE_BUILDERS: Dict[str, Callable[..., SearchSpace]] = {
     "scan": scan_space,
     "tridiag": tridiag_space,
@@ -376,6 +476,8 @@ _SPACE_BUILDERS: Dict[str, Callable[..., SearchSpace]] = {
     "large_fft": large_fft_space,
     "ssd": scan_space,        # the SSD inter-chunk scan shares the scan space
     "rglru": linrec_space,    # rglru IS a linrec: dead unroll knob pruned
+    "attention": attention_space,
+    "matmul": matmul_space,
 }
 
 

@@ -13,8 +13,8 @@ Composite ops (rglru's gate→linrec, SSD's intra→linrec→apply) are chains
 of links (``plan_for_chain``): the ``fuse`` knob decides whether
 neighbouring links share a launch or break at the historical boundaries.
 
-The PyTorch port's own copy of ``repro.kernels.blocks.plan``, trimmed to
-the scan, tridiag, FFT, SSD and RG-LRU ops.  The arithmetic is the JAX package's,
+The PyTorch port's own copy of ``repro.kernels.blocks.plan``, for the
+scan, tridiag, FFT, SSD, RG-LRU, attention and matmul ops.  The arithmetic is the JAX package's,
 verbatim, so both packages build identical plans; the field names keep
 the JAX package's words (``grid``, ``vmem_bytes``) — on the GPU a plan's
 grid row count is the CUDA grid and its ``vmem_bytes`` the shared-memory
@@ -516,6 +516,50 @@ def _large_fft_plan(wl: Workload, cfg: Mapping[str, int], spec: HardwareProfile,
         steps_per_pass=row.steps_per_pass, children=(col, row))
 
 
+def _attention_plan(wl: Workload, cfg: Mapping[str, int], spec: HardwareProfile
+                    ) -> StagePlan:
+    batch = max(wl.batch, 1)
+    eb = effective_element_bytes(wl.op, wl.dtype)
+    bq = int(cfg.get("block_q", 128))
+    bk = int(cfg.get("block_k", 128))
+    grid = (batch * max(wl.n // bq, 1),)
+    vmem = (bq + 2 * bk) * 128 * eb * 2
+    steps = max(wl.n // bk, 1)
+    return StagePlan(
+        op=wl.op, variant=wl.variant, n=wl.n, batch=batch, dtype=wl.dtype,
+        kind="fused", tile_n=bk, rows=bq, radix=2, stages=(),
+        seq_tiles=steps, grid=grid, launches=(), passes=1, vmem_bytes=vmem,
+        stage_vmem_bytes=(), block_bytes=vmem // 2, element_bytes=eb,
+        trailing=bk, lane_eff=lane_utilization(bk, spec),
+        sublane_eff=sublane_utilization(bq, spec),
+        occupancy=lane_utilization(bk, spec),
+        # the flash kernel has no unroll knob (its inner loop IS the
+        # block_k walk), so the plan must not report phantom ILP from one
+        ilp=1, ragged=False,
+        steps_per_pass=float(steps))
+
+
+def _matmul_plan(wl: Workload, cfg: Mapping[str, int], spec: HardwareProfile
+                 ) -> StagePlan:
+    batch = max(wl.batch, 1)
+    eb = effective_element_bytes(wl.op, wl.dtype)
+    bm = int(cfg.get("block_m", 128))
+    bn = int(cfg.get("block_n", 128))
+    bk = int(cfg.get("block_k", 128))
+    grid = (max(batch // bm, 1), max(wl.n // bn, 1))
+    vmem = (bm * bk + bk * bn) * eb * 2
+    occ = min(bn / spec.mxu_dim, 1.0) * min(bm / spec.mxu_dim, 1.0)
+    steps = max(wl.n // bk, 1)
+    return StagePlan(
+        op=wl.op, variant=wl.variant, n=wl.n, batch=batch, dtype=wl.dtype,
+        kind="fused", tile_n=bn, rows=bm, radix=2, stages=(),
+        seq_tiles=steps, grid=grid, launches=(), passes=1, vmem_bytes=vmem,
+        stage_vmem_bytes=(), block_bytes=vmem // 2, element_bytes=eb,
+        trailing=bn, lane_eff=lane_utilization(bn, spec),
+        sublane_eff=sublane_utilization(bm, spec), occupancy=occ,
+        ilp=bk // 128 or 1, ragged=False, steps_per_pass=float(steps))
+
+
 # ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
@@ -540,6 +584,10 @@ def build_plan(wl: Workload, cfg: Mapping[str, int], *,
         return _fft_fused_plan(wl, cfg, spec)
     if wl.op == "large_fft":
         return _large_fft_plan(wl, cfg, spec, seq_limit, max_tile)
+    if wl.op == "attention":
+        return _attention_plan(wl, cfg, spec)
+    if wl.op == "matmul":
+        return _matmul_plan(wl, cfg, spec)
     raise NotImplementedError(
         f"no plan builder for op={wl.op!r} in the PyTorch port yet: see "
         f"ROADMAP.md, 'Modules to port'")

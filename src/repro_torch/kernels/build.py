@@ -24,7 +24,8 @@ from typing import Dict, List
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
-SOURCES = ("scan.cu", "linrec.cu", "tridiag.cu", "fft.cu", "ssd.cu")
+SOURCES = ("scan.cu", "linrec.cu", "tridiag.cu", "fft.cu", "ssd.cu",
+           "attention.cu", "matmul.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_kernels.so"
@@ -129,6 +130,13 @@ def load_library() -> ctypes.CDLL:
     lib.repro_ssd_apply.argtypes = [vp, vp, vp, vp, vp, vp, i32, i64, i64,
                                     i32, i32, i64, i32, i32, vp]
     lib.repro_ssd_apply.restype = i32
+    lib.repro_flash_attention.argtypes = [vp, vp, vp, vp, i32, i64, i32, i32,
+                                          i32, i32, i32, i32, i32,
+                                          ctypes.c_float, vp]
+    lib.repro_flash_attention.restype = i32
+    lib.repro_matmul.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, i32,
+                                 i32, vp]
+    lib.repro_matmul.restype = i32
     lib.repro_error_string.argtypes = [i32]
     lib.repro_error_string.restype = ctypes.c_char_p
     return lib

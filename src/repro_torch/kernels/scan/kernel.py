@@ -18,7 +18,8 @@ Layout: problems are rows of a (batch, n) tensor.  Knobs, all consumed:
 staged tile; the kernel loops over the n / tile_n tiles with the carry),
 ``stages`` (the plan's fan-in sequence) and, for the prefix sum,
 ``unroll`` (fold order, and the least elements per thread).  linrec's
-fold order is fixed by its algebra: it takes no ``unroll``.
+fold order is fixed by its algebra: it takes no ``unroll``.  A carrying
+tile longer than the kernels' staging runs in pieces (``staged_piece``).
 
 Bound on the card: memory bandwidth — one read of each input, one write
 of each output.
@@ -41,6 +42,33 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448
 # the kernel's largest tile: 1024 threads x 32 elements each
 MAX_TILE_ELEMS = 32768
+
+
+def staged_piece(rows: int, tile_n: int, stages: Tuple[int, ...]
+                 ) -> Tuple[int, Tuple[int, ...]]:
+    """The (tile, stages) a carrying scan kernel runs a (rows x tile_n)
+    tile with.  A tile within the kernel's MAX_TILE_ELEMS-element staging
+    runs as planned.  A longer one (the multipass carry scan's chunk count
+    times its rows can be) is walked in pieces: the longest leading run of
+    stages whose product p keeps rows * p within the staging.  After those
+    stages each element holds its aligned piece's prefix up to itself, so
+    the column loop carries the row prefix from piece to piece as it does
+    from tile to tile; the sum is the same, rounded in another order.  The
+    CUDA launches pass the piece and its stages to the kernels; raises
+    when even the first stage does not fit."""
+    if rows * tile_n <= MAX_TILE_ELEMS:
+        return tile_n, stages
+    piece, count = 1, 0
+    while count < len(stages) \
+            and rows * piece * stages[count] <= MAX_TILE_ELEMS:
+        piece *= stages[count]
+        count += 1
+    if count == 0:
+        raise ValueError(f"a {rows} x {tile_n} tile: {rows} rows of its "
+                         f"first stage ({stages[0] if stages else 1}) "
+                         f"exceed the kernel's {MAX_TILE_ELEMS}-element "
+                         f"staging")
+    return piece, stages[:count]
 
 
 def _check_args(x: torch.Tensor, rows: int, tile_n: int,
@@ -68,6 +96,7 @@ def scan_add_plain(x: torch.Tensor, *, rows_per_program: int, tile_n: int,
     over all of them computes what every row block computes."""
     stages = tuple(int(r) for r in stages)
     _check_args(x, rows_per_program, tile_n, stages, unroll)
+    tile_n, stages = staged_piece(rows_per_program, tile_n, stages)
     batch, n = x.shape
     out = torch.empty_like(x)
     carry = prim.carry_init(batch, x.device)
@@ -90,10 +119,11 @@ def _launch(x: torch.Tensor, rows: int, tile_n: int,
                          f"one on {x.device}")
     if not x.is_contiguous():
         raise ValueError("scan_add takes a contiguous tensor")
-    if rows * tile_n > MAX_TILE_ELEMS \
-            or 4 * (rows * tile_n + rows) > SMEM_LIMIT:
-        raise ValueError(f"a {rows} x {tile_n} tile exceeds the kernel's "
-                         f"{MAX_TILE_ELEMS}-element f32 staging tile")
+    # the kernel runs a tile longer than its staging as staged pieces
+    piece, stages = staged_piece(rows, tile_n, stages)
+    if 4 * (rows * piece + rows) > SMEM_LIMIT:
+        raise ValueError(f"a {rows} x {piece} tile exceeds a block's "
+                         f"shared memory")
     lib = load_library()
     y = torch.empty_like(x)
     batch, n = x.shape
@@ -102,7 +132,7 @@ def _launch(x: torch.Tensor, rows: int, tile_n: int,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.repro_scan_add(x.data_ptr(), y.data_ptr(),
                                   DTYPE_CODES[x.dtype], batch, n, rows,
-                                  tile_n, fan_in, len(stages), unroll, stream)
+                                  piece, fan_in, len(stages), unroll, stream)
     check(code, "scan_add launch")
     scan_add.launches += 1
     return y
@@ -175,6 +205,7 @@ def scan_linrec_plain(a: torch.Tensor, b: torch.Tensor, *,
     so one pass over all of them computes what every row block does)."""
     stages = tuple(int(r) for r in stages)
     _check_linrec(a, b, rows_per_program, tile_n, stages)
+    tile_n, stages = staged_piece(rows_per_program, tile_n, stages)
     h = torch.empty_like(a)
     for cols, t, _ in _linrec_tiles(a, b, tile_n, stages, gate, carry=True):
         h[:, cols] = t.to(a.dtype)
@@ -203,14 +234,18 @@ def _launch_linrec(a: torch.Tensor, b: torch.Tensor, rows: int, tile_n: int,
                          f"ones on {a.device}")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("scan_linrec takes contiguous tensors")
-    if rows * tile_n > MAX_TILE_ELEMS:
-        raise ValueError(f"a {rows} x {tile_n} tile exceeds the kernel's "
-                         f"{MAX_TILE_ELEMS} elements per block")
+    if products and rows * tile_n > MAX_TILE_ELEMS:
+        # the chunk kernel has no carry to walk pieces with
+        raise ValueError(f"a {rows} x {tile_n} tile exceeds the chunk "
+                         f"kernel's {MAX_TILE_ELEMS} elements per block")
+    # the carrying kernel runs a tile longer than its staging as pieces
+    piece, stages = (tile_n, stages) if products \
+        else staged_piece(rows, tile_n, stages)
     lib = load_library()
     batch, n = a.shape
     h = torch.empty_like(a)
     p = torch.empty_like(a) if products else None
-    floats = lib.repro_linrec_scratch(batch, rows, tile_n)
+    floats = lib.repro_linrec_scratch(batch, rows, piece)
     scratch = torch.empty(floats, dtype=torch.float32, device=a.device) \
         if floats else None
     fan_in = (ctypes.c_int * max(len(stages), 1))(*stages)
@@ -219,7 +254,7 @@ def _launch_linrec(a: torch.Tensor, b: torch.Tensor, rows: int, tile_n: int,
         code = lib.repro_scan_linrec(
             a.data_ptr(), b.data_ptr(), h.data_ptr(),
             p.data_ptr() if products else None, DTYPE_CODES[a.dtype], batch,
-            n, rows, tile_n, fan_in, len(stages), int(gate),
+            n, rows, piece, fan_in, len(stages), int(gate),
             0 if products else 1,
             scratch.data_ptr() if scratch is not None else None, stream)
     check(code, "scan_linrec launch")

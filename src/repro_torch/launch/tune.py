@@ -1,5 +1,6 @@
 """Offline tuning CLI of the port: the paper's loop on the prefix-sum scan,
-the tridiagonal solvers, the FFT, the SSD op and the RG-LRU.
+the tridiagonal solvers, the FFT, the SSD op, the RG-LRU, flash attention
+and the tiled matmul.
 
 Tune one workload per size and persist the winner in a TuningDB:
 
@@ -19,18 +20,25 @@ Score every methodology against the exhaustive optimum (paper Table II):
       --op ssd --variant chunked --sizes 1024,2048      # 8 x 24 heads
   PYTHONPATH=src python -m repro_torch.launch.tune compare-methods \\
       --op rglru --sizes 2048 --batch 4096               # one sequence
+  PYTHONPATH=src python -m repro_torch.launch.tune compare-methods \\
+      --op attention --variant flash --sizes 2048 --dtype bfloat16
+  PYTHONPATH=src python -m repro_torch.launch.tune compare-methods \\
+      --op matmul --variant tiled --sizes 2816 --dtype bfloat16
 
 Both run on the card (``--device cuda``, the default) and time each
 candidate config with a ``WallClockObjective`` whose thunk calls the op's
 entry point (``prefix_sum``, ``solve`` on a diagonally dominant system,
-``fft`` on complex64 rows, ``ssd`` on mamba2-130m's head layout, or
-``rglru`` on one sequence of ``batch`` channels) on device-resident input
+``fft`` on complex64 rows, ``ssd`` on mamba2-130m's head layout,
+``rglru`` on one sequence of ``batch`` channels, ``attention`` on
+``batch`` causal rows of head_dim 64, or ``matmul`` of ``batch`` rows of
+K = 1024 by an n-column b) on device-resident input
 and ends in ``torch.cuda.synchronize()``.  ``--device cpu`` runs the
 kernels' plain versions on the CPU instead (small sizes only);
 ``--objective cost`` scores configs on the ``h100`` cost model rather than
 measuring them.  The batch defaults to the paper's 2^26 / n problems per
-invocation (for ssd, 8 sequences x 24 heads).  ``--variant`` defaults to
-ks (rglru takes none).  A
+invocation (for ssd, 8 sequences x 24 heads; for attention, 4 sequences x
+16 heads; for matmul, 8192 rows).  ``--variant`` defaults to ks (rglru
+takes none).  A
 runner failure (a kernel that does not build or launch) aborts the run
 with a non-zero exit; ``compare-methods`` also exits non-zero when any
 method beats the exhaustive sweep (Phi > 1 is a bug, not a result).
@@ -182,12 +190,70 @@ def make_rglru_runner(device: torch.device, seed: int = 0
     return run
 
 
+# a qwen1.5-0.5b attention layer: 16 heads of 64 (4 sequences -> 64 rows)
+ATTN_HEADS, ATTN_HEAD_DIM = 16, 64
+# qwen1.5-0.5b's d_model: the K of its MLP up-projection
+MATMUL_K = 1024
+
+
+def make_attention_runner(device: torch.device, seed: int = 0
+                          ) -> Callable[[Workload, Config], Callable[[], None]]:
+    """A ``WallClockObjective`` runner: for each workload (n = L, batch =
+    the flattened B x heads rows), one seeded causal self-attention input
+    (q, k, v of shape (batch, n, ATTN_HEAD_DIM)) on ``device`` (made once
+    and reused), and a thunk that runs the public ``attention`` entry point
+    with the candidate config."""
+    from repro_torch.kernels.attention.ops import attention
+
+    inputs: Dict[str, tuple] = {}
+
+    def run(wl: Workload, cfg: Config) -> Callable[[], None]:
+        args = inputs.get(wl.key)
+        if args is None:
+            gen = torch.Generator(device=device).manual_seed(seed)
+            args = tuple(torch.randn(wl.batch, wl.n, ATTN_HEAD_DIM,
+                                     generator=gen, device=device
+                                     ).to(_DTYPES[wl.dtype])
+                         for _ in range(3))
+            inputs[wl.key] = args
+        return lambda: attention(*args, causal=True, config=cfg)
+
+    return run
+
+
+def make_matmul_runner(device: torch.device, seed: int = 0
+                       ) -> Callable[[Workload, Config], Callable[[], None]]:
+    """A ``WallClockObjective`` runner: for each workload (batch = M rows,
+    n = N columns), one seeded a (M, MATMUL_K) and b (MATMUL_K, N) on
+    ``device`` (made once and reused), and a thunk that runs the public
+    ``matmul`` entry point with the candidate config."""
+    from repro_torch.kernels.matmul.ops import matmul
+
+    inputs: Dict[str, tuple] = {}
+
+    def run(wl: Workload, cfg: Config) -> Callable[[], None]:
+        args = inputs.get(wl.key)
+        if args is None:
+            gen = torch.Generator(device=device).manual_seed(seed)
+            dt = _DTYPES[wl.dtype]
+            args = (torch.randn(wl.batch, MATMUL_K, generator=gen,
+                                device=device).to(dt),
+                    torch.randn(MATMUL_K, wl.n, generator=gen,
+                                device=device).to(dt))
+            inputs[wl.key] = args
+        return lambda: matmul(*args, config=cfg)
+
+    return run
+
+
 # op -> (runner factory, the variants its entry point takes)
 _OPS = {"scan": (make_scan_runner, ("ks", "lf", "linrec")),
         "tridiag": (make_tridiag_runner, ("pcr", "cr", "lf", "wm", "thomas")),
         "fft": (make_fft_runner, ("stockham",)),
         "ssd": (make_ssd_runner, ("chunked",)),
-        "rglru": (make_rglru_runner, ("",))}
+        "rglru": (make_rglru_runner, ("",)),
+        "attention": (make_attention_runner, ("flash",)),
+        "matmul": (make_matmul_runner, ("tiled",))}
 
 
 def _workloads(args) -> List[Workload]:
@@ -207,10 +273,17 @@ def _workloads(args) -> List[Workload]:
 
     def batch(n: int) -> int:
         # problems per invocation: 2^26 / n rows for the paper's ops, the
-        # mamba2-130m prefill's 8 sequences x 24 heads for ssd
+        # mamba2-130m prefill's 8 sequences x 24 heads for ssd, qwen's 4
+        # sequences x 16 heads for attention, 4 x 2048 token rows for matmul
         if args.batch:
             return args.batch
-        return 8 * SSD_HEADS if args.op == "ssd" else max(TOTAL_ELEMS // n, 1)
+        if args.op == "ssd":
+            return 8 * SSD_HEADS
+        if args.op == "attention":
+            return 4 * ATTN_HEADS
+        if args.op == "matmul":
+            return 4 * 2048
+        return max(TOTAL_ELEMS // n, 1)
 
     return [Workload(op=args.op, n=n, batch=batch(n), dtype=args.dtype,
                      variant=args.variant) for n in sizes]
@@ -222,7 +295,8 @@ def _add_common(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--sizes", default="1024")
     ap.add_argument("--batch", type=int, default=0,
                     help="problems per invocation (default 2^26 / n; for "
-                         "ssd 8 sequences x 24 heads)")
+                         "ssd 8 sequences x 24 heads, for attention 4 x 16 "
+                         "heads, for matmul 8192 rows)")
     ap.add_argument("--dtype", default="float32", choices=sorted(_DTYPES))
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; the kernels) or cpu (their plain "

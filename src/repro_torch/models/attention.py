@@ -1,0 +1,201 @@
+"""Attention blocks: GQA/MQA self-attention (+RoPE, local windows, KV cache).
+
+The PyTorch port of ``repro.models.attention``.  ``Attention`` holds the
+projections under the JAX parameter tree's names (``wq``, ``wk``, ``wv``
+with the optional QKV bias, ``wo``); ``self_attention`` is the JAX
+function of the same name:
+
+  * prefill / training with ``cfg.use_pallas`` (the setting for real
+    deployments): the flattened (B*H, L, hd) call to the tuned
+    ``attention`` op, the hand-written flash kernel on the card;
+  * with ``use_pallas`` off: ``_attention_4d`` in plain tensor ops on the
+    (B, L, H, hd) layout, q-chunked above ``_SCORE_ELEMS_LIMIT`` score
+    elements per (batch, head);
+  * decode (one token with a cache): the full or ring-buffer KV cache,
+    masked by true positions.
+
+The JAX package's sharding hints (``_score_constraint``) have no
+counterpart: the port runs on one device.  ``cross_attention`` (audio and
+vlm families) is not ported yet.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.attention.ops import attention as attention_op
+from repro_torch.models.layers import Dense, rope
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device=None):
+        super().__init__()
+        d, hd = cfg.d_model, cfg.head_dim
+        self.wq = Dense(d, cfg.n_heads * hd, dtype, device, bias=cfg.qkv_bias)
+        self.wk = Dense(d, cfg.n_kv_heads * hd, dtype, device,
+                        bias=cfg.qkv_bias)
+        self.wv = Dense(d, cfg.n_kv_heads * hd, dtype, device,
+                        bias=cfg.qkv_bias)
+        self.wo = Dense(cfg.n_heads * hd, d, dtype, device)
+
+    def reset(self, generator: torch.Generator) -> None:
+        for proj in (self.wq, self.wk, self.wv, self.wo):
+            proj.reset(generator)
+
+
+def init_attention(cfg: ModelConfig, generator: torch.Generator,
+                   dtype: torch.dtype, device=None) -> Attention:
+    """Projections drawn at the JAX ``init_attention`` scales."""
+    p = Attention(cfg, dtype, device)
+    p.reset(generator)
+    return p
+
+
+def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    b, l, _ = x.shape
+    return x.reshape(b, l, n, hd)
+
+
+def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    if n_rep == 1:
+        return x
+    b, l, h, d = x.shape
+    return x[:, :, :, None, :].expand(b, l, h, n_rep, d).reshape(
+        b, l, h * n_rep, d)
+
+
+def _inv_sqrt(d: int, device) -> torch.Tensor:
+    """1 / sqrt(d) as the JAX code computes it: the f32 root, then an f32
+    division (the root taken in double and rounded once)."""
+    root = torch.tensor(math.sqrt(d), dtype=torch.float32, device=device)
+    return 1.0 / root
+
+
+def _attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, window: Optional[int],
+                    compute_dtype: torch.dtype, q_offset: int
+                    ) -> torch.Tensor:
+    """One (B, Lq, H, D) x (B, Lk, H, D) attention tile; q_offset is the
+    global position of q[0] minus kpos[0] (supports q-chunking)."""
+    lq, d = q.shape[1], q.shape[3]
+    lk = k.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) \
+        * _inv_sqrt(d, q.device)
+    qpos = torch.arange(lq, device=q.device) + q_offset
+    kpos = torch.arange(lk, device=q.device)
+    mask = torch.ones(lq, lk, dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (qpos[:, None] >= kpos[None, :])
+    if window is not None:
+        mask = mask & (kpos[None, :] > qpos[:, None] - window)
+    s = torch.where(mask[None, None], s, -1e30)
+    p = torch.softmax(s, dim=-1).to(compute_dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+# chunk the query dim once the full (Lq, Lk) score tensor would exceed this
+# many elements per (batch, head) — softmax is per-q-row, so q-chunking is
+# exact
+_SCORE_ELEMS_LIMIT = 4096 * 4096
+_Q_CHUNK = 1024
+
+
+def _attention_4d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool, window: Optional[int],
+                  compute_dtype: torch.dtype) -> torch.Tensor:
+    """Plain-op attention keeping the (B, L, H, D) layout; long sequences
+    run over q-chunks so only a (chunk, Lk) score block is live."""
+    bq, lq, h, d = q.shape
+    lk = k.shape[1]
+    base_offset = lk - lq
+    if lq * lk <= _SCORE_ELEMS_LIMIT or lq % _Q_CHUNK or lq == lk == 0:
+        return _attention_core(q, k, v, causal=causal, window=window,
+                               compute_dtype=compute_dtype,
+                               q_offset=base_offset)
+    return torch.cat([
+        _attention_core(q[:, i:i + _Q_CHUNK], k, v, causal=causal,
+                        window=window, compute_dtype=compute_dtype,
+                        q_offset=i + base_offset)
+        for i in range(0, lq, _Q_CHUNK)], dim=1)
+
+
+def self_attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
+                   positions: torch.Tensor, cache: Optional[Dict] = None,
+                   window: Optional[int] = None,
+                   compute_dtype: torch.dtype = torch.bfloat16
+                   ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """x: (B, L, D).
+
+    cache layouts:
+      full:   {"k","v": (B, L_max, Hkv, hd)} — slot index == position;
+      window: additionally {"pos": (B, W) int32} — ring buffer of W slots
+              holding the absolute position written into each slot.
+    Prefill: cache None (pure forward).  Decode: L == 1; the new cache is
+    the old one with the token written at ``positions`` (new tensors, the
+    old ones untouched), and attention masks by true positions, so
+    unwritten slots never reach the softmax.
+    """
+    b, l, _ = x.shape
+    hd, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    cd = compute_dtype
+    q = _split_heads(p.wq(x, cd), hq, hd)
+    k = _split_heads(p.wk(x, cd), hkv, hd)
+    v = _split_heads(p.wv(x, cd), hkv, hd)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    n_rep = hq // max(hkv, 1)
+
+    if cache is not None and l == 1:
+        pos = positions[:, 0]                                    # (B,)
+        cache_len = cache["k"].shape[1]
+        barange = torch.arange(b, device=x.device)
+        if "pos" in cache:                                       # ring buffer
+            slot = torch.remainder(pos, cache_len)
+            slot_pos = cache["pos"].clone()
+            slot_pos[barange, slot] = pos.to(slot_pos.dtype)
+        else:
+            slot = pos
+            slot_pos = torch.arange(cache_len, dtype=torch.int32,
+                                    device=x.device)[None, :].expand(
+                b, cache_len)
+        ck = cache["k"].clone()
+        cv = cache["v"].clone()
+        ck[barange, slot] = k[:, 0].to(ck.dtype)
+        cv[barange, slot] = v[:, 0].to(cv.dtype)
+        new_cache = {"k": ck, "v": cv}
+        if "pos" in cache:
+            new_cache["pos"] = slot_pos
+
+        kk = _repeat_kv(ck.to(cd), n_rep)                        # (B,S,H,hd)
+        vv = _repeat_kv(cv.to(cd), n_rep)
+        s = torch.einsum("bhd,bshd->bhs", q[:, 0], kk).to(torch.float32)
+        s = s * _inv_sqrt(hd, x.device)
+        mask = slot_pos <= pos[:, None]                          # causal/valid
+        if window is not None:
+            mask = mask & (slot_pos > (pos[:, None] - window))
+        s = torch.where(mask[:, None, :], s, float("-inf"))
+        pattn = torch.softmax(s, dim=-1).to(cd)
+        o = torch.einsum("bhs,bshd->bhd", pattn, vv)[:, None]   # (B,1,H,hd)
+        o = o.reshape(b, l, hq * hd)
+        return p.wo(o, cd), new_cache
+
+    # prefill / training full-sequence path
+    k = _repeat_kv(k, n_rep)
+    v = _repeat_kv(v, n_rep)
+    if cfg.use_pallas:
+        # the flash kernel over flattened rows (block sizes from the
+        # TuningDB or the analytical model)
+        qf = q.transpose(1, 2).reshape(b * hq, l, hd)
+        kf = k.transpose(1, 2).reshape(b * hq, -1, hd)
+        vf = v.transpose(1, 2).reshape(b * hq, -1, hd)
+        of = attention_op(qf, kf, vf, causal=True, window=window)
+        o = of.reshape(b, hq, l, hd).transpose(1, 2)
+    else:
+        o = _attention_4d(q, k, v, causal=True, window=window,
+                          compute_dtype=cd)
+    o = o.reshape(b, l, hq * hd)
+    return p.wo(o, cd), None

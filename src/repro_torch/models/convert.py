@@ -4,8 +4,12 @@ The JAX package keeps a model's parameters as a nested dict (a pytree) of
 arrays, drawn with ``jax.random``, which torch cannot reproduce.  The port
 takes them as numpy arrays (``jax.tree.map(np.asarray, params)`` on the
 JAX side) and loads them by name: a module's parameter ``in_proj.w`` is
-the tree's ``params["in_proj"]["w"]``.  This is how the tests make both
-packages compute the same block.
+the tree's ``params["in_proj"]["w"]``.  A whole model's tree stacks its
+layer groups on a leading axis (``blocks.attn.wq.w`` of shape (n_groups,
+d, hq * hd)); ``unstack_groups`` splits it into the port's per-group names
+(``blocks.{i}.attn.wq.w``), and ``load_params`` does so for a module whose
+``blocks`` is a ``ModuleList``.  This is how the tests make both packages
+compute the same block or model.
 """
 from __future__ import annotations
 
@@ -33,6 +37,8 @@ def state_dict_from_params(params: Mapping, prefix: str = ""
     out: Dict[str, torch.Tensor] = {}
     for name, value in params.items():
         key = f"{prefix}{name}"
+        if value is None:       # an absent sub-tree (an ssm group's mlp)
+            continue
         if isinstance(value, Mapping):
             out.update(state_dict_from_params(value, prefix=key + "."))
         else:
@@ -40,10 +46,30 @@ def state_dict_from_params(params: Mapping, prefix: str = ""
     return out
 
 
+def _take(tree, i: int):
+    if tree is None:
+        return None
+    if isinstance(tree, Mapping):
+        return {name: _take(value, i) for name, value in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def unstack_groups(params: Mapping, n_groups: int,
+                   key: str = "blocks") -> Dict:
+    """The tree with ``params[key]``'s leading group axis split into
+    ``{"0": group 0, "1": group 1, ...}``."""
+    out = dict(params)
+    out[key] = {str(i): _take(params[key], i) for i in range(n_groups)}
+    return out
+
+
 def load_params(module: nn.Module, params: Mapping) -> nn.Module:
     """Load a JAX parameter tree (numpy leaves) into ``module``: every
     parameter must be present with its shape, and nothing else; each is
-    cast to the module's parameter type."""
+    cast to the module's parameter type.  A module whose ``blocks`` is a
+    ``ModuleList`` (a ``Model``) takes the tree with its groups stacked."""
+    if isinstance(getattr(module, "blocks", None), nn.ModuleList):
+        params = unstack_groups(params, len(module.blocks))
     state = state_dict_from_params(params)
     own = module.state_dict()
     if sorted(state) != sorted(own):

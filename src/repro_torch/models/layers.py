@@ -1,7 +1,11 @@
 """Shared layers of the port's models, as ``repro.models.layers`` defines
-them: the ones the Mamba-2 block needs (``dense``, ``rms_norm``,
-``causal_conv1d``, ``silu``).  ``x @ w`` stays a plain ``torch.matmul``: it is a
-product outside any Pallas kernel in the JAX package too."""
+them: ``dense`` / ``Dense`` (optional bias), ``rms_norm``, the gated
+``mlp``, ``rope``, the embedding (``embed``, ``unembed``),
+``causal_conv1d`` and ``silu``.  Parameters are ``nn.Module`` attributes
+named as the JAX parameter tree names them (``w``, ``b``, ``table``), so
+``models.convert`` loads a JAX tree into them.  ``x @ w`` stays a plain
+``torch.matmul``: it is a product outside any Pallas kernel in the JAX
+package too."""
 from __future__ import annotations
 
 import math
@@ -37,26 +41,113 @@ def dense(w: torch.Tensor, x: torch.Tensor,
 
 
 class Dense(nn.Module):
-    """A (d_in, d_out) projection without bias; its weight is ``w``, as in
-    the JAX parameter tree."""
+    """A (d_in, d_out) projection; its weight is ``w`` and its optional bias
+    ``b``, as in the JAX parameter tree."""
 
     def __init__(self, d_in: int, d_out: int, dtype: torch.dtype,
-                 device=None):
+                 device=None, bias: bool = False):
         super().__init__()
         self.w = nn.Parameter(torch.zeros(d_in, d_out, dtype=dtype,
                                           device=device))
+        self.b = nn.Parameter(torch.zeros(d_out, dtype=dtype,
+                                          device=device)) if bias else None
 
     def reset(self, generator: torch.Generator) -> None:
-        """N(0, 1) / sqrt(d_in) weights, drawn in f32 from ``generator``:
-        the JAX package's ``init_dense`` scale."""
+        """N(0, 1) / sqrt(d_in) weights, drawn in f32 from ``generator``, and
+        a zero bias: the JAX package's ``init_dense`` scales."""
         with torch.no_grad():
             self.w.copy_(torch.randn(self.w.shape, generator=generator,
                                      device=self.w.device)
                          * (1.0 / math.sqrt(self.w.shape[0])))
+            if self.b is not None:
+                self.b.zero_()
 
     def forward(self, x: torch.Tensor,
                 compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        return dense(self.w, x, compute_dtype)
+        y = dense(self.w, x, compute_dtype)
+        if self.b is not None:
+            y = y + self.b.to(y.dtype)
+        return y
+
+
+def _act(name: str, x: torch.Tensor) -> torch.Tensor:
+    if name in ("swiglu", "silu"):
+        return silu(x)
+    if name in ("geglu", "gelu"):
+        return torch.nn.functional.gelu(x, approximate="tanh")
+    raise ValueError(name)
+
+
+class MLP(nn.Module):
+    """The gated MLP: ``wi`` (gate), ``wu`` (up), ``wo`` (down)."""
+
+    def __init__(self, d_model: int, d_ff: int, dtype: torch.dtype,
+                 device=None):
+        super().__init__()
+        self.wi = Dense(d_model, d_ff, dtype, device)
+        self.wu = Dense(d_model, d_ff, dtype, device)
+        self.wo = Dense(d_ff, d_model, dtype, device)
+
+    def reset(self, generator: torch.Generator) -> None:
+        for proj in (self.wi, self.wu, self.wo):
+            proj.reset(generator)
+
+
+def mlp(p: MLP, x: torch.Tensor, activation: str,
+        compute_dtype: torch.dtype) -> torch.Tensor:
+    g = _act(activation, p.wi(x, compute_dtype))
+    u = p.wu(x, compute_dtype)
+    return p.wo(g * u, compute_dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Rotary embedding with f32 angles. x: (B, L, H, D); positions: (B, L)
+    int."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., None].to(torch.float32) * freqs       # (B, L, half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+class Embedding(nn.Module):
+    """The (vocab, d_model) token table ``table``, shared with the
+    unembedding (tied, as in every configuration of the JAX package)."""
+
+    def __init__(self, vocab: int, d_model: int, dtype: torch.dtype,
+                 device=None):
+        super().__init__()
+        self.table = nn.Parameter(torch.zeros(vocab, d_model, dtype=dtype,
+                                              device=device))
+
+    def reset(self, generator: torch.Generator) -> None:
+        """N(0, 1) / sqrt(d_model), drawn in f32: ``init_embedding``."""
+        with torch.no_grad():
+            self.table.copy_(torch.randn(self.table.shape,
+                                         generator=generator,
+                                         device=self.table.device)
+                             * (1.0 / math.sqrt(self.table.shape[1])))
+
+
+def embed(p: Embedding, tokens: torch.Tensor,
+          compute_dtype: torch.dtype) -> torch.Tensor:
+    return p.table.to(compute_dtype)[tokens]
+
+
+def unembed(p: Embedding, x: torch.Tensor,
+            softcap: float = 0.0) -> torch.Tensor:
+    """Logits in f32 against the tied table; tanh softcap when set."""
+    logits = torch.einsum("bld,vd->blv", x.to(torch.float32),
+                          p.table.to(torch.float32))
+    if softcap:
+        logits = torch.tanh(logits / softcap) * softcap
+    return logits
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor,

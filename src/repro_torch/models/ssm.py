@@ -60,18 +60,24 @@ class SSDBlock(nn.Module):
         sqrt(fan-in), a normal conv over sqrt(width), a_log = log(linspace(1,
         16, H)), zero dt bias and norm scale."""
         block = cls(cfg, dtype=dtype, device=device)
-        _, n_heads, _ = _dims(cfg)
-        with torch.no_grad():
-            block.in_proj.reset(generator)
-            block.conv_w.copy_(torch.randn(
-                block.conv_w.shape, generator=generator,
-                device=block.conv_w.device)
-                * (1.0 / math.sqrt(cfg.conv_width)))
-            block.a_log.copy_(torch.log(torch.linspace(
-                1.0, 16.0, n_heads, dtype=torch.float32,
-                device=block.a_log.device)))
-            block.out_proj.reset(generator)
+        block.reset(generator)
         return block
+
+    def reset(self, generator: torch.Generator) -> None:
+        """Draw this block's weights from ``generator`` (see ``init``)."""
+        _, n_heads, _ = _dims(self.cfg)
+        with torch.no_grad():
+            self.in_proj.reset(generator)
+            self.conv_w.copy_(torch.randn(
+                self.conv_w.shape, generator=generator,
+                device=self.conv_w.device)
+                * (1.0 / math.sqrt(self.cfg.conv_width)))
+            self.a_log.copy_(torch.log(torch.linspace(
+                1.0, 16.0, n_heads, dtype=torch.float32,
+                device=self.a_log.device)))
+            self.dt_bias.zero_()
+            self.norm_scale.zero_()
+            self.out_proj.reset(generator)
 
     def ssd_inputs(self, x: torch.Tensor, cache: Optional[Dict] = None,
                    compute_dtype: torch.dtype = torch.bfloat16):

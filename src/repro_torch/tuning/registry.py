@@ -82,6 +82,8 @@ _OP_MODULES = {
     "large_fft": "repro_torch.kernels.fft.ops",
     "ssd": "repro_torch.kernels.ssd.ops",
     "rglru": "repro_torch.kernels.rglru.ops",
+    "attention": "repro_torch.kernels.attention.ops",
+    "matmul": "repro_torch.kernels.matmul.ops",
 }
 
 

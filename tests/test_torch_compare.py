@@ -115,9 +115,10 @@ def test_cli_defaults_to_cuda(monkeypatch):
 
 
 def test_cli_rejects_ops_not_ported():
-    with pytest.raises(SystemExit, match="--op attention: only 'scan', "
-                                         "'tridiag', 'fft', 'ssd', 'rglru'"):
-        t_tune.main(["--device", "cpu", "--op", "attention", "--sizes",
+    with pytest.raises(SystemExit, match="--op moe: only 'scan', "
+                                         "'tridiag', 'fft', 'ssd', 'rglru', "
+                                         "'attention', 'matmul'"):
+        t_tune.main(["--device", "cpu", "--op", "moe", "--sizes",
                      "64"])
 
 

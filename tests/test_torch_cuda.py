@@ -391,3 +391,117 @@ def test_ssd_block_bf16_core_on_the_card(cuda):
         ref = ssd_ref(*(v.double() for v in args))
     assert_kernel_close(y.cpu().numpy(), ref.cpu().numpy(), "float32",
                         scale=10.0)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention, the tiled matmul, the long carry tile, the dense model
+# ---------------------------------------------------------------------------
+
+def _flash_close(got, want, dtype):
+    """Kernel 11 against its plain version: both compute in f32 and round
+    once, so in bf16 they may differ by one ulp (at most 2^-7 |want|):
+    |got - want| <= 4e-3 + 8e-3 |want| element by element; f32 at
+    DTYPE_TOL."""
+    if dtype == "float32":
+        return _close(got, want, dtype)
+    g, w = got.double().cpu(), want.double().cpu()
+    assert torch.isfinite(g).all()
+    assert bool(((g - w).abs() <= 4e-3 + 8e-3 * w.abs()).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("BH,lq,lk,d,bq,bk,causal,window", [
+    (2, 2048, 2048, 64, 1024, 2048, True, None),
+    (2, 2048, 2048, 64, 512, 1024, True, None),
+    (2, 256, 256, 64, 128, 128, True, None),
+    (2, 256, 256, 16, 64, 256, False, None),
+    (2, 256, 256, 128, 256, 64, True, None),
+    (2, 512, 512, 256, 128, 128, True, 128),
+    (3, 128, 384, 64, 64, 128, True, None),
+    (2, 64, 1500, 64, 64, 4, False, None)])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, BH, lq, lk, d, bq,
+                                              bk, causal, window):
+    from repro_torch.kernels.attention.kernel import (flash_attention,
+                                                      flash_attention_plain)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(BH, n, d, generator=gen, device=cuda).to(
+        _TORCH[dtype]) for n in (lq, lk, lk))
+    kw = dict(block_q=bq, block_k=bk, causal=causal, window=window)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    _flash_close(got, flash_attention_plain(q, k, v, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n,bm,bn,bk", [
+    (256, 384, 512, 128, 256, 128), (128, 128, 128, 128, 128, 128),
+    (512, 1024, 2816, 512, 256, 256), (96, 64, 80, 32, 16, 64)])
+def test_matmul_kernel_matches_plain(cuda, dtype, m, k, n, bm, bn, bk):
+    from repro_torch.kernels.matmul.kernel import matmul_plain, matmul_tiled
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn(m, k, generator=gen, device=cuda).to(_TORCH[dtype])
+    b = torch.randn(k, n, generator=gen, device=cuda).to(_TORCH[dtype])
+    kw = dict(block_m=bm, block_n=bn, block_k=bk)
+    got = matmul_tiled(a, b, **kw)
+    torch.cuda.synchronize()
+    _close(got, matmul_plain(a, b, **kw), dtype)
+
+
+@pytest.mark.parametrize("linrec", [False, True])
+def test_long_carry_tile_on_the_card(cuda, linrec):
+    """tile_n 128, rows 2 at n = 2^22: the carry scan's (2, 32768) block,
+    twice the staging, runs in pieces; launch list equal to the plan's."""
+    from repro_torch.hw.profiles import get_profile
+    cfg = {"tile_n": 128, "rows_per_program": 2, "radix": 2, "unroll": 1,
+           "in_register": 0}
+    plan = plan_for(Workload(op="scan", n=2 ** 22, batch=16, variant="ks"),
+                    cfg, profile=get_profile("h100"))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    b = torch.randn(16, 2 ** 22, generator=gen, device=cuda)
+    a = torch.rand(16, 2 ** 22, generator=gen, device=cuda) * 0.1 + 0.9
+    with driver.capture_launches() as got:
+        out = driver.multipass_linrec(a, b, plan) if linrec \
+            else driver.multipass_scan_add(b, plan)
+    torch.cuda.synchronize()
+    assert tuple(got) == plan.launches
+    ref = scan_linrec_assoc_ref(a.double(), b.double()) if linrec \
+        else torch.cumsum(b.double(), dim=-1)
+    _close(out, ref, "float32")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_model_on_the_card(cuda, dtype):
+    """The reduced qwen with the flash kernel against the plain-op path,
+    and decode after prefill against the forward."""
+    import dataclasses
+
+    from repro_torch.configs.qwen15_05b import CONFIG
+    from repro_torch.kernels.attention.kernel import flash_attention
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(CONFIG.reduced(), use_pallas=True,
+                              compute_dtype=dtype)
+    model = Model.init(cfg, torch.Generator(device=cuda).manual_seed(0),
+                       device=cuda)
+    plain = Model(dataclasses.replace(cfg, use_pallas=False), device=cuda)
+    plain.load_state_dict(model.state_dict())
+    tokens = torch.randint(0, cfg.vocab, (2, 256), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(1))
+    before = flash_attention.launches
+    with torch.no_grad():
+        got, _ = model(tokens)
+        want, _ = plain(tokens)
+        cache = model.init_cache(2, 16, dtype=torch.float32, device=cuda)
+        steps = tokens[:, :8].T.contiguous()
+        pos = torch.arange(8, device=cuda)[:, None].expand(8, 2).contiguous()
+        cache = model.prefill(steps, cache, pos,
+                              torch.ones(8, 2, dtype=torch.bool, device=cuda))
+        lg, _ = model.decode_step(tokens[:, 8:9], cache,
+                                  torch.full((2, 1), 8, device=cuda))
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + cfg.n_layers
+    _close(got, want, dtype)
+    rel = float((lg[:, 0] - got[:, 8]).abs().max() / got[:, 8].abs().max())
+    assert rel < 2e-2, rel

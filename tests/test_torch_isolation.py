@@ -55,7 +55,10 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.kernels.ssd.ops, repro_torch.kernels.ssd.ref, "
             "repro_torch.kernels.rglru.ops, repro_torch.kernels.rglru.ref, "
             "repro_torch.configs.base, repro_torch.configs.mamba2_130m, "
-            "repro_torch.models.ssm, repro_torch.models.convert\n"
+            "repro_torch.models.ssm, repro_torch.models.convert, "
+            "repro_torch.kernels.attention.ops, "
+            "repro_torch.kernels.matmul.ops, repro_torch.models.model, "
+            "repro_torch.configs.qwen15_05b\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or "
             "m.startswith(('jax.', 'repro.')))\n"
             "assert not bad, bad\n")
@@ -250,3 +253,42 @@ def test_bfloat16_spaces_build_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_attention_and_matmul_off_the_cpu_never_reach_a_plain_version():
+    """The flash and matmul wrappers, their entry points and a dense model
+    on the flash path raise for a meta tensor rather than running a plain
+    version; the launch helpers refuse CPU tensors."""
+    import dataclasses
+
+    from repro_torch.configs.qwen15_05b import CONFIG
+    from repro_torch.kernels.attention import kernel as flash
+    from repro_torch.kernels.attention.ops import attention
+    from repro_torch.kernels.matmul import kernel as mm
+    from repro_torch.kernels.matmul.ops import matmul
+    from repro_torch.models.model import Model
+    meta = "no kernel for tensors on meta"
+    q = torch.empty(4, 128, 16, device="meta")
+    a = torch.empty(64, 32, device="meta")
+    cfg = dataclasses.replace(CONFIG.reduced(), use_pallas=True)
+    for call in (lambda: flash.flash_attention(q, q, q, block_q=32,
+                                               block_k=32),
+                 lambda: attention(q, q, q),
+                 lambda: mm.matmul_tiled(a, a.T.contiguous()),
+                 lambda: matmul(a, a.T.contiguous()),
+                 lambda: Model(cfg, device="meta")(
+                     torch.zeros(2, 128, dtype=torch.long, device="meta"))):
+        with pytest.raises(ValueError, match=meta):
+            call()
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        flash._launch(torch.zeros(4, 64, 16), torch.zeros(4, 64, 16),
+                      torch.zeros(4, 64, 16), 32, 32, True, None)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        mm._launch(torch.zeros(64, 32), torch.zeros(32, 64), 32, 32, 32)
+
+
+@pytest.mark.parametrize("source", ["attention.cu", "matmul.cu"])
+def test_the_attention_and_matmul_sources_are_built(source):
+    from repro_torch.kernels import build
+    assert source in build.SOURCES
+    assert os.path.exists(os.path.join(build.CSRC, source))

@@ -161,11 +161,86 @@ def test_h100_main_path_plans(n, batch, kind):
 
 
 def test_other_ops_are_not_ported_yet():
-    wl = t_space.Workload(op="attention", n=256, batch=4)
+    # an op neither package registers: every TPU kernel's op is ported
+    wl = t_space.Workload(op="sort", n=256, batch=4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_space.build_space(wl)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_plan.build_plan(wl, {})
+
+
+ATTENTION_WORKLOADS = [(n, batch) for n in (128, 256, 384, 2048)
+                       for batch in (4, 64)]
+
+
+@pytest.mark.parametrize("profile", PROFILES)
+@pytest.mark.parametrize("n,batch", ATTENTION_WORKLOADS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_space_plan_score_cost_identical(profile, n, batch, dtype):
+    """attention_space, _attention_plan, the analytical scores and the
+    cost-model times (scalar and batched), under the profiles both
+    packages share; every block pair is planned, admitted or not."""
+    jwl, twl = _pair("flash", n, batch, dtype=dtype, op="attention")
+    cfgs = [{"block_q": bq, "block_k": bk, "rows_per_program": 1,
+             "radix": 2, "in_register": 0}
+            for bq in (128, 1024) for bk in (128, 2048)]
+    _assert_same(profile, jwl, twl)
+    _assert_same(profile, jwl, twl, cfgs)
+
+
+@pytest.mark.parametrize("profile", PROFILES)
+@pytest.mark.parametrize("n,batch", [(2816, 8192), (256, 256), (512, 384)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_space_plan_score_cost_identical(profile, n, batch, dtype):
+    jwl, twl = _pair("tiled", n, batch, dtype=dtype, op="matmul")
+    cfgs = [{"block_m": bm, "block_n": bn, "block_k": bk}
+            for bm in (128, 512) for bn in (128, 1024) for bk in (128, 2048)]
+    _assert_same(profile, jwl, twl)
+    _assert_same(profile, jwl, twl, cfgs)
+
+
+def test_attention_and_matmul_build_through_the_registry():
+    for wl in (t_space.Workload(op="attention", n=2048, batch=64,
+                                variant="flash"),
+               t_space.Workload(op="matmul", n=2816, batch=8192,
+                                variant="tiled")):
+        h100 = t_profiles.get_profile("h100")
+        space = t_space.build_space(wl, h100)
+        cfg = t_analytical.AnalyticalTuner().suggest(space)
+        plan = t_plan.build_plan(wl, cfg, profile=h100)
+        assert plan.kind == "fused" and plan.launches == ()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [128, 256, 1500, 2048, 4096])
+def test_h100_attention_space_fits_the_kernel_footprint(n, dtype):
+    """Under h100 the attention space is non-empty at every n >= 128 and
+    every admitted config fits the CUDA flash kernel's real shared memory
+    (csrc/attention.cu: Q, K, V sub-tiles, the score tile, m, l, alpha) at
+    every head dim it takes.  JAX's TPU footprint admits none."""
+    h100 = t_profiles.get_profile("h100")
+    wl = t_space.Workload(op="attention", n=n, batch=64, dtype=dtype,
+                          variant="flash")
+    valid = t_space.attention_space(wl, h100).enumerate_valid()
+    assert valid
+    for cfg in valid:
+        for hd in (16, 64, 128, 256):
+            assert t_space.flash_smem_bytes(cfg["block_q"], cfg["block_k"],
+                                            hd) <= 232448
+    jwl = j_space.Workload(op="attention", n=n, batch=64, dtype=dtype,
+                           variant="flash")
+    jh = dataclasses.replace(j_profiles.get_profile("gpu_sm"), name="h100",
+                             vmem_budget=h100.vmem_budget)
+    assert j_space.attention_space(jwl, jh).enumerate_valid() == []
+
+
+def test_h100_matmul_space_admits_every_config():
+    """The CUDA matmul stages a fixed 16.5 KB of shared memory whatever its
+    blocks, so under h100 every one of the 60 configs is admitted (JAX's
+    TPU footprint admits none)."""
+    h100 = t_profiles.get_profile("h100")
+    wl = t_space.Workload(op="matmul", n=2816, batch=8192, variant="tiled")
+    assert len(t_space.matmul_space(wl, h100).enumerate_valid()) == 60
 
 
 @pytest.mark.parametrize("profile", PROFILES)

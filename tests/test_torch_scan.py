@@ -7,6 +7,7 @@ Pallas kernels, run in interpret mode.  Inputs are made with numpy from
 the seeds the shared differential suite uses and handed to both packages.
 """
 import dataclasses
+import importlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -180,3 +181,90 @@ def test_scan_add_rejects_other_dtypes():
     with pytest.raises(TypeError):
         scan_add(torch.randn(4, 64, dtype=torch.float64), tile_n=64,
                  rows_per_program=2, stages=(2,) * 6)
+
+
+# ---------------------------------------------------------------------------
+# A carry-scan tile longer than the kernels' staging (multipass launch 2)
+# ---------------------------------------------------------------------------
+
+def _long_carry_plan(n=2 ** 22, batch=2):
+    """tile_n 128, rows 2 at n = 2^22: the carry scan's block is (2, 32768),
+    65536 elements, twice the kernels' 32768-element staging."""
+    cfg = {"tile_n": 128, "rows_per_program": 2, "radix": 2, "unroll": 1,
+           "in_register": 0}
+    wl = TWorkload(op="scan", n=n, batch=batch, variant="ks")
+    h100 = importlib.import_module("repro_torch.hw.profiles").get_profile(
+        "h100")
+    plan = t_plan_for(wl, cfg, profile=h100)
+    jplan = j_plan_for(JWorkload(op="scan", n=n, batch=batch, variant="ks"),
+                       cfg)
+    assert [dataclasses.asdict(l) for l in plan.launches] \
+        == [dataclasses.asdict(l) for l in jplan.launches]
+    return plan
+
+
+def test_staged_piece_walks_a_long_tile_in_stage_prefixes():
+    from repro_torch.kernels.scan.kernel import MAX_TILE_ELEMS, staged_piece
+    plan = _long_carry_plan()
+    l2 = plan.launches[1]
+    rows, tile = l2.block_shape
+    assert rows * tile > MAX_TILE_ELEMS
+    piece, stages = staged_piece(rows, tile, l2.stages)
+    assert rows * piece <= MAX_TILE_ELEMS and tile % piece == 0
+    assert stages == l2.stages[:len(stages)] and int(np.prod(stages)) == piece
+    assert staged_piece(2, 64, (4, 4, 4)) == (64, (4, 4, 4))
+    assert staged_piece(4, 16384, (16,) * 3 + (4,)) == (4096, (16,) * 3)
+    with pytest.raises(ValueError, match="staging"):
+        staged_piece(4096, 64, (16, 4))
+
+
+def test_multipass_scan_with_a_long_carry_tile():
+    """The plan that raised on the card: launch list equal to the plan's
+    (and to JAX's), the sum equal to a float64 cumsum."""
+    plan = _long_carry_plan()
+    x = torch.from_numpy(_rng("longcarry").normal(size=(2, 2 ** 22)).astype(
+        np.float32))
+    with t_driver.capture_launches() as got:
+        y = t_driver.multipass_scan_add(x, plan)
+    assert tuple(got) == plan.launches
+    assert_kernel_close(y.numpy(), np.cumsum(x.double().numpy(), axis=-1),
+                        "float32")
+
+
+def test_multipass_linrec_with_a_long_carry_tile():
+    from repro_torch.kernels.scan.ref import scan_linrec_assoc_ref
+    plan = _long_carry_plan()
+    rng = _rng("longcarrylinrec")
+    a = torch.from_numpy(rng.uniform(0.9, 1.0, size=(2, 2 ** 22)).astype(
+        np.float32))
+    b = torch.from_numpy(rng.normal(size=(2, 2 ** 22)).astype(np.float32))
+    with t_driver.capture_launches() as got:
+        h = t_driver.multipass_linrec(a, b, plan)
+    assert tuple(got) == plan.launches
+    ref = scan_linrec_assoc_ref(a.double(), b.double())
+    assert_kernel_close(h.numpy(), ref.numpy(), "float32")
+
+
+@pytest.mark.parametrize("linrec", [False, True])
+def test_a_long_carry_tile_equals_its_pieces(linrec):
+    """The plain version of a carrying tile over the staging is, bit for
+    bit, the same call at the piece tile (what the kernels launch)."""
+    from repro_torch.kernels.scan.kernel import (scan_linrec_plain,
+                                                 staged_piece)
+    rng = _rng(f"pieces{linrec}")
+    x = torch.from_numpy(rng.normal(size=(4, 2 ** 16)).astype(np.float32))
+    a = torch.from_numpy(rng.uniform(0.9, 1.0, size=x.shape).astype(
+        np.float32))
+    stages = (4,) * 8
+    piece, pstages = staged_piece(2, 2 ** 16, stages)
+    if linrec:
+        got = scan_linrec_plain(a, x, rows_per_program=2, tile_n=2 ** 16,
+                                stages=stages)
+        want = scan_linrec_plain(a, x, rows_per_program=2, tile_n=piece,
+                                 stages=pstages)
+    else:
+        got = scan_add_plain(x, rows_per_program=2, tile_n=2 ** 16,
+                             stages=stages)
+        want = scan_add_plain(x, rows_per_program=2, tile_n=piece,
+                              stages=pstages)
+    assert piece == 2 ** 14 and torch.equal(got, want)
