@@ -53,21 +53,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
 8. the RG-LRU: ``rglru`` at recurrentgemma-9b's width (2 x 2048 x 4096)
    with the gate in the kernel (fuse = 1) and in torch (fuse = 0), and a
    multipass call at 2^22 x 16, against a float64 sequential recurrence;
-9. flash attention and the tiled matmul: ``flash_attention`` against
+9. flash attention and the tiled matmul, each with two kernels chosen by
+   type (bf16: the tensor-core kernel, wgmma and TMA; f32: the CUDA-core
+   kernel), the route counters checked: ``flash_attention`` against
    ``flash_attention_plain`` over every config of the h100 attention
    space at n = 2048 (bf16 and f32) and over head dims 16 ... 256, causal
    and full, a 2048 window at L = 4096, Lq < Lk, block_k 4 (Lk = 1500),
-   f32 and bf16 — bf16 at FLASH_BF16_TOL (one bf16 ulp passes), f32 at
-   DTYPE_TOL; ``matmul_tiled`` against ``matmul_plain`` over the h100
-   matmul space at (8192, 1024) @ (1024, 2816), f32 and bf16, at
-   DTYPE_TOL;
+   f32 and bf16 — bf16 at FLASH_BF16_TOL, f32 at DTYPE_TOL; ``matmul_tiled``
+   against ``matmul_plain`` over the h100 matmul space at (8192, 1024) @
+   (1024, 2816), f32 at DTYPE_TOL, bf16 within one bf16 ulp plus
+   MATMUL_BF16_ATOL; per path the max error and the elements that are not
+   bit-equal;
 10. the dense path: qwen1.5-0.5b's ``Model`` at full width (24 layers,
    bf16, random weights at the JAX init's scales, ``use_pallas``):
-   ``forward`` on 4 x 2048 tokens with one flash launch per layer, its
-   logits against the same weights on the plain-op path, a 63-token
-   ``prefill`` and 8 greedy ``decode_step``s against the forward, and
-   the forward's time split into the flash kernel and the rest; one
-   full-depth mamba2-130m ``Model.forward`` on 8 x 2048 tokens;
+   ``forward`` on 4 x 2048 tokens with one flash launch per layer, all on
+   the tensor cores, its logits against the same weights on the plain-op
+   path, a 63-token ``prefill`` and 8 greedy ``decode_step``s against the
+   forward, the forward's time split into the flash kernel and the rest,
+   and one forward under ``torch.profiler``: the five kernels with the
+   most device time and the device's idle share; one full-depth
+   mamba2-130m ``Model.forward`` on 8 x 2048 tokens;
 11. the multipass ``prefix_sum`` and ``linear_recurrence`` at 2^22 x 16
    forced to tile_n 128, rows 2, whose carry-scan tile (2, 32768) is
    walked in staged pieces, against float64, launch lists equal to the
@@ -88,7 +93,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``torch.matmul`` for kernels 11 and 12, timed as yardsticks and never
    called by the port), and its bound (bytes over the card's memory
    rate, or operations over its rate for the type — f32 67 TFLOP/s, bf16
-   989 TFLOP/s on the tensor cores — whichever is larger).
+   989 TFLOP/s on the tensor cores — whichever is larger); kernels 11 and
+   12 with their route per type and launches per route, timed in turns
+   (the ``[turns]`` line) against their yardsticks and against the
+   CUDA-core kernel on the same bf16 inputs.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 nothing of JAX or of the JAX package.
@@ -324,13 +332,26 @@ def counted_wrappers():
             "flash_attention": flash_attention, "matmul": matmul_tiled}
 
 
+# kernels with one launch counter per route besides their total: bf16 runs
+# the tensor-core kernel (wgmma), f32 the CUDA-core one (simt)
+ROUTES = {"flash_attention": ("wgmma", "simt"), "matmul": ("wgmma", "simt")}
+
+
 def reset_counts():
-    for fn in counted_wrappers().values():
+    for name, fn in counted_wrappers().items():
         fn.launches = 0
+        for route in ROUTES.get(name, ()):
+            setattr(fn, f"launches_{route}", 0)
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in counted_wrappers().items()}
+    """Launches by kernel, and by route as "name.route"."""
+    counts = {}
+    for name, fn in counted_wrappers().items():
+        counts[name] = fn.launches
+        for route in ROUTES.get(name, ()):
+            counts[f"{name}.{route}"] = getattr(fn, f"launches_{route}")
+    return counts
 
 
 def require_launched(counts, names, what):
@@ -1634,6 +1655,15 @@ DECODE_TOL = 2e-2
 # 2e-2 of max |want| (about 3 here, the first query row is v[0]) would pass
 # errors as large as a typical output (about 0.05 over 1000 causal keys).
 FLASH_BF16_TOL = (4e-3, 8e-3)
+# kernel 12 in bf16 against its plain version, element by element: |got -
+# want| <= one bf16 ulp of |want| + MATMUL_BF16_ATOL max |want|.  Both add
+# the same k-blocks in f32 and round the output once, so they may round to
+# neighbouring bf16 values (the ulp); the tensor cores sum a k-block's
+# products in their own order, which can move an output near 0 by more
+# than its own ulp (phase_matmul_kernels prints the largest such excess as
+# a fraction of max |want|), and the term bounds that.  DTYPE_TOL's bf16
+# bound is 2e-2 |want| + 2e-2 max |want|.
+MATMUL_BF16_ATOL = 1e-3
 
 
 def check_flash(got, want, dtype: str, what: str) -> float:
@@ -1669,13 +1699,37 @@ def attention_kernel_cases():
         (4, 1024, 1024, 256, 64, 1024, False, None, "float32")]
 
 
+def path_stats(stats, path, err, got, want, **maxima):
+    """Fold one case's max error, count of elements that are not bit-equal
+    to the plain version, and any other maxima into ``stats[path]``."""
+    entry = stats.setdefault(path, {"cases": 0, "max_abs_err": 0.0,
+                                    "not_bit_equal": 0})
+    entry["cases"] += 1
+    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    entry["not_bit_equal"] += int((got != want).sum())
+    for key, value in maxima.items():
+        entry[key] = max(entry.get(key, 0.0), value)
+
+
+def require_routes(fn, name, before, want):
+    """The route counters of ``fn`` grew by ``want`` ({route: launches})
+    since ``before``."""
+    got = {route: getattr(fn, f"launches_{route}") - before[route]
+           for route in want}
+    if got != want:
+        raise AssertionError(f"{name}: launches by route {got}, expected "
+                             f"{want}")
+
+
 def phase_attention_kernels(dev, quick: bool):
     """flash_attention against flash_attention_plain on the card: every
     config of the h100 attention space at n = 2048 (8 rows of 2048, head
-    dim 64, causal) in bf16 and in f32, then attention_kernel_cases(); bf16
-    held to FLASH_BF16_TOL, f32 to DTYPE_TOL.  Both compute in f32 and
-    round the output once; they differ in the order of the dot products'
-    sums.  Returns the max error."""
+    dim 64, causal) in bf16 (the tensor-core kernel) and in f32 (the
+    CUDA-core kernel), then attention_kernel_cases(); bf16 held to
+    FLASH_BF16_TOL, f32 to DTYPE_TOL.  Both compute the scores, m, l and acc
+    in f32 and round the output once; the tensor-core kernel also rounds p
+    to bf16 for its product with v, and the sums run in another order.
+    Returns the max error."""
     import torch
     from repro_torch.core.space import Workload, attention_space
     from repro_torch.hw.profiles import get_profile
@@ -1692,7 +1746,9 @@ def phase_attention_kernels(dev, quick: bool):
     cases = sweep + attention_kernel_cases()
     if quick:
         cases = sweep[:2] + sweep[-2:] + attention_kernel_cases()[:2]
-    worst, unequal, qkv = {}, 0, {}
+    stats, qkv = {}, {}
+    before = {r: getattr(flash_attention, f"launches_{r}")
+              for r in ROUTES["flash_attention"]}
     for BH, lq, lk, d, bq, bk, causal, window, dtype in cases:
         key = (BH, lq, lk, d, dtype)
         if key not in qkv:
@@ -1705,21 +1761,44 @@ def phase_attention_kernels(dev, quick: bool):
         want = flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
         what = (f"flash_attention ({BH}, {lq}, {lk}, {d}) {dtype} {kw}")
-        worst[dtype] = max(worst.get(dtype, 0.0),
-                           check_flash(got, want, dtype, what))
-        unequal += int((got != want).sum())
+        path = "wgmma bf16" if dtype == "bfloat16" else "simt f32"
+        path_stats(stats, path, check_flash(got, want, dtype, what), got,
+                   want)
+    n_bf16 = sum(case[-1] == "bfloat16" for case in cases)
+    require_routes(flash_attention, "flash_attention", before,
+                   {"wgmma": n_bf16, "simt": len(cases) - n_bf16})
     log(f"[kernels] flash_attention: {len(cases)} cases ({len(sweep) // 2} "
-        f"h100 configs at n = 2048, bf16 and f32) within tolerance; max abs "
-        f"err {json.dumps(worst)}; elements not bit-equal to the plain "
-        f"version {unequal}")
-    return max(worst.values())
+        f"h100 configs at n = 2048, bf16 and f32) within tolerance; by path "
+        f"{json.dumps(stats, sort_keys=True)}")
+    return max(entry["max_abs_err"] for entry in stats.values())
+
+
+def check_matmul_bf16(got, want, what: str):
+    """Hold the tensor-core matmul to its plain version element by element:
+    |got - want| <= ulp(want) + MATMUL_BF16_ATOL max |want|, ulp(want) the
+    bf16 spacing at |want|; returns the max error and the largest excess
+    over one ulp as a fraction of max |want|."""
+    import torch
+    g, r = got.double(), want.double()
+    mag = r.abs()
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp(min=1e-30))) - 7)
+    top = float(mag.max())
+    diff = (g - r).abs()
+    bad = diff > ulp + MATMUL_BF16_ATOL * top
+    err = max_err(got, want)
+    if bool(torch.any(bad)) or not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{what}: {int(bad.sum())} elements outside one "
+                             f"bf16 ulp + {MATMUL_BF16_ATOL} max |want| (max "
+                             f"abs err {err:.3e})")
+    return err, float((diff - ulp).clamp(min=0).max()) / top
 
 
 def phase_matmul_kernels(dev, quick: bool):
     """matmul_tiled against matmul_plain on the card over every config the
     h100 matmul space admits at qwen's MLP up-projection, (8192, 1024) @
-    (1024, 2816), fitted as the entry point fits it, f32 and bf16, at
-    DTYPE_TOL."""
+    (1024, 2816), fitted as the entry point fits it: f32 through the
+    CUDA-core kernel at DTYPE_TOL, bf16 through the tensor-core kernel
+    within one bf16 ulp plus MATMUL_BF16_ATOL of max |want|."""
     import torch
     from repro_torch.core.space import Workload, matmul_space
     from repro_torch.hw.profiles import get_profile
@@ -1736,7 +1815,9 @@ def phase_matmul_kernels(dev, quick: bool):
     if quick:
         fitted = fitted[:2]
     gen = torch.Generator(device=dev).manual_seed(22)
-    worst, unequal = 0.0, 0
+    stats = {}
+    before = {r: getattr(matmul_tiled, f"launches_{r}")
+              for r in ROUTES["matmul"]}
     for dtype, dt in (("float32", torch.float32),
                       ("bfloat16", torch.bfloat16)):
         a = torch.randn(m, k, generator=gen, device=dev).to(dt)
@@ -1745,13 +1826,20 @@ def phase_matmul_kernels(dev, quick: bool):
             got = matmul_tiled(a, b, **kw)
             want = matmul_plain(a, b, **kw)
             torch.cuda.synchronize()
-            worst = max(worst, check_close(got, want, dtype,
-                                           f"matmul {dtype} {kw}"))
-            unequal += int((got != want).sum())
+            what = f"matmul {dtype} {kw}"
+            if dtype == "bfloat16":
+                err, excess = check_matmul_bf16(got, want, what)
+                path_stats(stats, "wgmma bf16", err, got, want,
+                           max_beyond_one_ulp_of_max_want=excess)
+            else:
+                path_stats(stats, "simt f32",
+                           check_close(got, want, dtype, what), got, want)
+    require_routes(matmul_tiled, "matmul", before,
+                   {"wgmma": len(fitted), "simt": len(fitted)})
     log(f"[kernels] matmul: {len(fitted)} fitted configs x 2 dtypes at "
-        f"{MATMUL_SHAPE} within tolerance; max abs err {worst:.3e}; "
-        f"elements not bit-equal to the plain version {unequal}")
-    return worst
+        f"{MATMUL_SHAPE} within tolerance; by path "
+        f"{json.dumps(stats, sort_keys=True)}")
+    return max(entry["max_abs_err"] for entry in stats.values())
 
 
 def phase_dense_path(dev):
@@ -1784,10 +1872,13 @@ def phase_dense_path(dev):
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"[dense] launches in one forward: {counts}")
-    if counts["flash_attention"] != cfg.n_layers:
+    if counts["flash_attention"] != cfg.n_layers \
+            or counts["flash_attention.wgmma"] != cfg.n_layers:
         raise AssertionError(f"forward launched flash_attention "
-                             f"{counts['flash_attention']} times, not one "
-                             f"per layer ({cfg.n_layers})")
+                             f"{counts['flash_attention']} times, "
+                             f"{counts['flash_attention.wgmma']} on the "
+                             f"tensor cores, not one per layer "
+                             f"({cfg.n_layers}) there")
     want_shape = (DENSE_BATCH, DENSE_LEN, cfg.vocab)
     if tuple(logits.shape) != want_shape or logits.dtype != torch.float32 \
             or not bool(torch.isfinite(logits).all()):
@@ -1887,6 +1978,59 @@ def phase_dense_numbers(dev, run):
            "logits_rel_vs_plain_path": run["rel"],
            "decode_rel_vs_forward": run["decode_rel"]}
     log(f"[numbers] dense forward {json.dumps(out, sort_keys=True)}")
+    return out
+
+
+def phase_trace(dev, run):
+    """One qwen forward under torch.profiler (CPU + CUDA) after a warm-up:
+    the five kernels with the most device time, by name, and the device's
+    idle share over the forward (1 - the union of kernel intervals over
+    the time from the first kernel's start to the last one's end).  Where
+    the profiler records no device time, say so: the CUDA-event split of
+    phase_dense_numbers stands alone then."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    model, tokens = run["model"], run["tokens"]
+    with torch.inference_mode():
+        model(tokens)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model(tokens)
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and e.time_range.end > e.time_range.start]
+    if not kernels:
+        log("[trace] torch.profiler recorded no device time on this machine; "
+            "the forward's split rests on CUDA events alone")
+        return None
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur_start, cur_end = 0.0, spans[0][0], spans[0][1]
+    for start, end in spans[1:]:
+        if start > cur_end:
+            busy += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    busy += cur_end - cur_start
+    window = spans[-1][1] - spans[0][0]
+    total = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    out = {"kernel_launches": len(kernels),
+           "device_busy_ms": busy / 1e3, "window_ms": window / 1e3,
+           "idle_share": 1.0 - busy / window, "host_wall_ms": wall_ms,
+           "top5": [{"name": name[:120], "ms": ms, "share": ms / total}
+                    for name, ms in top]}
+    log(f"[trace] qwen forward under torch.profiler: "
+        f"{json.dumps(out, sort_keys=True)}")
     return out
 
 
@@ -2016,18 +2160,38 @@ def phase_matmul_path(dev):
     return {"a": a, "b": b, "cfg": cfg, "counts": counts}
 
 
+def time_turns(fns, turns: int = 3):
+    """Device times (CUDA events, after a warm-up) of each named call,
+    taken in turns within this run: every turn times all of them, in
+    alternating order, so that clocks and neighbours weigh on each alike.
+    ``fns`` maps a name to (fn, iterations); returns name -> the turns'
+    times (ms)."""
+    names = list(fns)
+    times = {name: [] for name in names}
+    for turn in range(turns):
+        for name in names if turn % 2 == 0 else names[::-1]:
+            fn, iters = fns[name]
+            times[name].append(time_ms(fn, iters))
+    return times
+
+
 def phase_attention_matmul_numbers(dev, dense_counts, mm, loop_counts, errs,
                                    bandwidth: float):
     """The kernels line's entries for kernels 11 and 12 at the main paths'
     shapes: the flash kernel at one qwen layer's attention (64 rows of
-    2048, head dim 64, bf16, causal, the session's blocks), the matmul at
-    qwen's MLP up-projection (bf16, the session's blocks)."""
+    2048, head dim 64, bf16, causal), the matmul at qwen's MLP
+    up-projection (bf16), each timed in turns against its yardstick: the
+    tensor-core kernel at the session's blocks (and flash at the tuned
+    (128, 128)), the library call, and the CUDA-core kernel on the same bf16
+    inputs (the earlier design, through its test-only entry)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.space import Workload
     from repro_torch.kernels.attention.kernel import (flash_attention,
-                                                      flash_attention_plain)
-    from repro_torch.kernels.matmul.kernel import matmul_plain, matmul_tiled
+                                                      flash_attention_plain,
+                                                      flash_attention_simt)
+    from repro_torch.kernels.matmul.kernel import (matmul_plain, matmul_simt,
+                                                   matmul_tiled)
     from repro_torch.tuning import default_session
 
     BH, L, D = DENSE_BATCH * 16, DENSE_LEN, 64
@@ -2037,59 +2201,113 @@ def phase_attention_matmul_numbers(dev, dense_counts, mm, loop_counts, errs,
     blocks = default_session().resolve(
         Workload(op="attention", n=L, batch=BH, variant="flash"),
         dims={"lq": L, "lk": L})
+    tuned = {"block_q": 128, "block_k": 128}
     got = flash_attention(q, k, v, causal=True, **blocks)
     want = flash_attention_plain(q, k, v, causal=True, **blocks)
     torch.cuda.synchronize()
     check_flash(got, want, "bfloat16",
                 f"flash_attention ({BH}, {L}, {L}, {D}) bf16 {blocks}")
-    # SDPA's (B, H, L, D) layout of the same rows, for library_ms
-    heads = tuple(t.view(DENSE_BATCH, BH // DENSE_BATCH, L, D)
-                  for t in (q, k, v))
-    pairs = BH * L * (L + 1) // 2               # causal (query, key) pairs
-    ops_ms = pairs * 4 * D / BF16_PEAK * 1e3
-    bytes_ms = 4 * q.numel() * q.element_size() / bandwidth * 1e3
-    with torch.inference_mode():
-        flash = {
-            "name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/attention.cu",
-            "replaces": "src/repro/kernels/attention/kernel.py:87",
-            "launches": dense_counts["flash_attention"],
-            "launches_by_path": {"dense forward": dense_counts[
-                "flash_attention"], "tuning loop": loop_counts[
-                "flash_attention"]},
-            "max_abs_err": max(max_err(got, want), errs["flash"]),
-            "ms": time_ms(lambda: flash_attention(q, k, v, causal=True,
-                                                  **blocks), 10),
-            "plain_ms": time_ms(lambda: flash_attention_plain(
-                q, k, v, causal=True, **blocks), 3, warmup=1),
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                *heads, is_causal=True), 10),
-            "shape": [BH, L, D], "dtype": "bfloat16",
-            "config": {key: blocks[key] for key in sorted(blocks)}}
-    del got, want, q, k, v, heads
+    err = max_err(got, want)
+    del got, want
     a, b, cfg = mm["a"], mm["b"], mm["cfg"]
     m, kk = a.shape
     n = b.shape[1]
     got = matmul_tiled(a, b, **cfg)
     want = matmul_plain(a, b, **cfg)
     torch.cuda.synchronize()
-    ops_ms = 2 * m * n * kk / BF16_PEAK * 1e3
-    bytes_ms = (a.numel() + b.numel() + m * n) * 2 / bandwidth * 1e3
+    mm_err, _ = check_matmul_bf16(got, want,
+                                  f"matmul {MATMUL_SHAPE} bf16 {cfg}")
+    del got, want
+    # SDPA's (B, H, L, D) layout of the same rows, for library_ms
+    heads = tuple(t.view(DENSE_BATCH, BH // DENSE_BATCH, L, D)
+                  for t in (q, k, v))
+    with torch.inference_mode():
+        turns = time_turns({
+            "flash wgmma, session's blocks": (
+                lambda: flash_attention(q, k, v, causal=True, **blocks), 10),
+            "flash wgmma, (128, 128)": (
+                lambda: flash_attention(q, k, v, causal=True, **tuned), 10),
+            "scaled_dot_product_attention": (
+                lambda: F.scaled_dot_product_attention(*heads,
+                                                       is_causal=True), 10),
+            "flash simt bf16, session's blocks": (
+                lambda: flash_attention_simt(q, k, v, causal=True,
+                                             **blocks), 2),
+            "flash simt bf16, (128, 128)": (
+                lambda: flash_attention_simt(q, k, v, causal=True,
+                                             **tuned), 3),
+            "matmul wgmma, session's blocks": (
+                lambda: matmul_tiled(a, b, **cfg), 10),
+            "torch.matmul": (lambda: torch.matmul(a, b), 10),
+            "matmul simt bf16, session's blocks": (
+                lambda: matmul_simt(a, b, **cfg), 3)})
+        flash_plain_ms = time_ms(lambda: flash_attention_plain(
+            q, k, v, causal=True, **blocks), 3, warmup=1)
+        mm_plain_ms = time_ms(lambda: matmul_plain(a, b, **cfg), 5)
+
+    def med(name):
+        return sorted(turns[name])[len(turns[name]) // 2]
+
+    pairs = BH * L * (L + 1) // 2               # causal (query, key) pairs
+    flash_ops_ms = pairs * 4 * D / BF16_PEAK * 1e3
+    flash_bytes_ms = 4 * q.numel() * q.element_size() / bandwidth * 1e3
+    mm_ops_ms = 2 * m * n * kk / BF16_PEAK * 1e3
+    mm_bytes_ms = (a.numel() + b.numel() + m * n) * 2 / bandwidth * 1e3
+    record = {"ms": turns,
+              "median_ms": {name: med(name) for name in turns},
+              "bound_ms": {"flash_attention": max(flash_ops_ms,
+                                                  flash_bytes_ms),
+                           "matmul": max(mm_ops_ms, mm_bytes_ms)},
+              "config": {"flash_attention": blocks, "matmul": cfg}}
+    log(f"[turns] {json.dumps(record, sort_keys=True)}")
+    routes = {"bfloat16": "wgmma (tensor cores)",
+              "float32": "simt (CUDA cores)"}
+    flash = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/attention.cu",
+        "replaces": "src/repro/kernels/attention/kernel.py:87",
+        "paths": routes,
+        "launches": dense_counts["flash_attention"],
+        "launches_by_path": {"dense forward": dense_counts[
+            "flash_attention"], "tuning loop": loop_counts[
+            "flash_attention"]},
+        "launches_by_route": {
+            "dense forward": {r: dense_counts[f"flash_attention.{r}"]
+                              for r in ROUTES["flash_attention"]},
+            "tuning loop": {r: loop_counts[f"flash_attention.{r}"]
+                            for r in ROUTES["flash_attention"]}},
+        "max_abs_err": max(err, errs["flash"]),
+        "ms": med("flash wgmma, session's blocks"),
+        "ms_tuned_128_128": med("flash wgmma, (128, 128)"),
+        "simt_bf16_ms": med("flash simt bf16, session's blocks"),
+        "simt_bf16_ms_tuned_128_128": med("flash simt bf16, (128, 128)"),
+        "plain_ms": flash_plain_ms,
+        "bound_ms": max(flash_ops_ms, flash_bytes_ms),
+        "bound_by": "operations" if flash_ops_ms >= flash_bytes_ms
+        else "bytes",
+        "library_ms": med("scaled_dot_product_attention"),
+        "shape": [BH, L, D], "dtype": "bfloat16",
+        "config": {key: blocks[key] for key in sorted(blocks)}}
     matmul = {
         "name": "matmul", "route": "cuda",
         "source": "src/repro_torch/csrc/matmul.cu",
         "replaces": "src/repro/kernels/matmul/kernel.py:37",
+        "paths": routes,
         "launches": mm["counts"]["matmul"] + loop_counts["matmul"],
         "launches_by_path": {"matmul entry point": mm["counts"]["matmul"],
                              "tuning loop": loop_counts["matmul"]},
-        "max_abs_err": max(max_err(got, want), errs["matmul"]),
-        "ms": time_ms(lambda: matmul_tiled(a, b, **cfg), 10),
-        "plain_ms": time_ms(lambda: matmul_plain(a, b, **cfg), 5),
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": time_ms(lambda: torch.matmul(a, b), 10),
+        "launches_by_route": {
+            "matmul entry point": {r: mm["counts"][f"matmul.{r}"]
+                                   for r in ROUTES["matmul"]},
+            "tuning loop": {r: loop_counts[f"matmul.{r}"]
+                            for r in ROUTES["matmul"]}},
+        "max_abs_err": max(mm_err, errs["matmul"]),
+        "ms": med("matmul wgmma, session's blocks"),
+        "simt_bf16_ms": med("matmul simt bf16, session's blocks"),
+        "plain_ms": mm_plain_ms,
+        "bound_ms": max(mm_ops_ms, mm_bytes_ms),
+        "bound_by": "operations" if mm_ops_ms >= mm_bytes_ms else "bytes",
+        "library_ms": med("torch.matmul"),
         "shape": [m, kk, n], "dtype": "bfloat16",
         "config": {key: cfg[key] for key in sorted(cfg)}}
     for entry in (flash, matmul):
@@ -2189,6 +2407,9 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         phase_dense_numbers(dev, dense)
         log(f"[numbers] {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_trace(dev, dense)
+        log(f"[trace] {time.perf_counter() - t0:.1f} s")
         dense_counts = dense["counts"]
         del dense
         torch.cuda.empty_cache()

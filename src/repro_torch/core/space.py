@@ -408,6 +408,32 @@ def flash_smem_bytes(block_q: int, block_k: int, head_dim: int) -> int:
     return 4 * floats
 
 
+# the bf16 tensor-core flash kernel (csrc/attention.cu flash_wgmma_kernel):
+# query tiles of 128 rows (two warpgroups of 64), the head dim held in
+# 64-wide swizzle chunks (16 zero-filled to 64), kt keys a step through a
+# ring of K / V stages; its footprint depends on the head dim alone
+FLASH_WGMMA_TILE_Q = 128
+
+
+def flash_wgmma_geometry(head_dim: int) -> Dict[str, int]:
+    """The bf16 flash kernel's tile per head dim: the head dim it holds in
+    shared memory, the keys a step (S = 64 x kt and O = 64 x dp f32 fit a
+    warpgroup's registers), the ring's stages and the dynamic shared memory
+    (Q tile, K and V stages, 1 KB of alignment, the mbarriers)."""
+    dp = max(int(head_dim), 64)
+    kt = 128 if dp == 64 else 64
+    stages = 2 if dp == 256 else 3
+    smem = (1024 + FLASH_WGMMA_TILE_Q * dp * 2 + 2 * stages * kt * dp * 2
+            + (3 * stages + 2) * 8)
+    return {"dp": dp, "kt": kt, "stages": stages, "smem": smem}
+
+
+def flash_wgmma_smem_bytes(head_dim: int) -> int:
+    """Shared memory of one bf16 flash block: fixed per head dim, whatever
+    block_q and block_k."""
+    return flash_wgmma_geometry(head_dim)["smem"]
+
+
 def attention_space(wl: Workload,
                     spec: Optional[HardwareProfile] = None) -> SearchSpace:
     """Flash-attention block sizes (beyond-paper application of the method).
@@ -437,14 +463,23 @@ def attention_space(wl: Workload,
             and cfg["block_q"] <= w.n
 
     def blocks_fit_cuda(cfg: Config, w: Workload) -> bool:
-        # every head dim the kernel takes must fit: the largest needs most
-        foot = max(flash_smem_bytes(cfg["block_q"], cfg["block_k"], hd)
+        # both kernels (f32 on the CUDA cores, bf16 on the tensor cores) at
+        # every head dim they take: workload keys carry no dtype, so a bf16
+        # call may resolve an f32 entry and the other way round
+        foot = max(max(flash_smem_bytes(cfg["block_q"], cfg["block_k"], hd),
+                       flash_wgmma_smem_bytes(hd))
                    for hd in FLASH_HEAD_DIMS)
         return foot <= CUDA_SMEM_LIMIT and cfg["block_k"] <= w.n \
             and cfg["block_q"] <= w.n
 
     fit = blocks_fit_cuda if spec.backend == "cuda" else blocks_fit
     return SearchSpace(wl, params, constraints=(fit,), spec=spec)
+
+
+# the bf16 tensor-core matmul (csrc/matmul.cu matmul_wgmma_kernel): 128 x
+# 128 tiles, 64-deep stages of A (16 KB) and B (16 KB) in a ring of 4, 1 KB
+# of alignment and the mbarriers
+MATMUL_WGMMA_SMEM_BYTES = 1024 + 4 * (128 * 64 * 2 + 64 * 128 * 2) + 8 * 8
 
 
 def matmul_space(wl: Workload,
@@ -463,7 +498,8 @@ def matmul_space(wl: Workload,
         foot += cfg["block_m"] * cfg["block_n"] * 4
         return foot * 2 <= spec.vmem_budget
 
-    # the CUDA kernel stages a fixed 16.5 KB whatever the blocks: no fit
+    # the CUDA kernels stage a fixed slab whatever the blocks (f32 16.5 KB,
+    # bf16 MATMUL_WGMMA_SMEM_BYTES): no fit
     constraints = () if spec.backend == "cuda" else (fits,)
     return SearchSpace(wl, params, constraints=constraints, spec=spec)
 

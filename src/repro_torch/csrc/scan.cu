@@ -44,6 +44,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdio>
+
 namespace {
 
 constexpr int kMaxStages = 32;
@@ -357,7 +359,16 @@ int repro_apply_add(const float* y, const float* entry, void* out,
   return cudaGetLastError();
 }
 
+// codes 20000 and up come from sm90.cuh's tensor-map helper
 const char* repro_error_string(int code) {
+  static thread_local char msg[96];
+  if (code == 20000)
+    return "cuTensorMapEncodeTiled not found in libcuda.so.1";
+  if (code > 20000) {
+    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled refused the tensor "
+             "map (CUresult %d)", code - 20001);
+    return msg;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

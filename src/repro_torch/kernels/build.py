@@ -26,6 +26,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 SOURCES = ("scan.cu", "linrec.cu", "tridiag.cu", "fft.cu", "ssd.cu",
            "attention.cu", "matmul.cu")
+HEADERS = ("sm90.cuh",)   # included by attention.cu and matmul.cu
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_kernels.so"
@@ -49,7 +50,7 @@ def _source_paths() -> List[str]:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in _source_paths():
+    for path in _source_paths() + [os.path.join(CSRC, s) for s in HEADERS]:
         with open(path, "rb") as f:
             h.update(os.path.basename(path).encode() + b"\0" + f.read())
     return h.hexdigest()[:16]
@@ -137,6 +138,15 @@ def load_library() -> ctypes.CDLL:
     lib.repro_matmul.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, i32,
                                  i32, vp]
     lib.repro_matmul.restype = i32
+    lib.repro_flash_attention_wgmma.argtypes = [vp, vp, vp, vp, i64, i32, i32,
+                                                i32, i32, i32, i32, i32,
+                                                ctypes.c_float, vp]
+    lib.repro_flash_attention_wgmma.restype = i32
+    lib.repro_matmul_wgmma.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32,
+                                       i32, vp]
+    lib.repro_matmul_wgmma.restype = i32
+    lib.repro_wgmma_probe.argtypes = [vp, vp, vp, i32, i32, i32, vp]
+    lib.repro_wgmma_probe.restype = i32
     lib.repro_error_string.argtypes = [i32]
     lib.repro_error_string.restype = ctypes.c_char_p
     return lib

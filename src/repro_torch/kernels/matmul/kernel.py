@@ -1,22 +1,34 @@
 """The tiled matmul kernel's wrapper.
 
-``matmul_tiled`` replaces ``repro.kernels.matmul.kernel.matmul_pallas``
-(``csrc/matmul.cu`` ``repro_matmul``).  On a CUDA tensor it launches the
-hand-written Hopper kernel; on a CPU tensor it runs its plain version
-(``matmul_plain``), the same function in plain PyTorch and in the kernel's
-order: per (block_m, block_n) output block, the K / block_k partial
-products one after another, each added to an f32 accumulator.  Any other
-device raises; nothing falls back.  No library product runs on the card:
-the plain version is the CPU path and the card's yardstick.
+``matmul_tiled`` replaces ``repro.kernels.matmul.kernel.matmul_pallas``.
+Which code runs is fixed by the tensor, never by a failure:
+
+  * a CUDA bf16 tensor: the tensor-core kernel (``csrc/matmul.cu``
+    ``repro_matmul_wgmma``: wgmma, TMA, an mbarrier ring);
+  * a CUDA f32 tensor: the CUDA-core kernel (``repro_matmul``), since TF32
+    on the tensor cores would break f32's DTYPE_TOL;
+  * a CPU tensor: its plain version (``matmul_plain``), the same function
+    in plain PyTorch and in the kernels' order: per (block_m, block_n)
+    output block, the K / block_k partial products one after another, each
+    added to an f32 accumulator.
+
+Any other device raises; nothing falls back.  Each route counts its
+launches (``matmul_tiled.launches_wgmma``, ``.launches_simt``), and both
+count into ``.launches``.  No library product runs on the card: the plain
+version is the CPU path and the card's yardstick.
 
 Layout: row-major a (M, K) and b (K, N), f32 or bf16; the product is in
 a's type.  Knobs, all consumed: ``block_m`` and ``block_n`` (the output
 block a CUDA block owns; the grid is N / block_n x M / block_m) and
-``block_k`` (the k-block whose partial product is added at once).
+``block_k`` (the k-block whose partial product is added at once).  The
+bf16 kernel takes block_k a multiple of 16 and N a multiple of 8
+(:func:`wgmma_plan`).
 
 Bound on the card: operations (2 M N K).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -24,6 +36,12 @@ from repro_torch.tuning.dispatch import kernel_path
 
 # dtype codes of the C interface
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel each type runs on the card: tensor cores for bf16, CUDA cores
+# for f32 (fixed by type; the f32 kernel also takes bf16 for the record)
+ROUTES = {torch.bfloat16: "wgmma", torch.float32: "simt"}
+WGMMA_TILE = (128, 128)   # the bf16 kernel's tile: rows, columns
+WGMMA_STAGE_K = 64        # k depth of one TMA stage
+WGMMA_STEP_K = 16         # k depth of one wgmma
 
 
 def _check_args(a: torch.Tensor, b: torch.Tensor, block_m: int,
@@ -43,6 +61,28 @@ def _check_args(a: torch.Tensor, b: torch.Tensor, block_m: int,
             raise ValueError(f"{name}={block} must divide {dim}")
 
 
+def wgmma_plan(m: int, n: int, k: int, block_m: int, block_n: int,
+               block_k: int) -> dict:
+    """The bf16 kernel's geometry, as ``csrc/matmul.cu`` walks it: the
+    grid, each block's 128 x 128 tiles (origin within the block), the
+    64-deep TMA stages of a tile and its k-blocks, as the kernel folds
+    them: a new partial starts at every k16 step ``kk`` with ``kk %
+    block_k == 0``.  Raises for what the kernel does not take."""
+    if block_k % WGMMA_STEP_K:
+        raise ValueError(f"the bf16 tensor-core matmul takes block_k a "
+                         f"multiple of {WGMMA_STEP_K} (whole k16 steps a "
+                         f"k-block), got block_k={block_k}")
+    if n % 8:
+        raise ValueError(f"the bf16 tensor-core matmul takes N a multiple "
+                         f"of 8 (TMA's 16-byte row pitch), got N={n}")
+    starts = [kk for kk in range(0, k, WGMMA_STEP_K) if kk % block_k == 0]
+    return {"grid": (n // block_n, m // block_m),
+            "tiles": [(tm, tn) for tm in range(0, block_m, WGMMA_TILE[0])
+                      for tn in range(0, block_n, WGMMA_TILE[1])],
+            "stages": -(-k // WGMMA_STAGE_K),
+            "k_blocks": list(zip(starts, starts[1:] + [k]))}
+
+
 def matmul_plain(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 256,
                  block_n: int = 256, block_k: int = 256) -> torch.Tensor:
     """The kernel's function in plain PyTorch: f32 partial products per
@@ -60,7 +100,9 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 256,
 
 
 def _launch(a: torch.Tensor, b: torch.Tensor, block_m: int, block_n: int,
-            block_k: int) -> torch.Tensor:
+            block_k: int, route: Optional[str] = None) -> torch.Tensor:
+    """Launch one kernel: ``route`` "wgmma" (bf16 only) or "simt"; by
+    default the route of a's type (:data:`ROUTES`)."""
     from repro_torch.kernels.build import check, load_library
 
     _check_args(a, b, block_m, block_n, block_k)
@@ -73,20 +115,71 @@ def _launch(a: torch.Tensor, b: torch.Tensor, block_m: int, block_n: int,
     if m // block_m > 65535:
         raise ValueError(f"M / block_m = {m // block_m} exceeds the grid's "
                          f"65535 blocks")
+    route = route or ROUTES[a.dtype]
+    if route == "wgmma":
+        if a.dtype != torch.bfloat16:
+            raise TypeError(f"the tensor-core matmul takes bfloat16, got "
+                            f"{a.dtype}")
+        wgmma_plan(m, n, k, block_m, block_n, block_k)
     lib = load_library()
     c = torch.empty(m, n, dtype=a.dtype, device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        code = lib.repro_matmul(a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                                DTYPE_CODES[a.dtype], m, n, k, block_m,
-                                block_n, block_k, stream)
-    check(code, "matmul launch")
+        if route == "wgmma":
+            code = lib.repro_matmul_wgmma(a.data_ptr(), b.data_ptr(),
+                                          c.data_ptr(), m, n, k, block_m,
+                                          block_n, block_k, stream)
+        else:
+            code = lib.repro_matmul(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                                    DTYPE_CODES[a.dtype], m, n, k, block_m,
+                                    block_n, block_k, stream)
+    check(code, f"matmul launch ({route})")
+    return c
+
+
+def matmul_simt(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 256,
+                block_n: int = 256, block_k: int = 256) -> torch.Tensor:
+    """The CUDA-core kernel on CUDA tensors of either type, bf16 included:
+    the earlier design's record, timed beside the tensor-core kernel.  No
+    entry point calls it, and it counts no launch."""
+    (m, k), n = a.shape, b.shape[1]
+    return _launch(a.contiguous(), b.contiguous(), min(block_m, m),
+                   min(block_n, n), min(block_k, k), route="simt")
+
+
+def wgmma_probe(a: torch.Tensor, b: torch.Tensor, *, b_mn_major: bool,
+                k_steps: int = 1) -> torch.Tensor:
+    """One warpgroup product on the card, for the card tests: a (64, 64)
+    bf16 (K-major) times b, either (n, 64) K-major (the result is a[:, :16
+    k_steps] @ b[:, :16 k_steps].T) or (64, n) MN-major with the transpose
+    bit (a[:, :16 k_steps] @ b[:16 k_steps]); n 64 or 128; f32 (64, n)
+    out.  The descriptors and swizzled layouts are the kernels'."""
+    from repro_torch.kernels.build import check, load_library
+
+    n = b.shape[1] if b_mn_major else b.shape[0]
+    if a.shape != (64, 64) or n not in (64, 128) \
+            or b.shape != ((64, n) if b_mn_major else (n, 64)) \
+            or a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16 \
+            or not (a.is_cuda and b.is_cuda):
+        raise ValueError(f"wgmma_probe takes CUDA bf16 a (64, 64) and b "
+                         f"(n, 64) or (64, n), n 64 or 128; got "
+                         f"{tuple(a.shape)}, {tuple(b.shape)}")
+    a, b = a.contiguous(), b.contiguous()
+    c = torch.empty(64, n, dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        code = load_library().repro_wgmma_probe(
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), n, int(b_mn_major),
+            k_steps, stream)
+    check(code, "wgmma probe")
     return c
 
 
 def matmul_tiled(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 256,
                  block_n: int = 256, block_k: int = 256) -> torch.Tensor:
-    """(M, K) @ (K, N) with an f32 accumulator, in a's type."""
+    """(M, K) @ (K, N) with an f32 accumulator, in a's type: bf16 on the
+    card through the tensor-core kernel, f32 through the CUDA-core one, a
+    CPU tensor through the plain version (fixed by type and device)."""
     if not kernel_path(a):
         return matmul_plain(a, b, block_m=block_m, block_n=block_n,
                             block_k=block_k)
@@ -94,8 +187,15 @@ def matmul_tiled(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 256,
     c = _launch(a.contiguous(), b.contiguous(), min(block_m, m),
                 min(block_n, n), min(block_k, k))
     matmul_tiled.launches += 1
+    if ROUTES[a.dtype] == "wgmma":
+        matmul_tiled.launches_wgmma += 1
+    else:
+        matmul_tiled.launches_simt += 1
     return c
 
 
-# launches of the CUDA kernel (plain-version calls are not counted)
+# launches of the CUDA kernels (plain-version calls are not counted): all,
+# and by route
 matmul_tiled.launches = 0
+matmul_tiled.launches_wgmma = 0
+matmul_tiled.launches_simt = 0

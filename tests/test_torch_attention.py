@@ -24,6 +24,7 @@ from repro.kernels.attention.kernel import flash_attention_pallas
 from repro.kernels.attention.ops import attention as j_attention
 from repro.kernels.attention.ref import attention_ref as j_attention_ref
 from repro_torch import tuning as t_tuning
+from repro_torch.core import space as t_space
 from repro_torch.core.space import Workload, attention_space, flash_tiles
 from repro_torch.kernels.attention import kernel as t_kernel
 from repro_torch.kernels.attention.ops import attention as t_attention
@@ -220,3 +221,97 @@ def test_h100_attention_space_admits_configs_at_every_length():
                              for c in valid)
     assert len(attention_space(Workload(op="attention", n=2048, batch=64),
                                h100).enumerate_valid()) == 20
+
+
+# ---------------------------------------------------------------------------
+# The bf16 tensor-core kernel's geometry (csrc/attention.cu
+# flash_wgmma_kernel), mirrored in Python and held to the TPU's live set
+# ---------------------------------------------------------------------------
+
+def _h100_cases():
+    """(Lq, Lk, block_q, block_k, causal, window, head_dim): every config of
+    the h100 space at n = 2048, causal and full, plus the card's
+    attention_kernel_cases shapes: whisper's block_k 4 over 1500 keys,
+    recurrentgemma's 2048 window at L = 4096, queries in the last slots."""
+    h100 = t_hw.get_profile("h100")
+    space = attention_space(Workload(op="attention", n=2048, batch=64,
+                                     variant="flash"), h100)
+    cases = [(2048, 2048, c["block_q"], c["block_k"], causal, None, 64)
+             for c in space.enumerate_valid() for causal in (True, False)]
+    return cases + [(64, 1500, 64, 4, False, None, 64),
+                    (4096, 4096, 256, 512, True, 2048, 256),
+                    (512, 2048, 128, 256, True, None, 64),
+                    (512, 2048, 256, 128, True, 1024, 128),
+                    (128, 384, 64, 128, True, None, 16)]
+
+
+@pytest.mark.parametrize("lq,lk,bq,bk,causal,window,d", _h100_cases())
+def test_wgmma_steps_cover_exactly_the_live_blocks(lq, lk, bq, bk, causal,
+                                                   window, d):
+    """Per query block, the kernel's steps (kt keys from k_start, keys past
+    k_end scoring -inf) process exactly the keys of the TPU's live
+    k-blocks: the live set is one run, so block_k stays the knob that
+    decides which keys count."""
+    offset = lk - lq
+    kt = t_space.flash_wgmma_geometry(d)["kt"]
+    for qi in range(lq // bq):
+        k_start, k_end, starts = t_kernel.wgmma_steps(
+            lk, bq, bk, qi, offset, causal, window, d)
+        live = {key for ki in range(lk // bk)
+                if t_kernel._live(qi, ki, bq, bk, offset, causal, window)
+                for key in range(ki * bk, (ki + 1) * bk)}
+        stepped = {key for s in starts for key in range(s, s + kt)
+                   if key < k_end}
+        assert stepped == live
+        assert starts == list(range(k_start, k_end, kt))
+        assert kt >= 16 and kt % 16 == 0
+
+
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
+def test_flash_wgmma_footprint_fits_at_every_head_dim(d):
+    geo = t_space.flash_wgmma_geometry(d)
+    assert geo["smem"] == t_space.flash_wgmma_smem_bytes(d) \
+        <= t_space.CUDA_SMEM_LIMIT
+    # S (64 x kt) and O (64 x dp) f32 in a warpgroup's registers: kt / 2 +
+    # dp / 2 a thread, at most 160
+    assert geo["kt"] // 2 + geo["dp"] // 2 <= 160
+    assert geo["dp"] % 64 == 0 and geo["stages"] >= 2
+
+
+@pytest.mark.parametrize("n", [128, 256, 1500, 2048, 4096])
+def test_h100_attention_space_keeps_its_members(n):
+    """Admitting by both kernels' footprints keeps every config the f32
+    kernel's footprint admitted: the bf16 kernel's is fixed per head dim
+    and fits at all of them."""
+    h100 = t_hw.get_profile("h100")
+    wl = Workload(op="attention", n=n, batch=64, variant="flash")
+    space = attention_space(wl, h100)
+    f32_only = [c for c in space.enumerate_all() if c["block_k"] <= n
+                and c["block_q"] <= n
+                and max(t_space.flash_smem_bytes(c["block_q"], c["block_k"],
+                                                 hd)
+                        for hd in t_space.FLASH_HEAD_DIMS)
+                <= t_space.CUDA_SMEM_LIMIT]
+    assert space.enumerate_valid() == f32_only
+    for cfg in f32_only:
+        for hd in t_space.FLASH_HEAD_DIMS:
+            assert t_space.flash_wgmma_smem_bytes(hd) \
+                <= t_space.CUDA_SMEM_LIMIT
+            assert t_space.flash_smem_bytes(cfg["block_q"], cfg["block_k"],
+                                            hd) <= t_space.CUDA_SMEM_LIMIT
+
+
+def test_flash_routes_are_fixed_by_type():
+    assert t_kernel.ROUTES == {torch.bfloat16: "wgmma",
+                               torch.float32: "simt"}
+    q = torch.zeros(2, 64, 64)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        t_kernel._launch(q, q, q, 64, 64, True, None, route="wgmma")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        t_kernel.flash_attention_simt(q, q, q, block_q=64, block_k=64)
+    before = (t_kernel.flash_attention.launches_wgmma,
+              t_kernel.flash_attention.launches_simt)
+    t_kernel.flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16(),
+                             block_q=64, block_k=64)
+    assert (t_kernel.flash_attention.launches_wgmma,
+            t_kernel.flash_attention.launches_simt) == before

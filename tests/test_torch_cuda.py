@@ -409,6 +409,13 @@ def _flash_close(got, want, dtype):
     assert bool(((g - w).abs() <= 4e-3 + 8e-3 * w.abs()).all())
 
 
+_ROUTE = {"float32": "simt", "bfloat16": "wgmma"}
+
+
+def _route_counts(fn):
+    return {r: getattr(fn, f"launches_{r}") for r in ("wgmma", "simt")}
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("BH,lq,lk,d,bq,bk,causal,window", [
     (2, 2048, 2048, 64, 1024, 2048, True, None),
@@ -428,10 +435,66 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, BH, lq, lk, d, bq,
         _TORCH[dtype]) for n in (lq, lk, lk))
     kw = dict(block_q=bq, block_k=bk, causal=causal, window=window)
     before = flash_attention.launches
+    routes = _route_counts(flash_attention)
     got = flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
+    routes[_ROUTE[dtype]] += 1
+    assert _route_counts(flash_attention) == routes
     _flash_close(got, flash_attention_plain(q, k, v, **kw), dtype)
+
+
+@pytest.mark.parametrize("BH,lq,lk,d,bq,bk,causal", [
+    (2, 256, 256, 64, 128, 128, True), (2, 256, 256, 256, 128, 256, False)])
+def test_flash_simt_record_takes_bf16(cuda, BH, lq, lk, d, bq, bk, causal):
+    """The CUDA-core kernel on bf16 inputs (the earlier design, timed
+    beside the tensor-core kernel) counts no launch and matches the plain
+    version."""
+    from repro_torch.kernels.attention.kernel import (flash_attention,
+                                                      flash_attention_plain,
+                                                      flash_attention_simt)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(BH, n, d, generator=gen, device=cuda).to(
+        torch.bfloat16) for n in (lq, lk, lk))
+    kw = dict(block_q=bq, block_k=bk, causal=causal)
+    before = flash_attention.launches
+    got = flash_attention_simt(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before
+    _flash_close(got, flash_attention_plain(q, k, v, **kw), "bfloat16")
+
+
+@pytest.mark.parametrize("n,b_mn_major,k_steps", [
+    (64, False, 1), (64, False, 4), (128, False, 4), (64, True, 1),
+    (128, True, 4)])
+def test_one_wgmma_product_matches_torch_matmul(cuda, n, b_mn_major,
+                                                k_steps):
+    """m64n{64,128}k16 on the tensor cores, B K-major or MN-major (the
+    transpose bit), against torch.matmul in f32 (products of bf16 are
+    exact in f32; only the sums' order differs)."""
+    from repro_torch.kernels.matmul.kernel import wgmma_probe
+    gen = torch.Generator(device=cuda).manual_seed(n + k_steps)
+    a = torch.randn(64, 64, generator=gen, device=cuda).to(torch.bfloat16)
+    shape = (64, n) if b_mn_major else (n, 64)
+    b = torch.randn(*shape, generator=gen, device=cuda).to(torch.bfloat16)
+    got = wgmma_probe(a, b, b_mn_major=b_mn_major, k_steps=k_steps)
+    kk = 16 * k_steps
+    bm = b[:kk].float() if b_mn_major else b[:, :kk].float().T
+    want = torch.matmul(a[:, :kk].float(), bm)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _matmul_bf16_close(got, want):
+    """Kernel 12 in bf16 against its plain version, element by element:
+    one bf16 ulp of |want| (the two may round to neighbours) plus 1e-3 of
+    max |want| (the tensor cores sum a k-block's products in their own
+    order), as chip_smoke.py's MATMUL_BF16_ATOL."""
+    g, w = got.double().cpu(), want.double().cpu()
+    mag = w.abs()
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp(min=1e-30))) - 7)
+    assert torch.isfinite(g).all()
+    assert bool(((g - w).abs() <= ulp + 1e-3 * float(mag.max())).all())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -444,9 +507,46 @@ def test_matmul_kernel_matches_plain(cuda, dtype, m, k, n, bm, bn, bk):
     a = torch.randn(m, k, generator=gen, device=cuda).to(_TORCH[dtype])
     b = torch.randn(k, n, generator=gen, device=cuda).to(_TORCH[dtype])
     kw = dict(block_m=bm, block_n=bn, block_k=bk)
+    routes = _route_counts(matmul_tiled)
     got = matmul_tiled(a, b, **kw)
     torch.cuda.synchronize()
-    _close(got, matmul_plain(a, b, **kw), dtype)
+    routes[_ROUTE[dtype]] += 1
+    assert _route_counts(matmul_tiled) == routes
+    want = matmul_plain(a, b, **kw)
+    _close(got, want, dtype)
+    if dtype == "bfloat16":
+        _matmul_bf16_close(got, want)
+
+
+@pytest.mark.parametrize("m,k,n,bm,bn,bk", [
+    (256, 384, 512, 128, 128, 32), (256, 96, 512, 64, 128, 48),
+    (64, 48, 32, 64, 32, 16), (8192, 1024, 2816, 128, 256, 1024)])
+def test_matmul_wgmma_folds_k_blocks_inside_a_stage(cuda, m, k, n, bm, bn,
+                                                    bk):
+    """block_k below the 64-deep stage: the partial is folded inside a
+    stage; and qwen's MLP shape at the session's blocks."""
+    from repro_torch.kernels.matmul.kernel import matmul_plain, matmul_tiled
+    gen = torch.Generator(device=cuda).manual_seed(m + k)
+    a = torch.randn(m, k, generator=gen, device=cuda).to(torch.bfloat16)
+    b = torch.randn(k, n, generator=gen, device=cuda).to(torch.bfloat16)
+    kw = dict(block_m=bm, block_n=bn, block_k=bk)
+    got = matmul_tiled(a, b, **kw)
+    torch.cuda.synchronize()
+    _matmul_bf16_close(got, matmul_plain(a, b, **kw))
+
+
+def test_matmul_simt_record_takes_bf16(cuda):
+    from repro_torch.kernels.matmul.kernel import (matmul_plain, matmul_simt,
+                                                   matmul_tiled)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    a = torch.randn(256, 384, generator=gen, device=cuda).to(torch.bfloat16)
+    b = torch.randn(384, 512, generator=gen, device=cuda).to(torch.bfloat16)
+    kw = dict(block_m=128, block_n=256, block_k=128)
+    before = matmul_tiled.launches
+    got = matmul_simt(a, b, **kw)
+    torch.cuda.synchronize()
+    assert matmul_tiled.launches == before
+    assert torch.equal(got, matmul_plain(a, b, **kw))
 
 
 @pytest.mark.parametrize("linrec", [False, True])
@@ -490,6 +590,7 @@ def test_dense_model_on_the_card(cuda, dtype):
                            generator=torch.Generator(device=cuda)
                            .manual_seed(1))
     before = flash_attention.launches
+    routes = _route_counts(flash_attention)
     with torch.no_grad():
         got, _ = model(tokens)
         want, _ = plain(tokens)
@@ -502,6 +603,8 @@ def test_dense_model_on_the_card(cuda, dtype):
                                   torch.full((2, 1), 8, device=cuda))
     torch.cuda.synchronize()
     assert flash_attention.launches == before + cfg.n_layers
+    routes[_ROUTE[dtype]] += cfg.n_layers
+    assert _route_counts(flash_attention) == routes
     _close(got, want, dtype)
     rel = float((lg[:, 0] - got[:, 8]).abs().max() / got[:, 8].abs().max())
     assert rel < 2e-2, rel

@@ -225,11 +225,19 @@ def test_a_missing_compiler_raises(monkeypatch, tmp_path):
 
 
 def test_every_cuda_source_is_built():
-    """Each source under csrc/ is compiled into the kernel library."""
+    """Each source under csrc/ is compiled into the kernel library: every
+    .cu file by its own nvcc call, every .cuh header through a source that
+    includes it (and into the build's hash, so an edit rebuilds)."""
     from repro_torch.kernels import build
-    sources = sorted(f for f in os.listdir(os.path.join(PORT, "csrc"))
-                     if f.endswith((".cu", ".cuh")))
-    assert sorted(build.SOURCES) == sources
+    csrc = os.path.join(PORT, "csrc")
+    files = os.listdir(csrc)
+    assert sorted(build.SOURCES) == sorted(f for f in files
+                                           if f.endswith(".cu"))
+    assert sorted(build.HEADERS) == sorted(f for f in files
+                                           if f.endswith(".cuh"))
+    texts = [open(os.path.join(csrc, f)).read() for f in build.SOURCES]
+    for header in build.HEADERS:
+        assert any(f'#include "{header}"' in t for t in texts), header
 
 
 def test_bfloat16_spaces_build_without_jax():

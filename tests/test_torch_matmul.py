@@ -120,3 +120,64 @@ def test_h100_matmul_space_admits_every_config():
     h100 = t_hw.get_profile("h100")
     wl = Workload(op="matmul", n=2816, batch=8192, variant="tiled")
     assert len(matmul_space(wl, h100).enumerate_valid()) == 60
+
+
+# ---------------------------------------------------------------------------
+# The bf16 tensor-core kernel's geometry (csrc/matmul.cu
+# matmul_wgmma_kernel), mirrored in Python
+# ---------------------------------------------------------------------------
+
+def _fitted_qwen_configs():
+    from repro_torch.kernels.matmul.ops import _normalize
+    wl = Workload(op="matmul", n=2816, batch=8192, variant="tiled")
+    out = []
+    for cfg in matmul_space(wl, t_hw.get_profile("h100")).enumerate_valid():
+        kw = _normalize(cfg, wl, {"m": 8192, "k": 1024})
+        if kw not in out:
+            out.append(kw)
+    return out
+
+
+@pytest.mark.parametrize("m,k,n,bm,bn,bk", SHAPES + [
+    (96, 64, 80, 32, 16, 64), (512, 1024, 2816, 512, 256, 256),
+    (64, 48, 32, 64, 32, 16)] + [(8192, 1024, 2816, c["block_m"],
+                                  c["block_n"], c["block_k"])
+                                 for c in _fitted_qwen_configs()])
+def test_wgmma_k_blocks_are_the_plain_versions(m, k, n, bm, bn, bk):
+    """The kernel folds its partial into the accumulator at every k16 step
+    that starts a k-block: the same K / block_k k-blocks, in order, as the
+    plain version (and the TPU kernel) adds; the tiles cover the block."""
+    plan = t_kernel.wgmma_plan(m, n, k, bm, bn, bk)
+    assert plan["k_blocks"] == [(k0, k0 + bk) for k0 in range(0, k, bk)]
+    assert plan["grid"] == (n // bn, m // bm)
+    covered = {(r, c) for tm, tn in plan["tiles"]
+               for r in range(tm, tm + 128, 32)
+               for c in range(tn, tn + 128, 16)}
+    assert all((r, c) in covered for r in range(0, bm, 32)
+               for c in range(0, bn, 16))
+    assert plan["stages"] * t_kernel.WGMMA_STAGE_K >= k
+
+
+def test_wgmma_plan_rejects_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="block_k a multiple of 16"):
+        t_kernel.wgmma_plan(64, 64, 64, 64, 64, 8)
+    with pytest.raises(ValueError, match="N a multiple of 8"):
+        t_kernel.wgmma_plan(64, 36, 64, 64, 36, 64)
+
+
+def test_matmul_routes_are_fixed_by_type():
+    """bf16 takes the tensor-core kernel, f32 the CUDA-core one; the fixed
+    bf16 footprint fits a block's shared memory whatever the blocks."""
+    assert t_kernel.ROUTES == {torch.bfloat16: "wgmma",
+                               torch.float32: "simt"}
+    from repro_torch.core import space as t_space
+    assert t_space.MATMUL_WGMMA_SMEM_BYTES <= t_space.CUDA_SMEM_LIMIT
+    a, b = torch.zeros(128, 64), torch.zeros(64, 96)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        t_kernel.matmul_simt(a, b, block_m=64, block_n=32, block_k=64)
+    before = (t_kernel.matmul_tiled.launches_wgmma,
+              t_kernel.matmul_tiled.launches_simt)
+    t_kernel.matmul_tiled(a.bfloat16(), b.bfloat16(), block_m=64,
+                          block_n=32, block_k=64)
+    assert (t_kernel.matmul_tiled.launches_wgmma,
+            t_kernel.matmul_tiled.launches_simt) == before
