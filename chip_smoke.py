@@ -12,12 +12,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3. kernels against their plain versions on the card — ``scan_add`` over
    f32 and bf16, fused and multi-tile, every radix and unroll, ragged and
    large prime fan-in stages, every admitted config of one paper
-   workload's ``scan_space``; ``apply_add`` — at the tests' tolerances;
+   workload's ``scan_space``, on the route its plan picks (the warp
+   kernel, or the block kernel for ragged and prime stages), with the
+   elements not bit-equal to ``scan_add_plain`` counted (the run fails
+   unless there are none); ``apply_add`` — at the tests' tolerances;
 4. the main path at the paper's size — ``prefix_sum`` on 2^26 f32
    elements (256 MiB in, 256 MiB out), fused at n = 128, 1024, 4096 and
    multipass at n = 2^22, resolved through the default session under
    ``h100``, held against ``torch.cumsum`` in float64, with the launch
-   list equal to the plan's and every kernel's launch count non-zero;
+   list equal to the plan's, every kernel's launch count non-zero, and
+   every ``scan_add`` launch on the warp kernel; the warp kernel's time at
+   the paper's shapes beside the block kernel's (the earlier design) on the
+   same inputs, a sweep of radix x rows x unroll at (65536, 1024) on both,
+   and ``torch.profiler``'s device time of both at n = 128, 1024, 4096;
 5. the linear recurrence and the tridiagonal solvers: ``scan_linrec``,
    ``scan_linrec_prod``, ``apply_linrec`` and ``pcr`` against their plain
    versions (f32 and bf16, ragged, prime and non-power-of-two shapes, the
@@ -28,17 +35,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    above ``LF_MULTIPASS_MIN`` on a fused and a multipass linrec plan, and
    ``linear_recurrence`` fused and multipass against float64 references,
    each call's launch list equal to its plans' and every kernel's launch
-   count non-zero;
+   count non-zero; cuSPARSE's ``gtsv2StridedBatch`` (bound with ctypes
+   from the CUDA toolkit's ``libcusparse.so`` in a child process, never by
+   the port) held once against ``pcr``'s solution and timed beside it at
+   n = 1024 and 256, for kernel 7's ``library_ms``;
 6. the FFT: ``fft_stockham`` against ``fft_plain`` on the card over every
    admitted config of ``fft_space`` at n = 1024 and 8192 under ``h100``
    and the ragged and prime stage sequences, inverse on and off, at the
-   complex64 tolerance; then, at 2^26 complex64 elements a call, ``fft``
+   complex64 tolerance and with the elements not bit-equal counted (the
+   run fails unless there are none); then, at 2^26 complex64 elements a call, ``fft``
    at n = 256 ... 8192 (one fused launch) and at 2^16, 2^20 and 2^23 (the
    four-step driver), calls at 2^23 forced to m = 3 (tile_n = 256) and
    m = 2 (tile_n = 4096), and ``ifft`` round trips, each held against a complex128 ``torch.fft.fft``
    at 1e-4 relative, with the launch list equal to the plan's and the
-   kernel's launch count non-zero; and where the four-step time goes
-   (kernel launches against the torch transposes and twiddle);
+   kernel's launch count non-zero, every launch on the pow2 kernel; where
+   the four-step time goes (kernel launches against the torch transposes
+   and twiddle); the pow2 kernel's time beside the generic kernel's (the
+   earlier design) on the same inputs;
 7. the SSD chain: ``ssd_intra``, ``ssd_state_apply`` and
    ``ssd_apply_entry`` against their plain versions (chunk 64 ... 2048,
    nc = 1, 3 and 16, (S, P) = (8, 16), (16, 8) and (128, 64), a strong
@@ -87,7 +100,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the Phi table, the sweep sizes and the runner failures, which must be
    0;
 13. the ``kernels`` line: per kernel (all twelve) its launches on the main
-   paths, its error against the plain version, its time, the plain
+   paths (by route for ``scan_add`` and ``fft_stockham``, with the
+   earlier kernel's time beside theirs), its error against the plain version, its time, the plain
    version's and the library call's (null where no one PyTorch call
    computes the function; ``scaled_dot_product_attention`` and
    ``torch.matmul`` for kernels 11 and 12, timed as yardsticks and never
@@ -98,6 +112,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (the ``[turns]`` line) against their yardsticks and against the
    CUDA-core kernel on the same bf16 inputs.
 
+The build phase also counts, per scan and FFT kernel, the local-memory
+instructions (LDL / STL) and calls in the library's SASS (``cuobjdump``).
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 nothing of JAX or of the JAX package.
 """
@@ -188,7 +204,41 @@ def phase_build():
     for line in str(build.BUILD_INFO.get("log", "")).splitlines():
         if "registers" in line or "spill" in line.lower():
             log(f"[build]   {line.strip()}")
+    log(f"[sass] {json.dumps(sass_counts(path), sort_keys=True)}")
     return lib, seconds
+
+
+def sass_counts(path):
+    """Per scan / FFT kernel of the built library: its SASS instructions,
+    local-memory loads and stores (LDL / STL: spills and stack arrays) and
+    calls, from ``cuobjdump -sass`` beside the nvcc the build used."""
+    from repro_torch.kernels import build
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", path], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed: {out.stderr.strip()[:500]}")
+    counts, name = {}, None
+    for line in out.stdout.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            keep = any(k in name for k in ("scan_add_kernel", "scan_warp",
+                                           "fft_kernel", "fft_pow2"))
+            name = name if keep else None
+            if name:
+                counts[name] = {"instructions": 0, "LDL": 0, "STL": 0,
+                                "CALL": 0}
+        elif name and "/*" in line and ";" in line:
+            op = line.split("*/", 1)[1].split(";")[0].split()
+            op = [w for w in op if not w.startswith("@")]
+            if not op:
+                continue
+            c = counts[name]
+            c["instructions"] += 1
+            for key in ("LDL", "STL", "CALL"):
+                if op[0].startswith(key):
+                    c[key] += 1
+    return counts
 
 
 def phase_card():
@@ -222,10 +272,18 @@ def phase_kernels(dev, quick: bool):
     from repro_torch.kernels.blocks.driver import apply_add, apply_add_plain
     from repro_torch.kernels.blocks.plan import stage_radices
     from repro_torch.kernels.scan.kernel import (_launch, scan_add,
-                                                 scan_add_plain)
+                                                 scan_add_plain, scan_route)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    unequal = {"warp": 0, "block": 0}
+    routed = {"warp": 0, "block": 0}
+
+    def count(got, ref, rows, tile_n, stages):
+        route = scan_route(rows, tile_n, stages)
+        routed[route] += 1
+        unequal[route] += int((got != ref).sum())
 
     def one(batch, n, rows, tile_n, stages, unroll, dtype):
         x = torch.randn(batch, n, generator=gen, device=dev).to(dtypes[dtype])
@@ -236,13 +294,16 @@ def phase_kernels(dev, quick: bool):
         what = (f"scan_add {dtype} ({batch},{n}) rows={rows} tile={tile_n} "
                 f"stages={tuple(stages)} unroll={unroll}")
         check_close(got, ref, dtype, what)
+        count(got, ref, rows, tile_n, tuple(stages))
         return got, ref
 
     cases = 0
     # fused (one tile) and multi-tile, both dtypes, every radix x unroll
     for dtype in dtypes:
         for batch, n, rows, tile_n in ((64, 4096, 4, 4096), (64, 4096, 8, 128),
-                                       (16, 1024, 2, 256), (6, 96, 3, 96)):
+                                       (16, 1024, 2, 256), (6, 96, 3, 96),
+                                       (64, 1024, 8, 1024), (8, 8192, 1, 2048),
+                                       (4, 32768, 1, 32768), (64, 256, 4, 32)):
             for radix in (2, 4, 8):
                 for unroll in (1, 2, 4, 8):
                     one(batch, n, rows, tile_n, stage_radices(tile_n, radix),
@@ -264,11 +325,13 @@ def phase_kernels(dev, quick: bool):
     xs = torch.randn(64, 2048, generator=gen, device=dev)[:, 512:1536]
     kw = dict(rows_per_program=4, tile_n=1024,
               stages=stage_radices(1024, 4), unroll=2)
-    check_close(scan_add(xs, **kw), scan_add_plain(xs, **kw), "float32",
-                "scan_add on a column slice")
+    got, ref = scan_add(xs, **kw), scan_add_plain(xs, **kw)
+    check_close(got, ref, "float32", "scan_add on a column slice")
+    count(got, ref, 4, 1024, kw["stages"])
     cases += 1
     log(f"[kernels] scan_add: {cases} shape/stage/unroll cases match the "
-        f"plain version")
+        f"plain version (by route {routed}); elements not bit-equal to "
+        f"scan_add_plain: {unequal}")
 
     # every admitted config of one paper workload's space
     wl = Workload(op="scan", n=1024, batch=TOTAL_ELEMS // 1024, variant="ks")
@@ -290,12 +353,20 @@ def phase_kernels(dev, quick: bool):
                       cfg["unroll"])
         worst = max(worst, check_close(got, plain[key], "float32",
                                        f"scan_space config {cfg}"))
+        count(got, plain[key], cfg["rows_per_program"], cfg["tile_n"],
+              stages)
         del got
     torch.cuda.synchronize()
     log(f"[kernels] scan_space({wl.key}, h100): all {len(cfgs)} admitted "
         f"configs launch and match the plain version (max abs err "
         f"{worst:.3e})")
     del x, plain
+    log(f"[kernels] scan_add: {sum(routed.values())} launches checked (by "
+        f"route {routed}), elements not bit-equal to scan_add_plain "
+        f"{unequal}")
+    if any(unequal.values()):
+        raise AssertionError(f"scan_add is not bit-equal to scan_add_plain: "
+                             f"{unequal} elements differ")
 
     # apply_add (multipass launch 3), both output types
     for rows_n, length, rows, out in ((4096, 16384, 8, torch.float32),
@@ -333,8 +404,10 @@ def counted_wrappers():
 
 
 # kernels with one launch counter per route besides their total: bf16 runs
-# the tensor-core kernel (wgmma), f32 the CUDA-core one (simt)
-ROUTES = {"flash_attention": ("wgmma", "simt"), "matmul": ("wgmma", "simt")}
+# the tensor-core kernel (wgmma), f32 the CUDA-core one (simt); the prefix
+# sum and the FFT pick theirs by the plan (scan_route, fft_route)
+ROUTES = {"flash_attention": ("wgmma", "simt"), "matmul": ("wgmma", "simt"),
+          "scan_add": ("warp", "block"), "fft_stockham": ("pow2", "generic")}
 
 
 def reset_counts():
@@ -390,7 +463,11 @@ def phase_main_path(dev):
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"[main] launches on the prefix-sum path: {counts}")
-    require_launched(counts, ("scan_add", "apply_add"), "the prefix-sum path")
+    require_launched(counts, ("scan_add", "scan_add.warp", "apply_add"),
+                     "the prefix-sum path")
+    if counts["scan_add.block"]:
+        raise AssertionError(f"{counts['scan_add.block']} prefix-sum "
+                             f"launches took the block kernel")
     for n, batch, cfg, plan, launched in runs:
         if tuple(launched) != plan.launches:
             raise AssertionError(f"n={n}: launched {launched} != plan "
@@ -474,9 +551,13 @@ def phase_loop(dev):
     if problems or failures:
         raise AssertionError(f"compare_methods: {problems}, runner "
                              f"failures {failures}")
-    require_launched(counts, ("scan_add", "pcr", "fft_stockham",
+    require_launched(counts, ("scan_add", "scan_add.warp", "pcr",
+                              "fft_stockham", "fft_stockham.pow2",
                               "ssd_intra", "flash_attention", "matmul"),
                      "the tuning loop")
+    if counts["scan_add.block"] or counts["fft_stockham.generic"]:
+        raise AssertionError(f"the tuning loop took an earlier kernel: "
+                             f"{counts}")
     log("[loop] phi " + json.dumps(
         {op: {name: agg["phi"] for name, agg in per.items()}
          for op, per in report["per_op"].items()}))
@@ -487,7 +568,8 @@ def phase_numbers(dev, inputs, runs, counts, bandwidth: float):
     """Times, bounds and errors per kernel at the main path's shapes."""
     import torch
     from repro_torch.kernels.blocks.driver import apply_add, apply_add_plain
-    from repro_torch.kernels.scan.kernel import (_launch, scan_add,
+    from repro_torch.kernels.blocks.plan import stage_radices
+    from repro_torch.kernels.scan.kernel import (_launch, scan_add_block,
                                                  scan_add_plain)
     from repro_torch.kernels.scan.ops import prefix_sum
 
@@ -513,6 +595,10 @@ def phase_numbers(dev, inputs, runs, counts, bandwidth: float):
             row["scan_add_ms"] = time_ms(
                 lambda: _launch(x, kw["rows"], kw["tile_n"], kw["stages"],
                                 kw["unroll"]), 10)
+            # the block kernel (the earlier design) on the same inputs
+            row["scan_add_block_ms"] = time_ms(
+                lambda: _launch(x, kw["rows"], kw["tile_n"], kw["stages"],
+                                kw["unroll"], route="block"), 10)
             row["plain_ms"] = time_ms(
                 lambda: scan_add_plain(x, rows_per_program=plan.rows,
                                        tile_n=plan.tile_n, stages=plan.stages,
@@ -524,8 +610,13 @@ def phase_numbers(dev, inputs, runs, counts, bandwidth: float):
                     "source": "src/repro_torch/csrc/scan.cu",
                     "replaces": "src/repro/kernels/scan/kernel.py:97",
                     "launches": counts["scan_add"],
+                    "launches_by_route": {r: counts[f"scan_add.{r}"]
+                                          for r in ROUTES["scan_add"]},
                     "max_abs_err": row["max_abs_err"],
-                    "ms": row["scan_add_ms"], "plain_ms": row["plain_ms"],
+                    "unequal_elements": int((got != ref).sum()),
+                    "ms": row["scan_add_ms"],
+                    "block_ms": row["scan_add_block_ms"],
+                    "plain_ms": row["plain_ms"],
                     "bound_ms": row["bound_ms"], "bound_by": "bytes",
                     "library_ms": row["cumsum_ms"],
                     "shape": [batch, n], "dtype": "float32",
@@ -553,6 +644,9 @@ def phase_numbers(dev, inputs, runs, counts, bandwidth: float):
             row["chunk_scan_ms"] = time_ms(
                 lambda: _launch(xc, l1.block_shape[0], length, l1.stages,
                                 cfg["unroll"]), 10)
+            row["chunk_scan_block_ms"] = time_ms(
+                lambda: _launch(xc, l1.block_shape[0], length, l1.stages,
+                                cfg["unroll"], route="block"), 10)
             apply_entry = {
                 "name": "apply_add", "route": "cuda",
                 "source": "src/repro_torch/csrc/scan.cu",
@@ -567,7 +661,57 @@ def phase_numbers(dev, inputs, runs, counts, bandwidth: float):
             del y, e, got, ref
         shapes.append(row)
         log(f"[numbers] {json.dumps(row, sort_keys=True)}")
+    # both kernels over radix x rows x unroll at the n = 1024 shape
+    x = inputs[1024]
+    sweep = {}
+    for radix in (2, 4, 8):
+        stages = stage_radices(1024, radix)
+        for r in (1, 8, 64):
+            for unroll in (1, 8):
+                for route in ("warp", "block"):
+                    sweep[f"{route} radix {radix} rows {r} unroll {unroll}"] \
+                        = time_ms(lambda: _launch(x, r, 1024, stages, unroll,
+                                                  route=route), 5)
+    log(f"[numbers] scan_add ms at {list(x.shape)}: {json.dumps(sweep)}")
+    scan_trace(runs, inputs)
     return [scan_entry, apply_entry], shapes
+
+
+def scan_trace(runs, inputs):
+    """torch.profiler's device time of one prefix_sum call at each fused
+    main-path shape, on the warp kernel (the entry point) and on the block
+    kernel (the same plan forced to the block route)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.scan.kernel import scan_add_block
+    from repro_torch.kernels.scan.ops import prefix_sum
+
+    fused = [(n, plan, cfg) for n, _, cfg, plan, _ in runs
+             if plan.kind == "fused"]
+    for n, plan, cfg in fused:          # warm both up outside the trace
+        prefix_sum(inputs[n])
+        scan_add_block(inputs[n], rows_per_program=plan.rows,
+                       tile_n=plan.tile_n, stages=plan.stages,
+                       unroll=cfg["unroll"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for n, plan, cfg in fused:
+            prefix_sum(inputs[n])
+            scan_add_block(inputs[n], rows_per_program=plan.rows,
+                           tile_n=plan.tile_n, stages=plan.stages,
+                           unroll=cfg["unroll"])
+        torch.cuda.synchronize()
+    device = {}
+    for evt in prof.key_averages():
+        t = getattr(evt, "device_time_total", None)
+        if t is None:
+            t = getattr(evt, "cuda_time_total", 0.0)
+        if t and "scan" in evt.key:
+            device[evt.key[:80]] = {"device_ms": t / 1e3,
+                                    "calls": evt.count}
+    log(f"[trace] scan kernels at n = {[n for n, _, _ in fused]}: "
+        f"{json.dumps(device, sort_keys=True)}")
 
 
 def linrec_inputs(gen, dev, batch, n, dtype=None):
@@ -872,6 +1016,147 @@ def phase_tridiag_path(dev):
     return systems, recs, plans, counts
 
 
+def cusparse_library():
+    """The CUDA toolkit's libcusparse.so beside the nvcc the build uses,
+    after the toolkit's own libnvJitLink.so.12 (loaded first, global:
+    PyTorch's wheels bring an older one, which this libcusparse cannot
+    link against, so this must run before torch is imported).  Raises
+    when either does not load."""
+    import ctypes
+    import glob
+    nvcc = None
+    for cand in (os.environ.get("CUDACXX"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            nvcc = cand
+            break
+    if nvcc is None:
+        from shutil import which
+        nvcc = which("nvcc")
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: no CUDA toolkit for cuSPARSE")
+    root = os.path.dirname(os.path.dirname(os.path.realpath(nvcc)))
+    libdirs = [os.path.join(root, "lib64")] + sorted(
+        glob.glob(os.path.join(root, "targets", "*", "lib")))
+    for name in ("libnvJitLink.so.12", "libcusparse.so.12"):
+        found = [os.path.join(d, name) for d in libdirs
+                 if os.path.exists(os.path.join(d, name))]
+        if not found:
+            raise RuntimeError(f"no {name} under {root}")
+        lib = ctypes.CDLL(found[0], mode=ctypes.RTLD_GLOBAL)
+    return lib, found[0]
+
+
+class CusparseGtsv:
+    """cuSPARSE's batched tridiagonal solver ``gtsv2StridedBatch`` (the
+    paper's yardstick for PCR), bound with ctypes from the CUDA toolkit
+    (:func:`cusparse_library`).  Timed here as kernel 7's ``library_ms``;
+    the port never calls it."""
+
+    def __init__(self, lib, path):
+        import ctypes
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.cusparseCreate.argtypes = [ctypes.POINTER(vp)]
+        lib.cusparseSetStream.argtypes = [vp, vp]
+        lib.cusparseDestroy.argtypes = [vp]
+        lib.cusparseSgtsv2StridedBatch_bufferSizeExt.argtypes = [
+            vp, i32, vp, vp, vp, vp, i32, i32, ctypes.POINTER(ctypes.c_size_t)]
+        lib.cusparseSgtsv2StridedBatch.argtypes = [vp, i32, vp, vp, vp, vp,
+                                                   i32, i32, vp]
+        for fn in (lib.cusparseCreate, lib.cusparseSetStream,
+                   lib.cusparseDestroy,
+                   lib.cusparseSgtsv2StridedBatch_bufferSizeExt,
+                   lib.cusparseSgtsv2StridedBatch):
+            fn.restype = i32
+        self.lib, self.ctypes, self.path = lib, ctypes, path
+        self.handle = vp()
+        self._check(lib.cusparseCreate(ctypes.byref(self.handle)), "Create")
+
+    def _check(self, status, what):
+        if status != 0:
+            raise RuntimeError(f"cusparse{what} failed: status {status}")
+
+    def solver(self, a, b, c, d):
+        """A call that solves the (batch, n) f32 systems in place in x (a
+        copy of d), and x; a[:, 0] and c[:, -1] must be 0, as the
+        library asks."""
+        import torch
+        batch, n = a.shape
+        x = d.clone()
+        size = self.ctypes.c_size_t()
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        self._check(self.lib.cusparseSetStream(self.handle, stream),
+                    "SetStream")
+        self._check(self.lib.cusparseSgtsv2StridedBatch_bufferSizeExt(
+            self.handle, n, a.data_ptr(), b.data_ptr(), c.data_ptr(),
+            x.data_ptr(), batch, n, self.ctypes.byref(size)),
+            "Sgtsv2StridedBatch_bufferSizeExt")
+        buf = torch.empty(max(size.value, 1), dtype=torch.uint8,
+                          device=a.device)
+
+        def call():
+            self._check(self.lib.cusparseSgtsv2StridedBatch(
+                self.handle, n, a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                x.data_ptr(), batch, n, buf.data_ptr()),
+                "Sgtsv2StridedBatch")
+        return call, x
+
+    def close(self):
+        self._check(self.lib.cusparseDestroy(self.handle), "Destroy")
+
+
+def cusparse_probe(lib, path, cases):
+    """In a process of its own (``--cusparse``, started by
+    :func:`phase_cusparse`, with the toolkit's libraries loaded before
+    torch): per (n, pcr config), diagonally dominant systems of 2^26
+    equations from a seed, gtsv2StridedBatch's solution once against
+    pcr's at DTYPE_TOL f32, then its time (repeated solves in place: the
+    work of a call does not depend on x).  Prints one JSON line."""
+    import torch
+    sys.path.insert(0, SRC)
+    from repro_torch.kernels.tridiag.kernel import pcr
+    from repro_torch.kernels.tridiag.ref import random_system
+    dev = torch.device("cuda", 0)
+    gtsv = CusparseGtsv(lib, path)
+    gen = torch.Generator(device=dev).manual_seed(27)
+    out = {}
+    try:
+        for n, cfg in cases:
+            a, b, c, d = random_system(gen, TOTAL_ELEMS // n, n)
+            call, x = gtsv.solver(a, b, c, d)
+            call()
+            want = pcr(a, b, c, d, **cfg)
+            torch.cuda.synchronize()
+            err = check_close(x, want, "float32",
+                              f"cusparse gtsv2StridedBatch n={n} vs pcr")
+            out[str(n)] = {"ms": time_ms(call, 10),
+                           "pcr_ms": time_ms(lambda: pcr(a, b, c, d, **cfg),
+                                             10),
+                           "max_abs_err_vs_pcr": err,
+                           "shape": list(a.shape), "pcr_config": cfg}
+            del a, b, c, d, x, want
+    finally:
+        gtsv.close()
+    print(json.dumps({"library": os.path.basename(path), "n": out}),
+          flush=True)
+
+
+def phase_cusparse(cfgs):
+    """cuSPARSE gtsv2StridedBatch beside pcr at the pcr main-path shapes,
+    in a child process (its libraries clash with PyTorch's once torch is
+    loaded); fails when the child does."""
+    cases = json.dumps([[n, cfgs[n]] for n in sorted(cfgs)])
+    child = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--cusparse", cases], capture_output=True,
+                           text=True, timeout=600)
+    if child.returncode != 0:
+        raise RuntimeError(f"the cuSPARSE phase failed "
+                           f"({child.returncode}):\n{child.stdout[-2000:]}"
+                           f"\n{child.stderr[-4000:]}")
+    result = json.loads(child.stdout.strip().splitlines()[-1])
+    log(f"[cusparse] {json.dumps(result, sort_keys=True)}")
+    return {int(n): v for n, v in result["n"].items()}
+
+
 def phase_tridiag_numbers(dev, systems, recs, plans, counts, errs,
                           bandwidth: float):
     """Times, bounds and errors of the four kernels at their main-path
@@ -955,11 +1240,15 @@ def phase_tridiag_numbers(dev, systems, recs, plans, counts, errs,
         library=lambda: torch.addcmul(h, p, e)))
     del a, b, h, p, e
     # kernel 7 at solve(variant="pcr")'s n = 1024 call
-    planes = systems[max(n for v, n, _ in tridiag_path_cases()
-                         if v == "pcr")]
+    cfgs = {}
+    for v, n, batch in tridiag_path_cases():
+        if v == "pcr":
+            cfgs[n] = default_session().resolve(
+                Workload(op="tridiag", n=n, batch=batch, variant="pcr"))
+    gtsv = phase_cusparse(cfgs)
+    planes = systems[max(cfgs)]
     batch, n = planes[0].shape
-    cfg = default_session().resolve(Workload(op="tridiag", n=n, batch=batch,
-                                             variant="pcr"))
+    cfg = cfgs[n]
     # per level and equation: 2 divides, 6 multiplies, 4 adds; then x = d/b
     flops = planes[0].numel() * (12 * pcr_steps(n) + 1)
     entries.append(entry(
@@ -967,6 +1256,12 @@ def phase_tridiag_numbers(dev, systems, recs, plans, counts, errs,
         "src/repro/kernels/tridiag/kernel.py:47",
         lambda: (pcr(*planes, **cfg),), lambda: (pcr_plain(*planes, **cfg),),
         5 * planes[0].numel() * 4, flops, planes[0].shape, cfg, "pcr"))
+    # library_ms: cuSPARSE gtsv2StridedBatch at the same shape
+    entries[-1].update(library_ms=gtsv[n]["ms"],
+                       library="cusparseSgtsv2StridedBatch",
+                       library_ms_by_n={str(k): v["ms"]
+                                        for k, v in gtsv.items()})
+    log(f"[numbers] pcr library_ms (cuSPARSE) {entries[-1]['library_ms']}")
 
     ends = []
     for variant, n, batch in tridiag_path_cases():
@@ -1005,11 +1300,16 @@ def phase_fft_kernels(dev, quick: bool):
     from repro_torch.core.space import Workload, fft_space
     from repro_torch.hw.profiles import get_profile
     from repro_torch.kernels.blocks.plan import stage_radices
-    from repro_torch.kernels.fft.kernel import fft_plain, fft_stockham
+    from repro_torch.kernels.fft.kernel import (fft_plain, fft_route,
+                                                fft_stockham)
 
     gen = torch.Generator(device=dev).manual_seed(6)
     worst = 0.0
     cases = 0
+    unequal = {"pow2": 0, "generic": 0}
+
+    def count(got, ref, n, stages):
+        unequal[fft_route(n, stages)] += int((got != ref).sum())
     for batch, n, rows, radix, unroll in fft_stage_cases():
         x = torch.randn(batch, n, generator=gen, device=dev,
                         dtype=torch.complex64)
@@ -1023,6 +1323,7 @@ def phase_fft_kernels(dev, quick: bool):
                 got, ref, f"fft_stockham ({batch},{n}) rows={rows} "
                           f"stages={kw['stages']} unroll={unroll} "
                           f"inverse={inverse}"))
+            count(got, ref, n, kw["stages"])
             cases += 1
     log(f"[kernels] fft_stockham: {cases} shape/stage/direction cases within "
         f"tolerance (max relative err {worst:.3e})")
@@ -1049,6 +1350,7 @@ def phase_fft_kernels(dev, quick: bool):
                 worst = max(worst, check_complex(
                     got, plain[stages], f"fft_space({wl.key}) config {cfg} "
                                         f"inverse={inverse}"))
+                count(got, plain[stages], n, stages)
                 del got
             torch.cuda.synchronize()
             del x, plain
@@ -1056,7 +1358,11 @@ def phase_fft_kernels(dev, quick: bool):
             f"configs launch and match the plain version, forward and "
             f"inverse")
     log(f"[kernels] fft_stockham: max relative err against fft_plain "
-        f"{worst:.3e}")
+        f"{worst:.3e}; elements not bit-equal to fft_plain, by route "
+        f"{unequal}")
+    if any(unequal.values()):
+        raise AssertionError(f"fft_stockham is not bit-equal to fft_plain: "
+                             f"{unequal} elements differ")
     return worst
 
 
@@ -1113,7 +1419,11 @@ def phase_fft_path(dev):
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"[main] launches on the FFT path: {counts}")
-    require_launched(counts, ("fft_stockham",), "the FFT path")
+    require_launched(counts, ("fft_stockham", "fft_stockham.pow2"),
+                     "the FFT path")
+    if counts["fft_stockham.generic"]:
+        raise AssertionError(f"{counts['fft_stockham.generic']} FFT-path "
+                             f"launches took the generic kernel")
 
     runs = []
     for name, n, batch, cfg, y, launched in outputs:
@@ -1164,7 +1474,8 @@ def phase_fft_numbers(dev, inputs, runs, counts, err, bandwidth: float):
     import torch
     from repro_torch.kernels.blocks.driver import _twiddle, dispatch_fft
     from repro_torch.kernels.blocks.plan import stage_radices
-    from repro_torch.kernels.fft.kernel import fft_plain, fft_stockham
+    from repro_torch.kernels.fft.kernel import (fft_generic, fft_plain,
+                                                fft_stockham)
     from repro_torch.kernels.fft.ops import fft
 
     rows = []
@@ -1215,9 +1526,15 @@ def phase_fft_numbers(dev, inputs, runs, counts, err, bandwidth: float):
              "source": "src/repro_torch/csrc/fft.cu",
              "replaces": "src/repro/kernels/fft/kernel.py:53",
              "launches": counts["fft_stockham"],
+             "launches_by_route": {r: counts[f"fft_stockham.{r}"]
+                                   for r in ROUTES["fft_stockham"]},
              "max_abs_err": float((got - ref).abs().max()),
+             "unequal_elements": int((got != ref).sum()),
              "ms": time_ms(lambda: fft_stockham(x, unroll=int(plan.ilp), **kw),
                            10),
+             # the generic kernel (the earlier design) on the same inputs
+             "generic_ms": time_ms(lambda: fft_generic(
+                 x, unroll=int(plan.ilp), **kw), 10),
              "plain_ms": time_ms(lambda: fft_plain(x, **kw), 3, warmup=1),
              "bound_ms": max(by_bytes, by_ops),
              "bound_by": "bytes" if by_bytes >= by_ops else "operations",
@@ -1229,10 +1546,13 @@ def phase_fft_numbers(dev, inputs, runs, counts, err, bandwidth: float):
     del got, ref
     log(f"[numbers] {json.dumps(entry, sort_keys=True)}")
     # the kernel over the space's radix x rows at this shape (unroll 1)
-    sweep = {f"radix {radix} rows {r}": time_ms(
-        lambda: fft_stockham(x, rows_per_program=r,
-                             stages=stage_radices(n, radix)), 10)
-        for radix in (2, 4, 8, 16) for r in (1, 2, 4, 8)}
+    sweep = {}
+    for radix in (2, 4, 8, 16):
+        for r in (1, 2, 4, 8):
+            for name, fn in (("pow2", fft_stockham), ("generic", fft_generic)):
+                sweep[f"{name} radix {radix} rows {r}"] = time_ms(
+                    lambda: fn(x, rows_per_program=r,
+                               stages=stage_radices(n, radix)), 5)
     log(f"[numbers] fft_stockham ms at ({batch}, {n}): "
         f"{json.dumps(sweep)}")
     return entry, rows
@@ -2319,7 +2639,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
                     help="build and check the kernels only")
+    ap.add_argument("--cusparse", metavar="CASES",
+                    help=argparse.SUPPRESS)   # the cuSPARSE phase's child
     args = ap.parse_args(argv)
+    if args.cusparse:
+        lib, path = cusparse_library()     # before torch: see its note
+        cusparse_probe(lib, path, json.loads(args.cusparse))
+        return 0
 
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print(f"chip_smoke: no src/repro_torch beside {__file__}: run it "

@@ -1,19 +1,26 @@
-// Hand-written Hopper kernel for the batched complex FFT: self-sorting
+// Hand-written Hopper kernels for the batched complex FFT: self-sorting
 // mixed-radix Stockham, each row resident in shared memory.
 //
-//   repro_fft  replaces repro/kernels/fft/kernel.py fft_pallas.
+//   repro_fft_pow2  replaces repro/kernels/fft/kernel.py fft_pallas for
+//                   power-of-two rows of 16 to 8192 points with fan-ins 2,
+//                   4, 8 and 16: every config of the h100 fft space and
+//                   every launch of the four-step driver (route "pow2");
+//   repro_fft       the same function for any other row or stage sequence
+//                   (ragged and prime stages such as (8, 6, 2) at n = 96
+//                   and (2, 53) at n = 106, rows below 16 points; route
+//                   "generic").
 //
 // Built with nvcc for sm_90a into the port's shared library (plain C
 // interface, loaded with ctypes by repro_torch/kernels/build.py).  The
-// entry point launches on the caller's stream, allocates nothing, and
-// returns cudaGetLastError() (or the error of the call that failed first).
+// entry points launch on the caller's stream, allocate nothing, and
+// return cudaGetLastError() (or the error of the call that failed first).
 //
-// What it computes.  The DFT of each row of a (batch, n) complex64 array,
+// What they compute.  The DFT of each row of a (batch, n) complex64 array,
 // in f32, written as complex64 (inverse: the conjugate transform scaled by
-// 1/n at the store).  It follows the plan the tuner chose:
-//   * one thread block owns `rows` whole rows (the CUDA grid is
-//     batch / rows); the rows it holds at once are resident in shared
-//     memory;
+// 1/n at the store).  They follow the plan the tuner chose:
+//   * `rows` rows make one program (a block's worth of rows resident at
+//     once; the CUDA grid of the generic kernel is batch / rows, the pow2
+//     kernel's a persistent grid whose blocks walk the programs);
 //   * the plan's stage sequence (stage_radices, mixed radix included) is
 //     passed by value.  Stage t views a row as (n_cur, s), s the product of
 //     the earlier fan-ins, m = n_cur / rr, and for every (p < m, q < s)
@@ -23,33 +30,55 @@
 //     (+ for the inverse): the rr-point DFT folded over k in order, then the
 //     twiddle, the radix digit innermost (self-sorting, no bit reversal);
 //   * the first stage reads the input from device memory and the last one
-//     writes the output there; the stages between them ping-pong between
-//     two shared-memory buffers, one barrier a stage;
-//   * fan-ins 2, 4, 8 and 16 are specialised (the rr inputs of a butterfly
-//     held in registers, the loops unrolled); any other fan-in (the ragged
-//     and prime tails: (8, 6, 2) at n = 96, (2, 53) at n = 106) runs a
-//     generic loop that reads its inputs from the buffer;
-//   * `unroll` is the least number of butterflies a thread owns per stage
-//     (launch geometry only: the TPU kernel does not read the knob, and it
-//     changes no result here).
+//     writes the output there;
+//   * `unroll` is launch geometry only (the TPU kernel does not read the
+//     knob, and it changes no result here).
 // Rounding.  Every multiply and add is __fmul_rn / __fadd_rn / __fsub_rn
 // (no FMA contraction, no fast math), in the order of the plain version
 // (primitives.butterfly): the DFT weights w^t are cos/sin in float64
 // rounded to f32, as Python computes them; theta_j is rounded to f32, the
 // product theta_j * p is taken in f32 and its cos/sin by sincosf (the
 // precise libdevice version, which may differ from PyTorch's by an ulp).
-// Both tables are built once per block in shared memory.
+// The pow2 kernel keeps that order and those values, so both kernels equal
+// fft_plain bit for bit.  Where a weight is w^0 = (1, -+0) exactly, its
+// product is skipped: x * 1 - y * 0 is x (a zero's sign aside, which the
+// sum starting from +0 never keeps), so the sums are unchanged.
 //
-// What bounds it on the card: at the paper's sizes memory bandwidth (16
+// What bounds it on the card: memory bandwidth at the paper's sizes (16
 // bytes an element: one complex64 read, one written), with log_rr(n)
 // stages of on-chip work; the rr-point DFT is folded directly (rr complex
 // multiply-adds an output, as on the TPU), so radix 16 costs more
-// operations than radix 2.  A block that holds rows * n = 8192 points uses
-// 128 KiB of shared memory (two complex f32 buffers), above the 48 KB
-// default, so the launch raises the block's dynamic shared-memory limit.
-// Where a plan's rows * n does not fit (the four-step column launches take
-// their rows from the large-N config), the block transforms its rows in
-// groups that do.
+// operations than radix 2.  The generic kernel (route "generic",
+// fft_kernel below) was held back by that on-chip work: a precise sincosf
+// for every output with j > 0 of every stage (its slow path's local array
+// is the kernel's stack frame), two runtime integer divisions a butterfly,
+// and two shared buffers of rows * n points (128 KB at rows 8) behind 92
+// registers x 512 threads, one block an SM.  The pow2 kernel does this
+// instead:
+//   * the twiddles exp(i theta_j p) of every stage (sum of (rr - 1) m, about
+//     n values) and the DFT weights are tabled in shared memory once per
+//     block, by the kernel's own expression, and the grid is persistent
+//     (as many blocks as fit on the card, each walking programs), so the
+//     table is built once per block on an SM, not once per program;
+//   * n and s are powers of two: a butterfly's row, p and q, and its input
+//     and output offsets, are shifts and masks; the stage is specialised on
+//     the fan-ins of its group, its loops unrolled;
+//   * consecutive stages whose fan-ins multiply to at most 16 run as one
+//     group in registers (StageGroup: radix 4 pairs its stages, radix 2
+//     takes four at a time), so a row goes through shared memory once a
+//     group, not once a stage: three times at n = 1024 for radix 2, 4, 8
+//     and 16 alike.  A group's butterflies are the stages' own, point for
+//     point, so the arithmetic and its order do not change;
+//   * each thread holds 16 points (32 at unroll >= 2) of every group in
+//     registers; the block reads them all, waits at one barrier, then
+//     writes the outputs in place into the one shared buffer, so a block
+//     of at most 256 threads holds 4096 points (8192 at 32 a thread; one
+//     row of 8192 takes 512 threads of 16), 34 KB with its padding, and
+//     two blocks share an SM at 128 registers a thread;
+//   * reads of a stage are coalesced (lane i reads point i of a run), in
+//     shared and in device memory; the shared buffer puts a pad slot after
+//     every 16 points, which spreads the strided writes of the early stages
+//     (p rr + j) s + q over the banks.
 
 #include <cuda_runtime.h>
 
@@ -215,6 +244,405 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The pow2 kernel (route "pow2")
+// ---------------------------------------------------------------------------
+
+constexpr int kPow2MinN = 16;
+constexpr int kPow2MaxN = 8192;
+// Blocks take programs' rows in groups of at most kPow2BlockThreads
+// threads' points (two blocks an SM), or one row where a row needs more
+// (n = 8192 at 16 points a thread: 512 threads).
+constexpr int kPow2BlockThreads = 256;
+constexpr int kPow2MaxThreads = 512;
+
+struct Pow2Stages {
+  int log_r[kMaxStages];
+  // the stages in register groups (StageGroup): first stage, stages and
+  // code of each group
+  int groups;
+  int group_first[kMaxStages];
+  int group_size[kMaxStages];
+  int group_code[kMaxStages];
+};
+
+// Stage t of the plan: its weights start at w_off and twiddles at tw_off
+// in the tables; (log2 s, log2 m) as the stage views a row.
+struct StageView {
+  int log_s, log_m, w_off, tw_off;
+};
+
+__device__ __forceinline__ StageView stage_view(const Pow2Stages& st,
+                                                int log_n, int t) {
+  StageView v{0, 0, 0, 0};
+  for (int u = 0; u < t; ++u) {
+    const int r = 1 << st.log_r[u];
+    const int m = 1 << (log_n - v.log_s - st.log_r[u]);
+    v.w_off += r;
+    v.tw_off += (r - 1) * m;
+    v.log_s += st.log_r[u];
+  }
+  v.log_m = log_n - v.log_s - st.log_r[t];
+  return v;
+}
+
+// A group of up to four consecutive stages (fan-ins 2^L1 ... 2^L4, L = 0
+// for an absent stage) whose fan-ins multiply to P <= 16: one thread runs
+// all of them on P points in registers.  With s the stride and n_t the
+// length (n / s) at the group's first stage, and m_l = n_t / (R_1 ... R_l),
+// the thread that owns (p, q), p < n_t / P, q < s, reads the points
+//   (k_1 m_1 + ... + k_U m_U + p) s + q
+// (register K = k_1 + R_1 (k_2 + R_2 (...)), digit 1 lowest); stage i is
+// the butterfly over digit i of every register set that shares the other
+// digits, at the stage's own p_i = p + sum_{l > i} k_l m_l, its outputs j_i
+// replacing k_i; register J = j_1 + R_1 (j_2 + ...) then lands at
+//   p (P s) + J s + q.
+// Each stage's butterflies are exactly those of the stage alone (the same
+// points, weights, twiddles and order), so the results are the same bits.
+template <int L1, int L2, int L3, int L4>
+struct StageGroup {
+  __host__ __device__ static constexpr int l(int i) {
+    return i == 0 ? L1 : i == 1 ? L2 : i == 2 ? L3 : L4;
+  }
+  __host__ __device__ static constexpr int shift(int i) {   // digit i's bits
+    return i == 0 ? 0 : i == 1 ? L1 : i == 2 ? L1 + L2 : L1 + L2 + L3;
+  }
+  static constexpr int kCount = (L1 > 0) + (L2 > 0) + (L3 > 0) + (L4 > 0);
+  static constexpr int kLogP = L1 + L2 + L3 + L4;
+  static constexpr int kP = 1 << kLogP;
+};
+
+// Point i of the resident rows sits at i + i / 16 in the shared buffer:
+// one pad slot every 16 points spreads a group's strided writes over the
+// banks (radix 16's first stage writes 16 points apart).
+__device__ __forceinline__ int padded(int i) { return i + (i >> 4); }
+
+// Stage I of a group on one thread's P registers (see StageGroup).  The
+// group's last stage writes its outputs to dst (register J at out + J s)
+// instead of back to the registers.
+template <class G, int I, int P, bool LAST>
+__device__ __forceinline__ void register_stage(
+    float2 (&v)[P], int p, const int (&log_m)[4], const float2* w,
+    const float2* tw, bool scale_it, float scale, float2* dst,
+    bool dst_shared, int out, int log_s) {
+  constexpr int LR = G::l(I);
+  constexpr int R = 1 << LR;
+  constexpr int SH = G::shift(I);
+#pragma unroll
+  for (int o = 0; o < P; ++o) {
+    if ((o >> SH) & (R - 1)) continue;   // o: the other digits, digit I = 0
+    int pi = p;
+#pragma unroll
+    for (int l = I + 1; l < 4; ++l)
+      pi += ((o >> G::shift(l)) & ((1 << G::l(l)) - 1)) << log_m[l];
+    float2 t[LAST ? 1 : R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      float tr = 0.0f, ti = 0.0f;
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        const float2 xk = v[o + (k << SH)];
+        const int e = (j * k) & (R - 1);
+        if (e == 0) {   // w^0 = (1, -+0): the product is x itself
+          tr = __fadd_rn(tr, xk.x);
+          ti = __fadd_rn(ti, xk.y);
+        } else {
+          fold(tr, ti, xk, w[e]);
+        }
+      }
+      if (j != 0) {
+        const float2 c = tw[((j - 1) << log_m[I]) + pi];
+        const float nr = __fsub_rn(__fmul_rn(tr, c.x), __fmul_rn(ti, c.y));
+        const float ni = __fadd_rn(__fmul_rn(tr, c.y), __fmul_rn(ti, c.x));
+        tr = nr;
+        ti = ni;
+      }
+      if (scale_it) {
+        tr = __fmul_rn(tr, scale);
+        ti = __fmul_rn(ti, scale);
+      }
+      if constexpr (LAST) {
+        const int at = out + ((o + (j << SH)) << log_s);
+        dst[dst_shared ? padded(at) : at] = make_float2(tr, ti);
+      } else {
+        t[j] = make_float2(tr, ti);
+      }
+    }
+    if constexpr (!LAST) {
+#pragma unroll
+      for (int j = 0; j < R; ++j) v[o + (j << SH)] = t[j];
+    }
+  }
+}
+
+// The views of a group's stages: stride of its first, and per stage its
+// log2 m and where its weights and twiddles start in the tables.
+struct GroupView {
+  int log_s;
+  int log_m[4];
+  int w_off[4];
+  int tw_off[4];
+};
+
+// One group over `gr` resident rows: thread threadIdx.x owns the units
+// (row, p, q) threadIdx.x + b * blockDim.x, b < C / P.  Reads all its
+// points, waits (in place, when src is the shared buffer), runs the
+// group's stages in registers, the last one writing its outputs.
+template <int L1, int L2, int L3, int L4, int C>
+__device__ __forceinline__ void group_pass(
+    const float2* src, float2* dst, bool src_shared, bool dst_shared, int gr,
+    int log_n, const GroupView& gv, const float2* wtab, const float2* twtab,
+    bool scale_last, float scale) {
+  using G = StageGroup<L1, L2, L3, L4>;
+  constexpr int P = G::kP;
+  constexpr int B = C / P;
+  constexpr int U = G::kCount;
+  const int log_units = log_n - G::kLogP;   // units in a row: n / P
+  const int total = gr << log_units;
+  const int threads = blockDim.x;
+  float2 v[B][P];
+#pragma unroll
+  for (int b = 0; b < B; ++b) {
+    const int u = threadIdx.x + b * threads;
+    if (u >= total) continue;
+    const int base = ((u >> log_units) << log_n) + (u & ((1 << log_units) - 1));
+#pragma unroll
+    for (int K = 0; K < P; ++K) {
+      int off = base;
+#pragma unroll
+      for (int l = 0; l < 4; ++l)
+        off += ((K >> G::shift(l)) & ((1 << G::l(l)) - 1))
+               << (log_n - G::shift(l) - G::l(l));
+      v[b][K] = src[src_shared ? padded(off) : off];
+    }
+  }
+  if (src_shared) __syncthreads();   // every read before any write
+#pragma unroll
+  for (int b = 0; b < B; ++b) {
+    const int u = threadIdx.x + b * threads;
+    if (u >= total) continue;
+    const int row = u >> log_units;
+    const int rem = u & ((1 << log_units) - 1);
+    const int p = rem >> gv.log_s;
+    const int q = rem & ((1 << gv.log_s) - 1);
+    const int out = (row << log_n) + (p << (gv.log_s + G::kLogP)) + q;
+#define REPRO_STAGE(I)                                                      \
+    register_stage<G, I, P, U == I + 1>(                                    \
+        v[b], p, gv.log_m, wtab + gv.w_off[I], twtab + gv.tw_off[I],        \
+        scale_last && U == I + 1, scale, dst, dst_shared, out, gv.log_s);
+    REPRO_STAGE(0)
+    if constexpr (U > 1) { REPRO_STAGE(1) }
+    if constexpr (U > 2) { REPRO_STAGE(2) }
+    if constexpr (U > 3) { REPRO_STAGE(3) }
+#undef REPRO_STAGE
+  }
+  if (dst_shared) __syncthreads();
+}
+
+// The group codes the host passes: L1 | L2 << 3 | L3 << 6 | L4 << 9, every
+// ordered split of log2 P <= 4 into fan-ins 2 ... 16.
+#define REPRO_GROUP_CASES(X) \
+  X(1, 0, 0, 0) X(2, 0, 0, 0) X(1, 1, 0, 0) X(3, 0, 0, 0) X(1, 2, 0, 0) \
+  X(2, 1, 0, 0) X(1, 1, 1, 0) X(4, 0, 0, 0) X(1, 3, 0, 0) X(3, 1, 0, 0) \
+  X(2, 2, 0, 0) X(1, 1, 2, 0) X(1, 2, 1, 0) X(2, 1, 1, 0) X(1, 1, 1, 1)
+
+__host__ __device__ constexpr int group_code(int l1, int l2, int l3,
+                                           int l4) {
+  return l1 | l2 << 3 | l3 << 6 | l4 << 9;
+}
+
+template <int C>
+__device__ __forceinline__ void group_dispatch(
+    int code, const float2* src, float2* dst, bool src_shared,
+    bool dst_shared, int gr, int log_n, const GroupView& gv,
+    const float2* wtab, const float2* twtab, bool scale_last, float scale) {
+  switch (code) {
+#define REPRO_GROUP_CASE(A, B, C_, D)                                     \
+  case group_code(A, B, C_, D):                                           \
+    group_pass<A, B, C_, D, C>(src, dst, src_shared, dst_shared, gr, log_n, \
+                               gv, wtab, twtab, scale_last, scale);       \
+    break;
+    REPRO_GROUP_CASES(REPRO_GROUP_CASE)
+#undef REPRO_GROUP_CASE
+    default: break;
+  }
+}
+
+// 128 registers a thread at 16 points (the occupancy of two blocks of 256
+// threads beats spill-free code at one block: measured on the H100), 255
+// at 32.
+template <int C>
+__global__ void __launch_bounds__(C == 16 ? kPow2MaxThreads
+                                          : kPow2BlockThreads, 1)
+    fft_pow2_kernel(const float2* __restrict__ x, float2* __restrict__ y,
+                    int log_n, int rows, int group, long long programs,
+                    Pow2Stages st, int w_count, int tw_count, int inverse) {
+  extern __shared__ float2 smem[];
+  const int n = 1 << log_n;
+  float2* buf = smem;
+  float2* wtab = smem + padded(group * n);
+  float2* twtab = wtab + w_count;
+  const double sign = inverse ? 1.0 : -1.0;
+
+  // the tables, once per block: per stage its rr DFT weights, and its
+  // (rr - 1) m twiddles exp(i theta_j p), j >= 1, at (j - 1) m + p
+  for (int idx = threadIdx.x; idx < w_count + tw_count;
+       idx += blockDim.x) {
+    int t = 0, log_s = 0, off = idx < w_count ? idx : idx - w_count;
+    if (idx < w_count) {
+      while (off >= (1 << st.log_r[t])) {
+        off -= 1 << st.log_r[t];
+        ++t;
+      }
+      const int r = 1 << st.log_r[t];
+      const double ang = sign * 2.0 * kPi * off / r;
+      wtab[idx] = make_float2(static_cast<float>(cos(ang)),
+                              static_cast<float>(sin(ang)));
+    } else {
+      int m = n >> st.log_r[0];
+      while (off >= ((1 << st.log_r[t]) - 1) * m) {
+        off -= ((1 << st.log_r[t]) - 1) * m;
+        log_s += st.log_r[t];
+        ++t;
+        m = n >> (log_s + st.log_r[t]);
+      }
+      const int n_cur = n >> log_s;
+      const int j = 1 + off / m;
+      const int p = off - (j - 1) * m;
+      const float th = static_cast<float>(sign * 2.0 * kPi * j / n_cur);
+      float sn, cs;
+      sincosf(__fmul_rn(th, static_cast<float>(p)), &sn, &cs);
+      twtab[idx - w_count] = make_float2(cs, sn);
+    }
+  }
+  __syncthreads();
+
+  const bool scale_it = inverse != 0;
+  const float scale = static_cast<float>(1.0 / n);
+  const int per_program = (rows + group - 1) / group;
+  const long long groups = programs * per_program;
+  for (long long gid = blockIdx.x; gid < groups; gid += gridDim.x) {
+    const long long prog = gid / per_program;
+    const int g0 = static_cast<int>(gid - prog * per_program) * group;
+    const int gr = min(group, rows - g0);
+    const long long first = prog * rows + g0;
+    const float2* gsrc = x + (first << log_n);
+    float2* gdst = y + (first << log_n);
+    for (int g = 0; g < st.groups; ++g) {
+      const bool first_group = g == 0, last = g == st.groups - 1;
+      const float2* src = first_group ? gsrc : buf;
+      float2* dst = last ? gdst : buf;
+      // (the loop is unrolled so that gv's arrays stay in registers)
+      GroupView gv;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool in = i < st.group_size[g];
+        const StageView v =
+            stage_view(st, log_n, in ? st.group_first[g] + i : 0);
+        if (i == 0) gv.log_s = v.log_s;
+        gv.log_m[i] = in ? v.log_m : 0;
+        gv.w_off[i] = in ? v.w_off : 0;
+        gv.tw_off[i] = in ? v.tw_off : 0;
+      }
+      group_dispatch<C>(st.group_code[g], src, dst, !first_group, !last, gr,
+                        log_n, gv, wtab, twtab, last && scale_it, scale);
+    }
+  }
+}
+
+// The pow2 kernel's geometry for a plan: rows resident at once (group),
+// threads, table sizes and shared memory; false where it does not take the
+// plan (the wrapper's route function never sends such a plan here).
+struct Pow2Geometry {
+  Pow2Stages st;
+  int log_n, group, threads, points, w_count, tw_count;
+  size_t smem;
+};
+
+bool pow2_geometry(int n, int rows, const int* radix, int n_stages,
+                   int unroll, Pow2Geometry* g) {
+  if (n < kPow2MinN || n > kPow2MaxN || (n & (n - 1)) || rows < 1 ||
+      unroll < 1 || n_stages < 1 || n_stages > kMaxStages)
+    return false;
+  int log_n = 0;
+  while ((1 << log_n) < n) ++log_n;
+  g->log_n = log_n;
+  g->w_count = g->tw_count = 0;
+  int log_s = 0;
+  for (int t = 0; t < n_stages; ++t) {
+    const int r = radix[t];
+    const int lr = r == 2 ? 1 : r == 4 ? 2 : r == 8 ? 3 : r == 16 ? 4 : 0;
+    if (lr == 0) return false;
+    g->st.log_r[t] = lr;
+    g->w_count += r;
+    g->tw_count += (r - 1) * (n >> (log_s + lr));
+    log_s += lr;
+  }
+  if (log_s != log_n) return false;
+  // register groups: consecutive stages while their fan-ins multiply to
+  // at most 16 points
+  Pow2Stages& st = g->st;
+  st.groups = 0;
+  for (int t = 0; t < n_stages;) {
+    int size = 0, log_p = 0, code = 0;
+    while (t + size < n_stages && size < 4 &&
+           log_p + st.log_r[t + size] <= 4) {
+      code |= st.log_r[t + size] << (3 * size);
+      log_p += st.log_r[t + size];
+      ++size;
+    }
+    if (size == 0) return false;
+    st.group_first[st.groups] = t;
+    st.group_size[st.groups] = size;
+    st.group_code[st.groups] = code;
+    ++st.groups;
+    t += size;
+  }
+  // 16 points a thread, 32 at unroll >= 2
+  g->points = unroll >= 2 ? 32 : 16;
+  const int fit = kPow2BlockThreads * g->points / n;
+  const int max_rows = fit > 1 ? fit : 1;
+  g->group = rows < max_rows ? rows : max_rows;
+  const size_t tables = sizeof(float2) * (g->w_count + g->tw_count);
+  auto buffer = [n](int group) {   // group rows, padded
+    const size_t points = static_cast<size_t>(group) * n;
+    return sizeof(float2) * (points + points / 16);
+  };
+  while (g->group > 1 && tables + buffer(g->group) > kSmemLimit) --g->group;
+  g->threads = (g->group * n + g->points - 1) / g->points;
+  g->smem = tables + buffer(g->group);
+  return g->smem <= kSmemLimit;
+}
+
+template <int C>
+cudaError_t launch_pow2(const float2* x, float2* y, long long batch,
+                        int rows, const Pow2Geometry& g, int inverse,
+                        cudaStream_t stream) {
+  auto kernel = fft_pow2_kernel<C>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(g.smem));
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, g.threads, g.smem)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long programs = batch / rows;
+  const long long groups = programs * ((rows + g.group - 1) / g.group);
+  long long blocks = static_cast<long long>(sms) * per_sm;
+  if (blocks > groups) blocks = groups;
+  if (blocks == 0) return cudaSuccess;
+  kernel<<<static_cast<unsigned>(blocks), g.threads, g.smem, stream>>>(
+      x, y, g.log_n, rows, g.group, programs, g.st, g.w_count, g.tw_count,
+      inverse);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -270,6 +698,25 @@ int repro_fft(const void* x, void* y, long long batch, int n, int rows,
       static_cast<const float2*>(x), static_cast<float2*>(y), n, rows,
       static_cast<int>(group), st, table, inverse);
   return cudaGetLastError();
+}
+
+// The pow2 kernel (route "pow2"): same arguments and contract as
+// repro_fft; returns cudaErrorInvalidValue for a plan it does not take
+// (n not a power of two from 16 to 8192, a fan-in other than 2, 4, 8, 16,
+// or tables and one row beyond a block's shared memory).
+int repro_fft_pow2(const void* x, void* y, long long batch, int n, int rows,
+                   const int* radix, int n_stages, int unroll, int inverse,
+                   void* stream) {
+  if (rows < 1 || batch % rows) return cudaErrorInvalidValue;
+  Pow2Geometry g;
+  if (!pow2_geometry(n, rows, radix, n_stages, unroll, &g))
+    return cudaErrorInvalidValue;
+  auto xs = static_cast<const float2*>(x);
+  auto ys = static_cast<float2*>(y);
+  auto strm = static_cast<cudaStream_t>(stream);
+  if (g.points == 16)
+    return launch_pow2<16>(xs, ys, batch, rows, g, inverse, strm);
+  return launch_pow2<32>(xs, ys, batch, rows, g, inverse, strm);
 }
 
 }  // extern "C"

@@ -108,6 +108,8 @@ def load_library() -> ctypes.CDLL:
     lib.repro_scan_add.argtypes = [vp, vp, i32, i64, i64, i32, i32,
                                    ctypes.POINTER(ctypes.c_int), i32, i32, vp]
     lib.repro_scan_add.restype = i32
+    lib.repro_scan_add_warp.argtypes = lib.repro_scan_add.argtypes
+    lib.repro_scan_add_warp.restype = i32
     lib.repro_apply_add.argtypes = [vp, vp, vp, i32, i64, i64, i32, vp]
     lib.repro_apply_add.restype = i32
     lib.repro_linrec_scratch.argtypes = [i64, i32, i32]
@@ -125,6 +127,8 @@ def load_library() -> ctypes.CDLL:
                               ctypes.POINTER(ctypes.c_int), i32, i32, i32,
                               vp]
     lib.repro_fft.restype = i32
+    lib.repro_fft_pow2.argtypes = lib.repro_fft.argtypes
+    lib.repro_fft_pow2.restype = i32
     lib.repro_ssd_intra.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i32, i64,
                                     i64, i32, i32, i64, i32, vp]
     lib.repro_ssd_intra.restype = i32

@@ -2,7 +2,11 @@
 and linear recurrence (the (a, b) pair monoid).
 
   * ``scan_add`` replaces ``repro.kernels.scan.kernel.scan_add_pallas``
-    (``csrc/scan.cu`` ``repro_scan_add``);
+    with two kernels of ``csrc/scan.cu``, chosen by the plan alone
+    (:func:`scan_route`): ``repro_scan_add_warp`` (route "warp": warp
+    shuffles and registers, every config of the h100 scan space) and
+    ``repro_scan_add`` (route "block": the earlier design, for the tiles and
+    stage sequences the warp kernel does not take);
   * ``scan_linrec`` replaces ``scan_linrec_pallas`` and
     ``scan_linrec_prod`` replaces ``scan_linrec_prod_pallas`` (both
     ``csrc/linrec.cu`` ``repro_scan_linrec``).
@@ -17,8 +21,9 @@ Layout: problems are rows of a (batch, n) tensor.  Knobs, all consumed:
 ``rows_per_program`` (rows per thread block), ``tile_n`` (columns per
 staged tile; the kernel loops over the n / tile_n tiles with the carry),
 ``stages`` (the plan's fan-in sequence) and, for the prefix sum,
-``unroll`` (fold order, and the least elements per thread).  linrec's
-fold order is fixed by its algebra: it takes no ``unroll``.  A carrying
+``unroll`` (the fold order; on the block route also the least elements
+per thread).  linrec's fold order is fixed by its algebra: it takes no
+``unroll``.  A carrying
 tile longer than the kernels' staging runs in pieces (``staged_piece``).
 
 Bound on the card: memory bandwidth — one read of each input, one write
@@ -28,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -42,6 +47,20 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448
 # the kernel's largest tile: 1024 threads x 32 elements each
 MAX_TILE_ELEMS = 32768
+# the warp kernel (route "warp"): power-of-two tiles of WARP_MIN_TILE to
+# MAX_TILE_ELEMS columns, fan-ins 2, 4 and 8; the (fan-in, stride) pairs of
+# its shuffle stages (stride < 32), which are those stage_radices gives
+# power-of-two tiles at radix 2, 4 and 8; a tile above WARP_ROW_COLS
+# spreads a row over warps, whose 64-column halo covers a shuffle reach
+# (sum of (fan-in - 1) * stride) of WARP_HALO_REACH
+WARP_MIN_TILE = 128
+WARP_ROW_COLS = 1024
+WARP_HALO_REACH = 63
+WARP_SHUFFLE_STAGES = frozenset({(2, 1), (2, 2), (2, 4), (2, 8), (2, 16),
+                                 (4, 1), (4, 4), (4, 8), (4, 16),
+                                 (8, 1), (8, 8)})
+# the scan kernels' routes, each with its own launch count
+ROUTES = ("warp", "block")
 
 
 def staged_piece(rows: int, tile_n: int, stages: Tuple[int, ...]
@@ -69,6 +88,30 @@ def staged_piece(rows: int, tile_n: int, stages: Tuple[int, ...]
                          f"exceed the kernel's {MAX_TILE_ELEMS}-element "
                          f"staging")
     return piece, stages[:count]
+
+
+def scan_route(rows: int, tile_n: int, stages: Sequence[int]) -> str:
+    """The kernel a (rows x tile_n) tile with these stages runs on, by the
+    plan alone: "warp" where the warp kernel takes the (staged) tile — a
+    power of two from WARP_MIN_TILE columns, fan-ins 2, 4 and 8, shuffle
+    stages it specialises, the halo's reach where a row spans warps —
+    else "block"."""
+    piece, stages = staged_piece(rows, tile_n, tuple(int(r) for r in stages))
+    if piece < WARP_MIN_TILE or piece & (piece - 1) \
+            or rows * piece > MAX_TILE_ELEMS:
+        return "block"
+    stride, reach = 1, 0
+    for fan_in in stages:
+        if fan_in not in (2, 4, 8):
+            return "block"
+        if stride < 32:
+            if (fan_in, stride) not in WARP_SHUFFLE_STAGES:
+                return "block"
+            reach += (fan_in - 1) * stride
+        stride *= fan_in
+    if piece > WARP_ROW_COLS and reach > WARP_HALO_REACH:
+        return "block"
+    return "warp"
 
 
 def _check_args(x: torch.Tensor, rows: int, tile_n: int,
@@ -110,7 +153,10 @@ def scan_add_plain(x: torch.Tensor, *, rows_per_program: int, tile_n: int,
 
 
 def _launch(x: torch.Tensor, rows: int, tile_n: int,
-            stages: Tuple[int, ...], unroll: int) -> torch.Tensor:
+            stages: Tuple[int, ...], unroll: int,
+            route: Optional[str] = None) -> torch.Tensor:
+    """Launch one kernel: ``route`` "warp" or "block"; by default the one
+    :func:`scan_route` picks.  Returns the output; counts nothing."""
     from repro_torch.kernels.build import check, load_library
 
     _check_args(x, rows, tile_n, stages, unroll)
@@ -119,38 +165,59 @@ def _launch(x: torch.Tensor, rows: int, tile_n: int,
                          f"one on {x.device}")
     if not x.is_contiguous():
         raise ValueError("scan_add takes a contiguous tensor")
-    # the kernel runs a tile longer than its staging as staged pieces
+    route = route or scan_route(rows, tile_n, stages)
+    if route not in ROUTES:
+        raise ValueError(f"unknown scan_add route {route!r}")
+    # the kernels run a tile longer than their staging as staged pieces
     piece, stages = staged_piece(rows, tile_n, stages)
-    if 4 * (rows * piece + rows) > SMEM_LIMIT:
+    if route == "block" and 4 * (rows * piece + rows) > SMEM_LIMIT:
         raise ValueError(f"a {rows} x {piece} tile exceeds a block's "
                          f"shared memory")
     lib = load_library()
+    entry = lib.repro_scan_add_warp if route == "warp" \
+        else lib.repro_scan_add
     y = torch.empty_like(x)
     batch, n = x.shape
     fan_in = (ctypes.c_int * max(len(stages), 1))(*stages)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.repro_scan_add(x.data_ptr(), y.data_ptr(),
-                                  DTYPE_CODES[x.dtype], batch, n, rows,
-                                  piece, fan_in, len(stages), unroll, stream)
-    check(code, "scan_add launch")
-    scan_add.launches += 1
+        code = entry(x.data_ptr(), y.data_ptr(), DTYPE_CODES[x.dtype], batch,
+                     n, rows, piece, fan_in, len(stages), unroll, stream)
+    check(code, f"scan_add launch ({route})")
     return y
+
+
+def scan_add_block(x: torch.Tensor, *, rows_per_program: int, tile_n: int,
+                   stages: Sequence[int], unroll: int = 1) -> torch.Tensor:
+    """The block kernel (the earlier design) on a CUDA tensor whatever the
+    route: its record, timed beside the warp kernel.  No entry point calls
+    it, and it counts no launch."""
+    return _launch(x.contiguous(), rows_per_program, tile_n,
+                   tuple(int(r) for r in stages), unroll, route="block")
 
 
 def scan_add(x: torch.Tensor, *, rows_per_program: int, tile_n: int,
              stages: Sequence[int], unroll: int = 1) -> torch.Tensor:
     """Inclusive prefix sum over the last axis of (batch, n)."""
     stages = tuple(int(r) for r in stages)
-    if kernel_path(x):
-        return _launch(x.contiguous(), rows_per_program, tile_n, stages,
-                       unroll)
-    return scan_add_plain(x, rows_per_program=rows_per_program,
-                          tile_n=tile_n, stages=stages, unroll=unroll)
+    if not kernel_path(x):
+        return scan_add_plain(x, rows_per_program=rows_per_program,
+                              tile_n=tile_n, stages=stages, unroll=unroll)
+    _check_args(x, rows_per_program, tile_n, stages, unroll)
+    route = scan_route(rows_per_program, tile_n, stages)
+    y = _launch(x.contiguous(), rows_per_program, tile_n, stages, unroll,
+                route)
+    scan_add.launches += 1
+    setattr(scan_add, f"launches_{route}",
+            getattr(scan_add, f"launches_{route}") + 1)
+    return y
 
 
-# launches of the CUDA kernel (plain-version calls are not counted)
+# launches of the CUDA kernels (plain-version calls are not counted): all,
+# and by route
 scan_add.launches = 0
+scan_add.launches_warp = 0
+scan_add.launches_block = 0
 
 
 # ---------------------------------------------------------------------------

@@ -15,11 +15,14 @@ from repro_torch.kernels.blocks import driver
 from repro_torch.core.space import Workload
 from repro_torch.kernels.blocks.plan import plan_for, stage_radices
 from repro_torch.kernels.fft import ops as fft_ops
-from repro_torch.kernels.fft.kernel import fft_plain, fft_stockham
-from repro_torch.kernels.scan.kernel import (scan_add, scan_add_plain,
-                                             scan_linrec, scan_linrec_plain,
+from repro_torch.kernels.fft.kernel import (fft_generic, fft_plain,
+                                            fft_route, fft_stockham)
+from repro_torch.kernels.scan.kernel import (scan_add, scan_add_block,
+                                             scan_add_plain, scan_linrec,
+                                             scan_linrec_plain,
                                              scan_linrec_prod,
-                                             scan_linrec_prod_plain)
+                                             scan_linrec_prod_plain,
+                                             scan_route, staged_piece)
 from repro_torch.kernels.scan.ops import linear_recurrence, prefix_sum
 from repro_torch.kernels.scan.ref import scan_linrec_assoc_ref
 from repro_torch.kernels.tridiag import ops as tridiag_ops
@@ -60,6 +63,56 @@ def test_scan_add_kernel_matches_plain(cuda, unroll, dtype, batch, n, rows,
     ref = scan_add_plain(x, rows_per_program=rows, tile_n=tile_n,
                          stages=stages, unroll=unroll)
     _close(got, ref, dtype)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("tree", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch,n,rows,tile_n,stages", [
+    # fan-in 2, 4 and 8 at tiles 32 (the block kernel), 128 and 1024
+    *[(8, 1024, 2, t, stage_radices(t, r)) for t in (32, 128, 1024)
+      for r in (2, 4, 8)],
+    (16, 4096, 4, 256, stage_radices(256, 4)),       # multi-tile carry
+    (4, 8192, 1, 1024, stage_radices(1024, 8)),      # 8 tiles of one warp
+    (8, 8192, 2, 2048, stage_radices(2048, 4)),      # rows over warps
+    (4, 32768, 1, 32768, stage_radices(32768, 2)),   # 1024 threads
+    (5, 212, 5, 106, (2, 53)),                       # prime stages
+    (3, 1018, 3, 1018, (2, 509)),
+    (16, 32768, 16, 32768, stage_radices(32768, 8)),  # a staged piece
+])
+def test_scan_kernels_are_bit_equal_to_plain(cuda, tree, dtype, batch, n,
+                                             rows, tile_n, stages):
+    """Both scan kernels keep scan_add_plain's order: every element equal,
+    whichever route the plan takes (and the block kernel on the warp
+    route's plans too)."""
+    gen = torch.Generator(device=cuda).manual_seed(batch * n + tile_n)
+    x = torch.randn(batch, n, generator=gen, device=cuda).to(_TORCH[dtype])
+    kw = dict(rows_per_program=rows, tile_n=tile_n, stages=stages,
+              unroll=4 if tree else 1)
+    ref = scan_add_plain(x, **kw)
+    assert torch.equal(scan_add(x, **kw), ref)
+    assert torch.equal(scan_add_block(x, **kw), ref)
+
+
+def test_scan_add_counts_its_route(cuda):
+    """One call on each route adds one to its count and to the total;
+    the block kernel's record entry counts nothing."""
+    x = torch.randn(8, 1024, device=cuda)
+    for stages, route in ((stage_radices(1024, 4), "warp"),
+                          ((2, 4) + (2,) * 7, "block")):
+        assert scan_route(2, 1024, stages) == route
+        before = (scan_add.launches, scan_add.launches_warp,
+                  scan_add.launches_block)
+        scan_add(x, rows_per_program=2, tile_n=1024, stages=stages)
+        after = (scan_add.launches, scan_add.launches_warp,
+                 scan_add.launches_block)
+        assert after[0] == before[0] + 1
+        assert after[1:] == (before[1] + (route == "warp"),
+                             before[2] + (route == "block"))
+    before = scan_add.launches
+    scan_add_block(x, rows_per_program=2, tile_n=1024,
+                   stages=stage_radices(1024, 4))
+    assert scan_add.launches == before
 
 
 def test_prefix_sum_takes_a_sliced_input(cuda):
@@ -219,9 +272,52 @@ def test_fft_kernel_matches_plain(cuda, inverse, batch, n, rows, radix,
     got = fft_stockham(x, unroll=unroll, **kw)
     assert fft_stockham.launches == before + 1
     _fft_close(got, fft_plain(x, **kw))
+    assert torch.equal(got, fft_plain(x, **kw))
     ref = (torch.fft.ifft if inverse else torch.fft.fft)(
         x.to(torch.complex128))
     _fft_close(got, ref)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("batch,n,rows,radix,unroll", [
+    (8, 1024, 2, 4, 1), (8, 1024, 8, 4, 1), (8, 1024, 8, 16, 1),
+    (8, 1024, 8, 16, 2), (6, 96, 3, 8, 1), (5, 106, 5, 2, 4),
+    (2, 8192, 1, 16, 1), (4, 8192, 1, 2, 2), (512, 16, 256, 16, 4),
+    (64, 4096, 32, 8, 1)])
+def test_fft_kernels_on_a_real_input(cuda, inverse, batch, n, rows, radix,
+                                     unroll):
+    """A real-valued input (im = 0 exactly, where a weight's cos(pi/2) of
+    6.1e-17 would show): both kernels equal fft_plain bit for bit and
+    torch.fft on complex128 within the complex64 tolerance."""
+    gen = torch.Generator(device=cuda).manual_seed(batch + n)
+    re = torch.randn(batch, n, generator=gen, device=cuda)
+    x = torch.complex(re, torch.zeros_like(re))
+    kw = dict(rows_per_program=rows, stages=stage_radices(n, radix),
+              inverse=inverse)
+    ref = fft_plain(x, **kw)
+    assert torch.equal(fft_stockham(x, unroll=unroll, **kw), ref)
+    assert torch.equal(fft_generic(x, unroll=unroll, **kw), ref)
+    want = (torch.fft.ifft if inverse else torch.fft.fft)(
+        x.to(torch.complex128))
+    _fft_close(ref, want)
+
+
+def test_fft_stockham_counts_its_route(cuda):
+    x = torch.randn(8, 96, device=cuda, dtype=torch.complex64)
+    y = torch.randn(8, 1024, device=cuda, dtype=torch.complex64)
+    for z, stages, route in ((y, stage_radices(1024, 4), "pow2"),
+                             (x, stage_radices(96, 8), "generic")):
+        assert fft_route(z.shape[1], stages) == route
+        before = (fft_stockham.launches, fft_stockham.launches_pow2,
+                  fft_stockham.launches_generic)
+        fft_stockham(z, rows_per_program=2, stages=stages)
+        after = (fft_stockham.launches, fft_stockham.launches_pow2,
+                 fft_stockham.launches_generic)
+        assert after == (before[0] + 1, before[1] + (route == "pow2"),
+                         before[2] + (route == "generic"))
+    before = fft_stockham.launches
+    fft_generic(y, rows_per_program=2, stages=stage_radices(1024, 4))
+    assert fft_stockham.launches == before
 
 
 @pytest.mark.parametrize("tile,m", [(64, 2), (16, 3)])
