@@ -26,19 +26,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    same inputs, a sweep of radix x rows x unroll at (65536, 1024) on both,
    and ``torch.profiler``'s device time of both at n = 128, 1024, 4096;
 5. the linear recurrence and the tridiagonal solvers: ``scan_linrec``,
-   ``scan_linrec_prod``, ``apply_linrec`` and ``pcr`` against their plain
-   versions (f32 and bf16, ragged, prime and non-power-of-two shapes, the
-   RG-LRU gate on and off, every admitted config of the paper workload's
-   linrec and PCR spaces under ``h100``); then, at 2^26 f32 equations a
-   call, ``solve`` for pcr / cr / lf / wm at n = 256 and 1024 (residual,
-   and a float64 Thomas solve of sampled rows), ``solve(variant="lf")``
-   above ``LF_MULTIPASS_MIN`` on a fused and a multipass linrec plan, and
-   ``linear_recurrence`` fused and multipass against float64 references,
-   each call's launch list equal to its plans' and every kernel's launch
-   count non-zero; cuSPARSE's ``gtsv2StridedBatch`` (bound with ctypes
-   from the CUDA toolkit's ``libcusparse.so`` in a child process, never by
-   the port) held once against ``pcr``'s solution and timed beside it at
-   n = 1024 and 256, for kernel 7's ``library_ms``;
+   ``scan_linrec_prod`` and ``pcr`` against their plain versions (f32 and
+   bf16, ragged, prime, short and non-power-of-two shapes, staged pieces,
+   the RG-LRU gate on and off, every admitted config of the paper
+   workload's linrec space at n = 1024 and PCR space at n = 256 and
+   1024 under ``h100``), on the route the plan picks (the warp kernels,
+   or the block kernels for ragged, prime and odd shapes) and on the
+   block kernel's record, with the elements not bit-equal counted (the
+   run fails unless there are none); ``apply_linrec`` at the tests'
+   tolerance; then, at 2^26 f32 equations a call, ``solve`` for pcr / cr
+   / lf / wm at n = 256 and 1024 (residual, and a float64 Thomas solve
+   of sampled rows), ``solve(variant="lf")`` above ``LF_MULTIPASS_MIN``
+   on a fused and a multipass linrec plan, and ``linear_recurrence``
+   fused and multipass against float64 references, each call's launch
+   list equal to its plans', every kernel's launch count non-zero and
+   every linrec and pcr launch on the warp kernels; the warp kernels'
+   times beside the block kernels' on the same inputs, both pcr routes
+   over the admitted n = 256 and 1024 configs and the one-warp geometry,
+   the warp PCR kernel's issue floor from its SASS and the card's clock
+   (``[issue]``), and ``torch.profiler``'s device time of the entry
+   points and the block kernels (``[trace] pcr``);
+   cuSPARSE's ``gtsv2StridedBatch`` (bound with ctypes from the CUDA
+   toolkit's ``libcusparse.so`` in a child process, never by the port)
+   held once against ``pcr``'s solution and timed beside it at n = 1024
+   and 256, for kernel 7's ``library_ms``;
 6. the FFT: ``fft_stockham`` against ``fft_plain`` on the card over every
    admitted config of ``fft_space`` at n = 1024 and 8192 under ``h100``
    and the ragged and prime stage sequences, inverse on and off, at the
@@ -100,8 +111,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the Phi table, the sweep sizes and the runner failures, which must be
    0;
 13. the ``kernels`` line: per kernel (all twelve) its launches on the main
-   paths (by route for ``scan_add`` and ``fft_stockham``, with the
-   earlier kernel's time beside theirs), its error against the plain version, its time, the plain
+   paths (by route for ``scan_add``, ``scan_linrec``, ``scan_linrec_prod``,
+   ``pcr`` and ``fft_stockham``, with the earlier kernel's time beside
+   theirs), its error against the plain version, its time, the plain
    version's and the library call's (null where no one PyTorch call
    computes the function; ``scaled_dot_product_attention`` and
    ``torch.matmul`` for kernels 11 and 12, timed as yardsticks and never
@@ -112,14 +124,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (the ``[turns]`` line) against their yardsticks and against the
    CUDA-core kernel on the same bf16 inputs.
 
-The build phase also counts, per scan and FFT kernel, the local-memory
-instructions (LDL / STL) and calls in the library's SASS (``cuobjdump``).
+The build phase prints each source's nvcc time and counts, per scan,
+linrec, PCR and FFT kernel, the local-memory instructions (LDL / STL) and
+calls in the library's SASS (``cuobjdump``).
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
@@ -200,7 +214,8 @@ def phase_build():
     lib = build.load_library()
     seconds = time.perf_counter() - t0
     log(f"[build] {os.path.relpath(path, ROOT)} in {seconds:.2f} s "
-        f"(nvcc {build.BUILD_INFO['seconds']:.2f} s)")
+        f"(nvcc {build.BUILD_INFO['seconds']:.2f} s; by call "
+        f"{json.dumps(build.BUILD_INFO['source_seconds'])})")
     for line in str(build.BUILD_INFO.get("log", "")).splitlines():
         if "registers" in line or "spill" in line.lower():
             log(f"[build]   {line.strip()}")
@@ -208,37 +223,92 @@ def phase_build():
     return lib, seconds
 
 
-def sass_counts(path):
-    """Per scan / FFT kernel of the built library: its SASS instructions,
-    local-memory loads and stores (LDL / STL: spills and stack arrays) and
-    calls, from ``cuobjdump -sass`` beside the nvcc the build used."""
+@functools.lru_cache(maxsize=None)
+def sass_functions(path):
+    """``cuobjdump -sass`` of the built library (beside the nvcc the build
+    used), by function: each a list of basic blocks, each a list of
+    opcodes (predicates dropped).  A block ends at a label and after a
+    branch, call, return or exit."""
     from repro_torch.kernels import build
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     out = subprocess.run([tool, "-sass", path], capture_output=True,
                          text=True, timeout=300)
     if out.returncode != 0:
         raise RuntimeError(f"cuobjdump failed: {out.stderr.strip()[:500]}")
-    counts, name = {}, None
+    funcs, blocks = {}, None
     for line in out.stdout.splitlines():
+        text = line.strip()
         if "Function : " in line:
-            name = line.split("Function : ", 1)[1].strip()
-            keep = any(k in name for k in ("scan_add_kernel", "scan_warp",
-                                           "fft_kernel", "fft_pow2"))
-            name = name if keep else None
-            if name:
-                counts[name] = {"instructions": 0, "LDL": 0, "STL": 0,
-                                "CALL": 0}
-        elif name and "/*" in line and ";" in line:
-            op = line.split("*/", 1)[1].split(";")[0].split()
-            op = [w for w in op if not w.startswith("@")]
-            if not op:
-                continue
-            c = counts[name]
-            c["instructions"] += 1
-            for key in ("LDL", "STL", "CALL"):
-                if op[0].startswith(key):
-                    c[key] += 1
+            blocks = funcs.setdefault(line.split("Function : ", 1)[1].strip(),
+                                      [[]])
+        elif blocks is None:
+            continue
+        elif text.startswith(".L") and text.endswith(":"):
+            blocks.append([])
+        elif "/*" in line and ";" in line:
+            op = [w for w in line.split("*/", 1)[1].split(";")[0].split()
+                  if not w.startswith("@")]
+            if op:
+                blocks[-1].append(op[0])
+                if op[0].split(".")[0] in ("BRA", "BRX", "CALL", "RET",
+                                           "EXIT"):
+                    blocks.append([])
+    return {name: [b for b in blks if b] for name, blks in funcs.items()}
+
+
+def sass_counts(path):
+    """Per scan, linrec, PCR and FFT kernel of the built library: its SASS
+    instructions, local-memory loads and stores (LDL / STL: spills and
+    stack arrays) and calls."""
+    counts = {}
+    for name, blocks in sass_functions(path).items():
+        if not any(k in name for k in ("scan_add_kernel", "scan_warp",
+                                       "linrec_kernel", "linrec_warp",
+                                       "pcr_kernel", "pcr_warp",
+                                       "fft_kernel", "fft_pow2")):
+            continue
+        ops = [op for block in blocks for op in block]
+        counts[name] = {"instructions": len(ops)}
+        for key in ("LDL", "STL", "CALL"):
+            counts[name][key] = sum(op.startswith(key) for op in ops)
     return counts
+
+
+def pcr_issue_floor(equations, n, unroll):
+    """The least time the card could take to issue the warp PCR kernel's
+    level work at this shape: every equation and level at the cost of the
+    kernel's cheapest branch-free level body (kNear's), counted in its
+    SASS (a basic block with two MUFU.RCP an equation and no FCHK or CALL:
+    a kNear or kTiny body), over the card's SMs x 4 warp instructions a
+    clock at its maximum SM clock (nvidia-smi).  A floor for this code,
+    not for PCR: the votes, the loads, the transposes and the dearer
+    divide paths are left out."""
+    import torch
+    from repro_torch.kernels import build
+    elems = 1 << max(unroll - 1, 0).bit_length()
+    tag = f"pcr_warp_kernelIfLi{elems}E"
+    funcs = sass_functions(build.BUILD_INFO["path"])
+    blocks = [b for name, blks in funcs.items() if tag in name for b in blks]
+    bodies = sorted(len(b) for b in blocks
+                    if sum(op.startswith("MUFU.RCP") for op in b) == 2 * elems
+                    and not any(op.startswith(("FCHK", "CALL")) for op in b))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    mhz = float(smi.stdout.split()[0]) if smi.returncode == 0 else None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {"kernel": f"pcr_warp_kernel<float, {elems}>", "n": n,
+           "equations": equations, "levels": math.ceil(math.log2(n)),
+           "branch_free_level_bodies": bodies, "sm_clock_mhz": mhz,
+           "sms": sms,
+           "issue_floor_ms": None}
+    if bodies and mhz:
+        per_eq_level = bodies[0] / (32 * elems)
+        out["instructions_per_equation_level"] = per_eq_level
+        out["issue_floor_ms"] = (equations * out["levels"] * per_eq_level
+                                 / (sms * 4 * mhz * 1e6) * 1e3)
+    log(f"[issue] {json.dumps(out)}")
+    return out
 
 
 def phase_card():
@@ -405,9 +475,16 @@ def counted_wrappers():
 
 # kernels with one launch counter per route besides their total: bf16 runs
 # the tensor-core kernel (wgmma), f32 the CUDA-core one (simt); the prefix
-# sum and the FFT pick theirs by the plan (scan_route, fft_route)
+# sum, the linear recurrence, PCR and the FFT pick theirs by the plan
+# (scan_route, linrec_route, pcr_route, fft_route)
 ROUTES = {"flash_attention": ("wgmma", "simt"), "matmul": ("wgmma", "simt"),
-          "scan_add": ("warp", "block"), "fft_stockham": ("pow2", "generic")}
+          "scan_add": ("warp", "block"), "scan_linrec": ("warp", "block"),
+          "scan_linrec_prod": ("warp", "block"), "pcr": ("warp", "block"),
+          "fft_stockham": ("pow2", "generic")}
+# the kernels whose main-path launches must all take the new route
+NEW_ROUTES = {"scan_add": "warp", "scan_linrec": "warp",
+              "scan_linrec_prod": "warp", "pcr": "warp",
+              "fft_stockham": "pow2"}
 
 
 def reset_counts():
@@ -431,6 +508,14 @@ def require_launched(counts, names, what):
     for name in names:
         if counts[name] == 0:
             raise AssertionError(f"kernel {name} was not launched on {what}")
+
+
+def require_new_routes(counts, what):
+    """Every launch of a routed kernel on this path took its new route."""
+    for name, route in NEW_ROUTES.items():
+        if counts[f"{name}.{route}"] != counts[name]:
+            raise AssertionError(f"{what}: {name} took an earlier kernel: "
+                                 f"{counts}")
 
 
 def main_path_cases():
@@ -465,9 +550,7 @@ def phase_main_path(dev):
     log(f"[main] launches on the prefix-sum path: {counts}")
     require_launched(counts, ("scan_add", "scan_add.warp", "apply_add"),
                      "the prefix-sum path")
-    if counts["scan_add.block"]:
-        raise AssertionError(f"{counts['scan_add.block']} prefix-sum "
-                             f"launches took the block kernel")
+    require_new_routes(counts, "the prefix-sum path")
     for n, batch, cfg, plan, launched in runs:
         if tuple(launched) != plan.launches:
             raise AssertionError(f"n={n}: launched {launched} != plan "
@@ -551,13 +634,12 @@ def phase_loop(dev):
     if problems or failures:
         raise AssertionError(f"compare_methods: {problems}, runner "
                              f"failures {failures}")
-    require_launched(counts, ("scan_add", "scan_add.warp", "pcr",
+    require_launched(counts, ("scan_add", "scan_add.warp", "pcr", "pcr.warp",
+                              "scan_linrec", "scan_linrec.warp",
                               "fft_stockham", "fft_stockham.pow2",
                               "ssd_intra", "flash_attention", "matmul"),
                      "the tuning loop")
-    if counts["scan_add.block"] or counts["fft_stockham.generic"]:
-        raise AssertionError(f"the tuning loop took an earlier kernel: "
-                             f"{counts}")
+    require_new_routes(counts, "the tuning loop")
     log("[loop] phi " + json.dumps(
         {op: {name: agg["phi"] for name, agg in per.items()}
          for op, per in report["per_op"].items()}))
@@ -714,32 +796,73 @@ def scan_trace(runs, inputs):
         f"{json.dumps(device, sort_keys=True)}")
 
 
-def linrec_inputs(gen, dev, batch, n, dtype=None):
-    """a in [0.8, 0.99) (a stable recurrence, as the tests draw it), b
+def linrec_inputs(gen, dev, batch, n, dtype=None, slow=False):
+    """a in [0.8, 0.99) (a stable recurrence, as the tests draw it), or,
+    with ``slow``, in [0.9999, 1) (prefix products near 1 over 32768
+    columns, so a wrong neighbour at any stride would show in h); b
     standard normal."""
     import torch
-    a = torch.rand(batch, n, generator=gen, device=dev) * 0.19 + 0.8
+    lo, width = (0.9999, 1e-4) if slow else (0.8, 0.19)
+    a = torch.rand(batch, n, generator=gen, device=dev) * width + lo
     b = torch.randn(batch, n, generator=gen, device=dev)
     if dtype is not None:
         a, b = a.to(dtype), b.to(dtype)
     return a, b
 
 
+def laplacian_system(gen, dev, batch, n):
+    """A perturbed 1-D Laplacian (a = c ~ -1, b ~ 2, d standard normal):
+    its off-diagonals keep their size at every PCR level, where those of a
+    strongly diagonally dominant system underflow to 0 after a few."""
+    import torch
+    a = -1.0 - 0.01 * torch.rand(batch, n, generator=gen, device=dev)
+    c = -1.0 - 0.01 * torch.rand(batch, n, generator=gen, device=dev)
+    b = 2.03 + 0.01 * torch.rand(batch, n, generator=gen, device=dev)
+    d = torch.randn(batch, n, generator=gen, device=dev)
+    a[:, 0] = 0.0
+    c[:, -1] = 0.0
+    return a, b, c, d
+
+
+def linrec_block(a, b, rows, tile_n, stages, gate=False, products=False):
+    """The block linrec kernel (the earlier design) on CUDA tensors
+    whatever the route: its record beside the warp kernel.  h, or (h,
+    products) with ``products``; counts no launch."""
+    from repro_torch.kernels.scan import kernel as scan_kernel
+    out = scan_kernel._launch_linrec(
+        a.contiguous(), b.contiguous(), rows, tile_n,
+        tuple(int(r) for r in stages), gate, products, route="block")
+    return out if products else out[0]
+
+
+def pcr_block(planes, rows, unroll):
+    """The block PCR kernel's record, as :func:`linrec_block` (``unroll``
+    capped at its 16 equations a thread: the knob changes no result)."""
+    from repro_torch.kernels.tridiag import kernel as pcr_kernel
+    return pcr_kernel._launch(tuple(v.contiguous() for v in planes), rows,
+                              min(unroll, 16), route="block")
+
+
 def phase_linrec_kernels(dev, quick: bool):
     """scan_linrec, scan_linrec_prod, apply_linrec and pcr against their
-    plain versions on the card, held to DTYPE_TOL (the kernels round where
-    the plain versions do, so the error printed is expected to be 0)."""
+    plain versions on the card.  The routed launches (the warp kernels,
+    or the block kernels for ragged, prime and odd shapes) and the block
+    kernels' records on the same inputs must equal the plain versions bit
+    for bit; apply_linrec is held to DTYPE_TOL (its error printed is
+    expected to be 0)."""
     import torch
     from repro_torch.core.space import Workload, scan_space, tridiag_space
     from repro_torch.hw.profiles import get_profile
     from repro_torch.kernels.blocks.driver import (apply_linrec,
                                                    apply_linrec_plain)
     from repro_torch.kernels.blocks.plan import stage_radices
-    from repro_torch.kernels.scan.kernel import (scan_linrec,
+    from repro_torch.kernels.scan.kernel import (linrec_route, scan_linrec,
                                                  scan_linrec_plain,
                                                  scan_linrec_prod,
-                                                 scan_linrec_prod_plain)
-    from repro_torch.kernels.tridiag.kernel import pcr, pcr_plain
+                                                 scan_linrec_prod_plain,
+                                                 staged_piece)
+    from repro_torch.kernels.tridiag.kernel import (pcr, pcr_plain,
+                                                    pcr_route)
     from repro_torch.kernels.tridiag.ref import random_system
 
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -747,48 +870,66 @@ def phase_linrec_kernels(dev, quick: bool):
     h100 = get_profile("h100")
     worst = {"scan_linrec": 0.0, "scan_linrec_prod": 0.0,
              "apply_linrec": 0.0, "pcr": 0.0}
+    # per kernel: launches checked by route, and elements not bit-equal to
+    # the plain version on the routed launch and on the block record
+    checked = {k: {"warp": 0, "block": 0}
+               for k in ("scan_linrec", "scan_linrec_prod", "pcr")}
+    unequal = {k: {"warp": 0, "block": 0, "block record": 0}
+               for k in ("scan_linrec", "scan_linrec_prod", "pcr")}
 
-    def hold(name, got, ref, dtype, what):
+    def hold(name, route, got, ref, block, dtype, what):
         worst[name] = max(worst[name], check_close(got, ref, dtype, what))
+        checked[name][route] += 1
+        unequal[name][route] += int((got != ref).sum())
+        unequal[name]["block record"] += int((block != ref).sum())
 
-    def linrec(batch, n, rows, tile_n, stages, dtype, gate):
-        a, b = linrec_inputs(gen, dev, batch, n, dtypes[dtype])
+    def linrec(batch, n, rows, tile_n, stages, dtype, gate, ab=None,
+               ref=None, slow=False):
+        a, b = ab or linrec_inputs(gen, dev, batch, n, dtypes[dtype], slow)
         kw = dict(rows_per_program=rows, tile_n=tile_n, stages=stages,
                   gate=gate)
         got = scan_linrec(a, b, **kw)
-        ref = scan_linrec_plain(a, b, **kw)
+        block = linrec_block(a, b, rows, tile_n, stages, gate)
+        ref = scan_linrec_plain(a, b, **kw) if ref is None else ref
         torch.cuda.synchronize()
-        hold("scan_linrec", got, ref, dtype,
-             f"scan_linrec {dtype} ({batch},{n}) rows={rows} tile={tile_n} "
-             f"stages={tuple(stages)} gate={gate}")
+        hold("scan_linrec", linrec_route(rows, tile_n, stages), got, ref,
+             block, dtype, f"scan_linrec {dtype} ({a.shape[0]},{a.shape[1]}) "
+             f"rows={rows} tile={tile_n} stages={tuple(stages)} gate={gate}")
 
-    def prod(batch, n, rows, stages, dtype, gate):
-        a, b = linrec_inputs(gen, dev, batch, n, dtypes[dtype])
+    def prod(batch, n, rows, stages, dtype, gate, slow=False):
+        a, b = linrec_inputs(gen, dev, batch, n, dtypes[dtype], slow)
         kw = dict(rows_per_program=rows, stages=stages, gate=gate)
-        (h, p), (hr, pr) = scan_linrec_prod(a, b, **kw), \
-            scan_linrec_prod_plain(a, b, **kw)
+        got = scan_linrec_prod(a, b, **kw)
+        block = linrec_block(a, b, rows, n, stages, gate, products=True)
+        ref = scan_linrec_prod_plain(a, b, **kw)
         torch.cuda.synchronize()
         what = (f"scan_linrec_prod {dtype} ({batch},{n}) rows={rows} "
                 f"stages={tuple(stages)} gate={gate}")
-        hold("scan_linrec_prod", h, hr, dtype, what + " h")
-        hold("scan_linrec_prod", p, pr, dtype, what + " p")
+        route = linrec_route(rows, n, stages, products=True)
+        for i, part in enumerate(("h", "p")):
+            hold("scan_linrec_prod", route, got[i], ref[i], block[i], dtype,
+                 f"{what} {part}")
 
     cases = 0
     for dtype in dtypes:
         for gate in (False, True):
             for batch, n, rows, tile_n in ((64, 4096, 4, 4096),
                                            (64, 4096, 8, 128),
-                                           (16, 1024, 2, 256), (6, 96, 3, 96)):
+                                           (16, 1024, 2, 256), (6, 96, 3, 96),
+                                           (64, 1024, 8, 1024),
+                                           (48, 64, 8, 16), (40, 64, 5, 4)):
                 for radix in (2, 4, 8):
                     linrec(batch, n, rows, tile_n,
                            stage_radices(tile_n, radix), dtype, gate)
                     cases += 1
-            # the largest tiles (32768 elements: the stage planes go to
-            # the global scratch), prime fan-ins, odd row counts
+            # the largest tiles (32768 elements: the warp kernel's planes in
+            # the global scratch), staged pieces, prime fan-ins, odd rows
             for batch, n, rows, tile_n, stages in (
                     (4, 16384, 1, 16384, stage_radices(16384, 4)),
                     (2, 65536, 1, 32768, stage_radices(32768, 8)),
                     (4, 32768, 2, 16384, stage_radices(16384, 2)),
+                    (16, 32768, 16, 32768, stage_radices(32768, 8)),
+                    (8, 8192, 8, 8192, stage_radices(8192, 4)),
                     (5, 212, 5, 106, (2, 53)),
                     (3, 1018, 3, 1018, (2, 509)),
                     (7, 768, 7, 768, stage_radices(768, 8))):
@@ -799,9 +940,23 @@ def phase_linrec_kernels(dev, quick: bool):
                     (512, 2048, 4, stage_radices(2048, 2)),
                     (96, 100, 3, stage_radices(100, 4)),
                     (7, 106, 7, (2, 53)),
-                    (2, 32768, 1, stage_radices(32768, 4))):
+                    (2, 32768, 1, stage_radices(32768, 4)),
+                    (64, 16, 8, stage_radices(16, 4)),
+                    (24, 1024, 3, stage_radices(1024, 8))):
                 prod(batch, n, rows, stages, dtype, gate)
                 cases += 1
+        # a near 1: every stage's neighbours show in h
+        for batch, n, rows, tile_n, radix in (
+                (64, 1024, 8, 1024, 4), (16, 4096, 4, 4096, 8),
+                (8, 8192, 2, 2048, 2), (2, 65536, 1, 32768, 8),
+                (16, 32768, 16, 32768, 8), (48, 64, 8, 16, 4)):
+            linrec(batch, n, rows, tile_n, stage_radices(tile_n, radix),
+                   dtype, False, slow=True)
+            cases += 1
+        for batch, n, rows, radix in ((1024, 4096, 1, 8), (2, 32768, 1, 4)):
+            prod(batch, n, rows, stage_radices(n, radix), dtype, True,
+                 slow=True)
+            cases += 1
     log(f"[kernels] scan_linrec / scan_linrec_prod: {cases} shape/stage/gate "
         f"cases within tolerance (max abs err {worst['scan_linrec']:.3e} / "
         f"{worst['scan_linrec_prod']:.3e})")
@@ -817,19 +972,18 @@ def phase_linrec_kernels(dev, quick: bool):
         plain = {}
         for cfg in cfgs:
             stages = stage_radices(cfg["tile_n"], cfg["radix"])
-            key = (cfg["tile_n"], stages)
+            rows = cfg["rows_per_program"]
+            # the plain version walks the same staged pieces as the kernels
+            key = staged_piece(rows, cfg["tile_n"], stages)
             if key not in plain:
-                plain[key] = scan_linrec_plain(a, b, rows_per_program=1,
+                plain[key] = scan_linrec_plain(a, b, rows_per_program=rows,
                                                tile_n=cfg["tile_n"],
                                                stages=stages)
-            got = scan_linrec(a, b, rows_per_program=cfg["rows_per_program"],
-                              tile_n=cfg["tile_n"], stages=stages)
-            hold("scan_linrec", got, plain[key], dtype,
-                 f"linrec space {dtype} config {cfg}")
-            del got
+            linrec(wl.batch, wl.n, rows, cfg["tile_n"], stages, dtype, False,
+                   ab=(a, b), ref=plain[key])
         torch.cuda.synchronize()
         log(f"[kernels] scan_space({wl.key}, h100): all {len(cfgs)} admitted "
-            f"configs launch and match the plain version")
+            f"configs launch and equal the plain version")
         del a, b, plain
 
     # apply_linrec (multipass launch 3), both output types
@@ -842,20 +996,24 @@ def phase_linrec_kernels(dev, quick: bool):
         got = apply_linrec(h, pr, e, rows=rows, out_dtype=out)
         ref = apply_linrec_plain(h, pr, e, rows=rows, out_dtype=out)
         torch.cuda.synchronize()
-        hold("apply_linrec", got, ref, "float32" if out == torch.float32
-             else "bfloat16", f"apply_linrec ({rows_n},{length}) rows={rows} "
-             f"{out}")
+        worst["apply_linrec"] = max(worst["apply_linrec"], check_close(
+            got, ref, "float32" if out == torch.float32 else "bfloat16",
+            f"apply_linrec ({rows_n},{length}) rows={rows} {out}"))
     log(f"[kernels] apply_linrec: f32 and bf16 outputs within tolerance (max "
         f"abs err {worst['apply_linrec']:.3e})")
 
-    # pcr: odd, prime and non-power-of-two n, n = 1, the largest systems
-    def solve_pcr(batch, n, rows, unroll, dtype):
-        planes = [v.to(dtypes[dtype]) for v in random_system(gen, batch, n)]
+    # pcr: odd, prime and non-power-of-two n, n = 1, the largest systems;
+    # on the warp kernel E = 1 ... 32 equations a lane, 1 ... 32 warps a
+    # system
+    def solve_pcr(planes, rows, unroll, dtype, ref=None):
         got = pcr(*planes, rows_per_program=rows, unroll=unroll)
-        ref = pcr_plain(*planes, rows_per_program=rows, unroll=unroll)
+        block = pcr_block(planes, rows, unroll)
+        if ref is None:
+            ref = pcr_plain(*planes, rows_per_program=rows, unroll=unroll)
         torch.cuda.synchronize()
-        hold("pcr", got, ref, dtype, f"pcr {dtype} ({batch},{n}) rows={rows} "
-             f"unroll={unroll}")
+        batch, n = planes[0].shape
+        hold("pcr", pcr_route(rows, n, unroll), got, ref, block, dtype,
+             f"pcr {dtype} ({batch},{n}) rows={rows} unroll={unroll}")
 
     cases = 0
     for dtype in dtypes:
@@ -863,29 +1021,124 @@ def phase_linrec_kernels(dev, quick: bool):
                                        (6, 96, 3, 2), (10, 100, 5, 1),
                                        (8, 1, 2, 1), (3, 7, 3, 4),
                                        (4, 8192, 1, 1), (2, 16384, 1, 2),
-                                       (1024, 256, 16, 2)):
-            solve_pcr(batch, n, rows, unroll, dtype)
+                                       (1024, 256, 16, 2), (96, 32, 3, 1),
+                                       (64, 64, 8, 2), (48, 128, 6, 4),
+                                       (40, 512, 5, 1), (16, 1024, 2, 32),
+                                       (16, 1024, 4, 16), (64, 256, 8, 8),
+                                       (32, 512, 4, 3)):
+            planes = [v.to(dtypes[dtype])
+                      for v in random_system(gen, batch, n)]
+            solve_pcr(planes, rows, unroll, dtype)
             cases += 1
+        # off-diagonals that keep their size: every level's neighbours show
+        for batch, n, rows, unroll in ((64, 1024, 4, 4), (1024, 256, 16, 4),
+                                       (96, 32, 3, 1), (40, 512, 5, 2),
+                                       (64, 64, 8, 2), (6, 96, 3, 2)):
+            planes = [v.to(dtypes[dtype])
+                      for v in laplacian_system(gen, dev, batch, n)]
+            solve_pcr(planes, rows, unroll, dtype)
+            cases += 1
+        # every divide path of the warp kernel's three kinds of level:
+        # divisors out of the fast range (x 2^30), signed zeros and
+        # subnormal off-diagonals, over shared, lane and chain levels
+        for n, unroll in ((256, 1), (1024, 1), (256, 8), (1024, 32)):
+            a, b, c, d = random_system(gen, 256, n)
+            pick = torch.rand(a.shape, generator=gen, device=dev) < 0.2
+            for planes in ((a, b, c, d),
+                           tuple(v * 2.0 ** 30 for v in (a, b, c, d)),
+                           (torch.where(pick, -0.0 * torch.sign(a), a), b,
+                            torch.where(pick.roll(1, 1), 0.0 * c, c), d),
+                           (torch.where(pick, a * 2.0 ** -140, a), b,
+                            torch.where(pick.roll(3, 1), c * 2.0 ** -130, c),
+                            d)):
+                solve_pcr([v.to(dtypes[dtype]) for v in planes], 4, unroll,
+                          dtype)
+                cases += 1
     for dtype in dtypes:
-        wl = Workload(op="tridiag", n=1024, batch=TOTAL_ELEMS // 1024,
-                      dtype=dtype, variant="pcr")
-        cfgs = tridiag_space(wl, h100).enumerate_valid()
-        planes = [v.to(dtypes[dtype])
-                  for v in random_system(gen, wl.batch, wl.n)]
-        ref = pcr_plain(*planes, rows_per_program=1)
-        for cfg in cfgs:
-            got = pcr(*planes, rows_per_program=cfg["rows_per_program"],
-                      unroll=cfg["unroll"])
-            hold("pcr", got, ref, dtype, f"pcr space {dtype} config {cfg}")
-            del got
-        torch.cuda.synchronize()
-        cases += len(cfgs)
-        log(f"[kernels] tridiag_space({wl.key}, h100): all {len(cfgs)} "
-            f"admitted configs launch and match the plain version")
-        del planes, ref
+        for n in (256, 1024):
+            wl = Workload(op="tridiag", n=n, batch=TOTAL_ELEMS // n,
+                          dtype=dtype, variant="pcr")
+            cfgs = tridiag_space(wl, h100).enumerate_valid()
+            planes = [v.to(dtypes[dtype])
+                      for v in random_system(gen, wl.batch, wl.n)]
+            ref = pcr_plain(*planes, rows_per_program=1)
+            for cfg in cfgs:
+                solve_pcr(planes, cfg["rows_per_program"], cfg["unroll"],
+                          dtype, ref=ref)
+            cases += len(cfgs)
+            log(f"[kernels] tridiag_space({wl.key}, h100): all {len(cfgs)} "
+                f"admitted configs launch and equal the plain version")
+            del planes, ref
     log(f"[kernels] pcr: {cases} cases within tolerance (max abs err "
         f"{worst['pcr']:.3e})")
-    return worst
+    pcr_divide_check(dev, quick)
+    log(f"[kernels] linrec / pcr launches checked by route "
+        f"{json.dumps(checked)}; elements not bit-equal to the plain "
+        f"versions {json.dumps(unequal)}")
+    if any(v for per in unequal.values() for v in per.values()):
+        raise AssertionError(f"a linrec or pcr kernel is not bit-equal to "
+                             f"its plain version: {unequal}")
+    return worst, unequal
+
+
+def pcr_divide_check(dev, quick: bool):
+    """The warp PCR kernel's branch-free divides against __fdiv_rn on the
+    card (``repro_pcr_divide_check``): random operands across and beyond
+    the ranges each path admits (zeros, subnormals, signs), quotients next
+    to a rounding tie of the float grid and of the subnormal grid, each
+    also moved by up to two ulps.  Fails if any admitted pair differs."""
+    import ctypes
+    import torch
+    from repro_torch.kernels.build import check, load_library
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    n = 2 ** 24 if quick else 2 ** 26
+
+    def bits(lo, hi):
+        """Floats of random sign and mantissa, exponents lo ... hi (-127:
+        zero and subnormals)."""
+        m = torch.randint(0, 1 << 23, (n,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        e = torch.randint(127 + lo, 127 + hi + 1, (n,), generator=gen,
+                          device=dev, dtype=torch.int32)
+        sign = torch.randint(0, 2, (n,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        return ((sign << 31) | (e << 23) | m).view(torch.float32)
+
+    def nudge(v):
+        step = torch.randint(-2, 3, (n,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        return (v.view(torch.int32) + step).view(torch.float32)
+
+    def tie(y, q):
+        """x with x / y next to the midpoint above q (float64 product,
+        rounded once to f32)."""
+        up = (q.view(torch.int32) + 1).view(torch.float32)
+        return (y.double() * (q.double() + up.double()) / 2).float()
+
+    lib = load_library()
+    counts = torch.zeros(4, dtype=torch.int64, device=dev)
+    kinds = 0
+    for _ in range(1 if quick else 2):
+        y = bits(-30, 30)
+        q = bits(-100, 100)
+        sub = torch.randint(0, 1 << 22, (n,), generator=gen, device=dev,
+                            dtype=torch.int32).view(torch.float32)
+        for x in (bits(-127, 100), tie(y, q), nudge(tie(y, q)),
+                  tie(y, sub), nudge(tie(y, sub))):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            check(lib.repro_pcr_divide_check(
+                x.data_ptr(), y.data_ptr(), ctypes.c_longlong(n),
+                counts.data_ptr(), stream), "pcr divide check")
+            kinds += 1
+    torch.cuda.synchronize()
+    near, tiny, near_bad, tiny_bad = (int(v) for v in counts.tolist())
+    log(f"[kernels] pcr divides vs __fdiv_rn: {kinds} x {n} pairs; the "
+        f"fast-path sequence admitted {near}, {near_bad} differ; the scaled "
+        f"path admitted {tiny}, {tiny_bad} differ")
+    if near_bad or tiny_bad:
+        raise AssertionError(f"the warp PCR kernel's divides differ from "
+                             f"__fdiv_rn: {near_bad} / {tiny_bad}")
 
 
 def tridiag_path_cases():
@@ -949,9 +1202,11 @@ def phase_tridiag_path(dev):
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"[main] launches on the tridiagonal / linrec path: {counts}")
-    require_launched(counts, ("scan_linrec", "scan_linrec_prod",
-                              "apply_linrec", "pcr"),
+    require_launched(counts, ("scan_linrec", "scan_linrec.warp",
+                              "scan_linrec_prod", "scan_linrec_prod.warp",
+                              "apply_linrec", "pcr", "pcr.warp"),
                      "the tridiagonal / linrec path")
+    require_new_routes(counts, "the tridiagonal / linrec path")
 
     plans = {}
     thomas = {}
@@ -1160,8 +1415,14 @@ def phase_cusparse(cfgs):
 def phase_tridiag_numbers(dev, systems, recs, plans, counts, errs,
                           bandwidth: float):
     """Times, bounds and errors of the four kernels at their main-path
-    shapes, and solve end to end per variant."""
+    shapes (kernels 2, 3 and 7 beside their block kernels on the same
+    inputs), both pcr routes over the admitted configs at n = 256 and
+    1024 and the warp kernel at one warp a system, the warp PCR kernel's
+    issue floor, solve end to end per variant, and the profiler's device
+    time by kernel."""
     import torch
+    from repro_torch.core.space import Workload, tridiag_space
+    from repro_torch.hw.profiles import get_profile
     from repro_torch.kernels.blocks.driver import (apply_linrec,
                                                    apply_linrec_plain)
     from repro_torch.kernels.scan.kernel import (scan_linrec,
@@ -1169,10 +1430,13 @@ def phase_tridiag_numbers(dev, systems, recs, plans, counts, errs,
                                                  scan_linrec_prod,
                                                  scan_linrec_prod_plain)
     from repro_torch.kernels.scan.ops import linear_recurrence
-    from repro_torch.core.space import Workload
-    from repro_torch.kernels.tridiag.kernel import pcr, pcr_plain, pcr_steps
+    from repro_torch.kernels.tridiag import kernel as pcr_kernel
+    from repro_torch.kernels.tridiag.kernel import (pcr, pcr_plain,
+                                                    pcr_steps)
     from repro_torch.kernels.tridiag.ops import solve
     from repro_torch.tuning import default_session
+
+    worst, _ = errs
 
     def bound(nbytes, flops):
         by_bytes, by_ops = nbytes / bandwidth * 1e3, flops / F32_PEAK * 1e3
@@ -1180,7 +1444,7 @@ def phase_tridiag_numbers(dev, systems, recs, plans, counts, errs,
             else (by_ops, "operations")
 
     def entry(name, source, replaces, fn, plain, nbytes, flops, shape,
-              config, err_name, library=None):
+              config, library=None, block=None):
         got, ref = fn(), plain()
         torch.cuda.synchronize()
         b_ms, b_by = bound(nbytes, flops)
@@ -1192,7 +1456,20 @@ def phase_tridiag_numbers(dev, systems, recs, plans, counts, errs,
                "library_ms": None if library is None else time_ms(library,
                                                                   10),
                "shape": list(shape), "dtype": "float32", "config": config,
-               "flops": flops, "check_max_abs_err": errs[err_name]}
+               "flops": flops, "check_max_abs_err": worst[name]}
+        if block is not None:
+            # the block kernel (the earlier design) on the same inputs
+            blk = block()
+            torch.cuda.synchronize()
+            out.update(
+                launches_by_route={r: counts[f"{name}.{r}"]
+                                   for r in ROUTES[name]},
+                unequal_elements=sum(int((g != r).sum())
+                                     for g, r in zip(got, ref)),
+                block_unequal_elements=sum(int((g != r).sum())
+                                           for g, r in zip(blk, ref)),
+                block_ms=time_ms(block, 10))
+        del got, ref
         log(f"[numbers] {json.dumps(out, sort_keys=True)}")
         return out
 
@@ -1210,24 +1487,24 @@ def phase_tridiag_numbers(dev, systems, recs, plans, counts, errs,
         lambda: (scan_linrec_plain(a, b, **kw),),
         3 * a.numel() * 4, 2 * a.numel(), a.shape,
         {"rows": plan.rows, "tile_n": plan.tile_n,
-         "stages": list(plan.stages)}, "scan_linrec"))
+         "stages": list(plan.stages)},
+        block=lambda: (linrec_block(a, b, plan.rows, plan.tile_n,
+                                    plan.stages),)))
     # kernels 3 and 5 at the multipass main-path call (n = 2^22, batch 16)
     plan = plans[("linrec", n_multi)]
     l1, _, l3 = plan.launches
     a, b = (v.reshape(-1, plan.tile_n) for v in recs[n_multi])
+    kw = dict(rows_per_program=l1.block_shape[0], stages=l1.stages)
     entries.append(entry(
         "scan_linrec_prod", "src/repro_torch/csrc/linrec.cu",
         "src/repro/kernels/scan/kernel.py:159",
-        lambda: scan_linrec_prod(a, b, rows_per_program=l1.block_shape[0],
-                                 stages=l1.stages),
-        lambda: scan_linrec_prod_plain(a, b,
-                                       rows_per_program=l1.block_shape[0],
-                                       stages=l1.stages),
+        lambda: scan_linrec_prod(a, b, **kw),
+        lambda: scan_linrec_prod_plain(a, b, **kw),
         4 * a.numel() * 4, 3 * a.numel(), a.shape,
         {"rows": l1.block_shape[0], "stages": list(l1.stages)},
-        "scan_linrec_prod"))
-    h, p = scan_linrec_prod(a, b, rows_per_program=l1.block_shape[0],
-                            stages=l1.stages)
+        block=lambda: linrec_block(a, b, l1.block_shape[0], plan.tile_n,
+                                   l1.stages, products=True)))
+    h, p = scan_linrec_prod(a, b, **kw)
     e = torch.randn(h.shape[0], 1, device=dev)
     rows = l3.block_shape[0]
     entries.append(entry(
@@ -1236,8 +1513,7 @@ def phase_tridiag_numbers(dev, systems, recs, plans, counts, errs,
         lambda: (apply_linrec(h, p, e, rows=rows),),
         lambda: (apply_linrec_plain(h, p, e, rows=rows),),
         3 * h.numel() * 4 + e.numel() * 4, 2 * h.numel(), h.shape,
-        {"rows": rows}, "apply_linrec",
-        library=lambda: torch.addcmul(h, p, e)))
+        {"rows": rows}, library=lambda: torch.addcmul(h, p, e)))
     del a, b, h, p, e
     # kernel 7 at solve(variant="pcr")'s n = 1024 call
     cfgs = {}
@@ -1255,13 +1531,33 @@ def phase_tridiag_numbers(dev, systems, recs, plans, counts, errs,
         "pcr", "src/repro_torch/csrc/tridiag.cu",
         "src/repro/kernels/tridiag/kernel.py:47",
         lambda: (pcr(*planes, **cfg),), lambda: (pcr_plain(*planes, **cfg),),
-        5 * planes[0].numel() * 4, flops, planes[0].shape, cfg, "pcr"))
+        5 * planes[0].numel() * 4, flops, planes[0].shape, cfg,
+        block=lambda: (pcr_block(planes, cfg["rows_per_program"],
+                                 cfg["unroll"]),)))
     # library_ms: cuSPARSE gtsv2StridedBatch at the same shape
     entries[-1].update(library_ms=gtsv[n]["ms"],
                        library="cusparseSgtsv2StridedBatch",
                        library_ms_by_n={str(k): v["ms"]
                                         for k, v in gtsv.items()})
     log(f"[numbers] pcr library_ms (cuSPARSE) {entries[-1]['library_ms']}")
+    for m in sorted(cfgs):
+        pcr_issue_floor(TOTAL_ELEMS, m, cfgs[m]["unroll"])
+    # both pcr routes over the admitted configs at each main-path shape,
+    # and the warp kernel at one warp a system (unroll n / 32)
+    for m in sorted(cfgs):
+        system = tuple(v.contiguous() for v in systems[m])
+        space = tridiag_space(Workload(op="tridiag", n=m,
+                                       batch=system[0].shape[0],
+                                       variant="pcr"), get_profile("h100"))
+        runs = [(c["rows_per_program"], c["unroll"], route)
+                for c in space.enumerate_valid()
+                for route in ("warp", "block")]
+        runs.append((cfgs[m]["rows_per_program"], m // 32, "warp"))
+        sweep = {f"{route} rows {r} unroll {u}": time_ms(
+                     lambda: pcr_kernel._launch(system, r, u, route=route), 5)
+                 for r, u, route in runs}
+        log(f"[numbers] pcr ms at {list(system[0].shape)}: "
+            f"{json.dumps(sweep)}")
 
     ends = []
     for variant, n, batch in tridiag_path_cases():
@@ -1276,7 +1572,58 @@ def phase_tridiag_numbers(dev, systems, recs, plans, counts, errs,
         ms = time_ms(lambda: linear_recurrence(a, b), 10)
         log(f"[numbers] linear_recurrence n={n} batch={batch}: {ms:.4f} ms "
             f"a call")
+    tridiag_trace(systems, recs, plans, cfgs)
     return entries, ends
+
+
+def tridiag_trace(systems, recs, plans, pcr_cfgs):
+    """torch.profiler's device time, by kernel, of one solve(variant="pcr")
+    at n = 256 and 1024 and one linear_recurrence at each linrec main-path
+    shape (the entry points, on the routes their plans pick), and of the
+    block kernels on the same plans (the earlier designs' records)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.scan.ops import linear_recurrence
+    from repro_torch.kernels.tridiag.ops import solve
+
+    calls = []
+    for n in sorted(pcr_cfgs):
+        calls += [lambda n=n: solve(*systems[n], variant="pcr"),
+                  lambda n=n: pcr_block(systems[n],
+                                        pcr_cfgs[n]["rows_per_program"],
+                                        pcr_cfgs[n]["unroll"])]
+    for n, _ in linrec_path_cases():
+        plan = plans[("linrec", n)]
+        calls.append(lambda n=n: linear_recurrence(*recs[n]))
+        if plan.kind == "fused":
+            calls.append(lambda n=n, p=plan: linrec_block(
+                *recs[n], p.rows, p.tile_n, p.stages))
+        else:
+            l1 = plan.launches[0]
+            calls.append(lambda n=n, p=plan, l1=l1: linrec_block(
+                *(v.reshape(-1, p.tile_n) for v in recs[n]),
+                l1.block_shape[0], p.tile_n, l1.stages, products=True))
+    for fn in calls:                   # warm up outside the trace
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # the trace can lose the first kernels of its window: open it
+        # with a spin of about a millisecond
+        torch.cuda._sleep(2_000_000)
+        for fn in calls:
+            fn()
+        torch.cuda.synchronize()
+    device = {}
+    for evt in prof.key_averages():
+        t = getattr(evt, "device_time_total", None)
+        if t is None:
+            t = getattr(evt, "cuda_time_total", 0.0)
+        if t and ("pcr" in evt.key or "linrec" in evt.key):
+            device[evt.key[:80]] = {"device_ms": t / 1e3, "calls": evt.count}
+    log(f"[trace] pcr at n = {sorted(pcr_cfgs)} and linrec at n = "
+        f"{[n for n, _ in linrec_path_cases()]}, each on its route and on "
+        f"the block kernel: {json.dumps(device, sort_keys=True)}")
 
 
 def fft_stage_cases():
@@ -1421,9 +1768,7 @@ def phase_fft_path(dev):
     log(f"[main] launches on the FFT path: {counts}")
     require_launched(counts, ("fft_stockham", "fft_stockham.pow2"),
                      "the FFT path")
-    if counts["fft_stockham.generic"]:
-        raise AssertionError(f"{counts['fft_stockham.generic']} FFT-path "
-                             f"launches took the generic kernel")
+    require_new_routes(counts, "the FFT path")
 
     runs = []
     for name, n, batch, cfg, y, launched in outputs:
@@ -1693,6 +2038,7 @@ def phase_ssd_path(dev):
         block_counts = read_counts()
         log(f"[ssd] launches on the Mamba-2 block's path: {block_counts}")
         require_launched(block_counts, ("ssd_intra",), "the Mamba-2 block")
+        require_new_routes(block_counts, "the Mamba-2 block")
         want = chain_of(resolved).launches
         if tuple(launched) != want:
             raise AssertionError(f"SSDBlock: launched {list(launched)} != "
@@ -1738,8 +2084,9 @@ def phase_ssd_path(dev):
         counts = read_counts()
         log(f"[ssd] launches on the SSD path (block, then the op): {counts}")
         require_launched(counts, ("ssd_intra", "ssd_state_apply",
-                                  "ssd_apply_entry", "scan_linrec"),
-                         "the SSD path")
+                                  "ssd_apply_entry", "scan_linrec",
+                                  "scan_linrec.warp"), "the SSD path")
+        require_new_routes(counts, "the SSD path")
         refs = {SSD_LEN: ref}
         ops = []
         for c, L, part, yo, launched in runs:
@@ -1917,8 +2264,10 @@ def phase_rglru_path(dev):
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"[rglru] launches on the RG-LRU path: {counts}")
-    require_launched(counts, ("scan_linrec", "scan_linrec_prod",
+    require_launched(counts, ("scan_linrec", "scan_linrec.warp",
+                              "scan_linrec_prod", "scan_linrec_prod.warp",
                               "apply_linrec"), "the RG-LRU path")
+    require_new_routes(counts, "the RG-LRU path")
     runs = []
     for key, wl, cfg, h, launched in outs:
         chain = plan_for_chain(wl, cfg)
@@ -2415,6 +2764,7 @@ def phase_long_carry(dev):
         h = linear_recurrence(a, x, config=cfg)
     torch.cuda.synchronize()
     counts = read_counts()
+    require_new_routes(counts, "the 2^22 carry-tile path")
     for linrec, launched in ((False, sum_launches), (True, rec_launches)):
         wl = Workload(op="scan", n=n, batch=batch,
                       variant="linrec" if linrec else "ks")
@@ -2726,6 +3076,11 @@ def main(argv=None) -> int:
                          "rglru": rglru_counts[name]}
                 entry["launches_by_path"] = paths
                 entry["launches"] = sum(paths.values())
+            if name in ("scan_linrec", "scan_linrec_prod"):
+                for route in ROUTES[name]:
+                    entry["launches_by_route"][route] += \
+                        ssd_counts[f"{name}.{route}"] \
+                        + rglru_counts[f"{name}.{route}"]
         entries += ssd_entries
         t0 = time.perf_counter()
         dense = phase_dense_path(dev)

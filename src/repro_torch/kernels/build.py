@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -31,7 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_kernels.so"
 
-# what the last build in this process reported (build seconds, ptxas log)
+# what the last build in this process reported (build seconds, each nvcc
+# call's seconds by source and the link's, ptxas log)
 BUILD_INFO: Dict[str, object] = {}
 
 
@@ -64,7 +66,8 @@ def build_library(force: bool = False) -> str:
     lib = os.path.join(out_dir, LIB_NAME)
     if os.path.exists(lib) and not force:
         if BUILD_INFO.get("path") != lib:
-            BUILD_INFO.update(path=lib, seconds=0.0, cached=True, log="")
+            BUILD_INFO.update(path=lib, seconds=0.0, cached=True, log="",
+                              source_seconds={})
         return lib
     os.makedirs(out_dir, exist_ok=True)
     nvcc = _nvcc()
@@ -76,17 +79,23 @@ def build_library(force: bool = False) -> str:
     tmp = f"{lib}.{tag}"
     cmds.append([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
                  "-o", tmp, *objs])
+    def run(cmd):
+        t = time.perf_counter()
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        return proc, time.perf_counter() - t
+
     t0 = time.perf_counter()
-    logs = []
+    logs, source_seconds = [], {}
     # every source at once, then the link
     for batch in (cmds[:-1], cmds[-1:]):
-        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for cmd in batch]
-        outs = [" ".join(cmd) + "\n" + proc.communicate()[0]
-                for cmd, proc in zip(batch, procs)]
-        logs += outs
-        for proc, out in zip(procs, outs):
+        with ThreadPoolExecutor(len(batch)) as pool:
+            done = list(pool.map(run, batch))
+        for cmd, (proc, secs) in zip(batch, done):
+            out = " ".join(cmd) + "\n" + proc.stdout
+            logs.append(out)
+            key = os.path.basename(cmd[-1]) if "-c" in cmd else "link"
+            source_seconds[key] = secs
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{out}")
     seconds = time.perf_counter() - t0
@@ -96,7 +105,8 @@ def build_library(force: bool = False) -> str:
     os.replace(tmp, lib)
     for obj in objs:
         os.remove(obj)
-    BUILD_INFO.update(path=lib, seconds=seconds, cached=False, log=log)
+    BUILD_INFO.update(path=lib, seconds=seconds, cached=False, log=log,
+                      source_seconds=source_seconds)
     return lib
 
 
@@ -112,17 +122,23 @@ def load_library() -> ctypes.CDLL:
     lib.repro_scan_add_warp.restype = i32
     lib.repro_apply_add.argtypes = [vp, vp, vp, i32, i64, i64, i32, vp]
     lib.repro_apply_add.restype = i32
-    lib.repro_linrec_scratch.argtypes = [i64, i32, i32]
+    lib.repro_linrec_scratch.argtypes = [i64, i32, i32, i32]
     lib.repro_linrec_scratch.restype = i64
     lib.repro_scan_linrec.argtypes = [vp, vp, vp, vp, i32, i64, i64, i32, i32,
                                       ctypes.POINTER(ctypes.c_int), i32, i32,
                                       i32, vp, vp]
     lib.repro_scan_linrec.restype = i32
+    lib.repro_scan_linrec_warp.argtypes = lib.repro_scan_linrec.argtypes
+    lib.repro_scan_linrec_warp.restype = i32
     lib.repro_apply_linrec.argtypes = [vp, vp, vp, vp, i32, i64, i64, i32, vp]
     lib.repro_apply_linrec.restype = i32
     lib.repro_pcr.argtypes = [vp, vp, vp, vp, vp, i32, i64, i32, i32, i32,
                               i32, vp]
     lib.repro_pcr.restype = i32
+    lib.repro_pcr_warp.argtypes = lib.repro_pcr.argtypes
+    lib.repro_pcr_warp.restype = i32
+    lib.repro_pcr_divide_check.argtypes = [vp, vp, i64, vp, vp]
+    lib.repro_pcr_divide_check.restype = i32
     lib.repro_fft.argtypes = [vp, vp, i64, i32, i32,
                               ctypes.POINTER(ctypes.c_int), i32, i32, i32,
                               vp]

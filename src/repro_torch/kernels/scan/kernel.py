@@ -8,8 +8,11 @@ and linear recurrence (the (a, b) pair monoid).
     ``repro_scan_add`` (route "block": the earlier design, for the tiles and
     stage sequences the warp kernel does not take);
   * ``scan_linrec`` replaces ``scan_linrec_pallas`` and
-    ``scan_linrec_prod`` replaces ``scan_linrec_prod_pallas`` (both
-    ``csrc/linrec.cu`` ``repro_scan_linrec``).
+    ``scan_linrec_prod`` replaces ``scan_linrec_prod_pallas``, both with
+    two kernels of ``csrc/linrec.cu`` routed by the plan alone
+    (:func:`linrec_route`): ``repro_scan_linrec_warp`` (route "warp": the
+    warp scan kernel's design with the (a, b) pair in place of one value)
+    and ``repro_scan_linrec`` (route "block": the earlier design).
 
 On a CUDA tensor each launches its hand-written Hopper kernel; on a CPU
 tensor it runs its plain version (``*_plain``), the same function in
@@ -47,13 +50,18 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448
 # the kernel's largest tile: 1024 threads x 32 elements each
 MAX_TILE_ELEMS = 32768
-# the warp kernel (route "warp"): power-of-two tiles of WARP_MIN_TILE to
-# MAX_TILE_ELEMS columns, fan-ins 2, 4 and 8; the (fan-in, stride) pairs of
+# the warp kernels (route "warp"): power-of-two tiles of WARP_MIN_TILE
+# (the linrec kernel: WARP_LINREC_MIN_TILE) to MAX_TILE_ELEMS columns,
+# fan-ins 2, 4 and 8; the (fan-in, stride) pairs of
 # its shuffle stages (stride < 32), which are those stage_radices gives
 # power-of-two tiles at radix 2, 4 and 8; a tile above WARP_ROW_COLS
 # spreads a row over warps, whose 64-column halo covers a shuffle reach
 # (sum of (fan-in - 1) * stride) of WARP_HALO_REACH
 WARP_MIN_TILE = 128
+WARP_LINREC_MIN_TILE = 2
+# the warp chunk kernel (scan_linrec_prod): tiles of WARP_MIN_TILE to
+# WARP_PROD_MAX_TILE columns, the ones the admitted h100 plans reach
+WARP_PROD_MAX_TILE = 16384
 WARP_ROW_COLS = 1024
 WARP_HALO_REACH = 63
 WARP_SHUFFLE_STAGES = frozenset({(2, 1), (2, 2), (2, 4), (2, 8), (2, 16),
@@ -90,14 +98,15 @@ def staged_piece(rows: int, tile_n: int, stages: Tuple[int, ...]
     return piece, stages[:count]
 
 
-def scan_route(rows: int, tile_n: int, stages: Sequence[int]) -> str:
-    """The kernel a (rows x tile_n) tile with these stages runs on, by the
-    plan alone: "warp" where the warp kernel takes the (staged) tile — a
-    power of two from WARP_MIN_TILE columns, fan-ins 2, 4 and 8, shuffle
-    stages it specialises, the halo's reach where a row spans warps —
-    else "block"."""
+def scan_route(rows: int, tile_n: int, stages: Sequence[int],
+               min_tile: int = WARP_MIN_TILE) -> str:
+    """The prefix-sum kernel a (rows x tile_n) tile with these stages runs
+    on, by the plan alone: "warp" where the warp kernel takes the (staged)
+    tile — a power of two from ``min_tile`` columns, fan-ins 2, 4 and 8,
+    shuffle stages it specialises, the halo's reach where a row spans
+    warps — else "block"."""
     piece, stages = staged_piece(rows, tile_n, tuple(int(r) for r in stages))
-    if piece < WARP_MIN_TILE or piece & (piece - 1) \
+    if piece < min_tile or piece & (piece - 1) \
             or rows * piece > MAX_TILE_ELEMS:
         return "block"
     stride, reach = 1, 0
@@ -112,6 +121,19 @@ def scan_route(rows: int, tile_n: int, stages: Sequence[int]) -> str:
     if piece > WARP_ROW_COLS and reach > WARP_HALO_REACH:
         return "block"
     return "warp"
+
+
+def linrec_route(rows: int, tile_n: int, stages: Sequence[int],
+                 products: bool = False) -> str:
+    """The linrec kernel a tile runs on: the prefix sum's rule, except
+    that the warp linrec kernel (``scan_linrec``) also takes tiles from
+    WARP_LINREC_MIN_TILE columns (several rows a warp up to 32), and the
+    warp chunk kernel (``products``: ``scan_linrec_prod``) only tiles of
+    WARP_MIN_TILE to WARP_PROD_MAX_TILE columns."""
+    if products and tile_n > WARP_PROD_MAX_TILE:
+        return "block"
+    return scan_route(rows, tile_n, stages, min_tile=WARP_MIN_TILE
+                      if products else WARP_LINREC_MIN_TILE)
 
 
 def _check_args(x: torch.Tensor, rows: int, tile_n: int,
@@ -207,10 +229,14 @@ def scan_add(x: torch.Tensor, *, rows_per_program: int, tile_n: int,
     route = scan_route(rows_per_program, tile_n, stages)
     y = _launch(x.contiguous(), rows_per_program, tile_n, stages, unroll,
                 route)
-    scan_add.launches += 1
-    setattr(scan_add, f"launches_{route}",
-            getattr(scan_add, f"launches_{route}") + 1)
+    count_launch(scan_add, route)
     return y
+
+
+def count_launch(fn, route: str) -> None:
+    """One more CUDA launch of wrapper ``fn``, on ``route``."""
+    fn.launches += 1
+    setattr(fn, f"launches_{route}", getattr(fn, f"launches_{route}") + 1)
 
 
 # launches of the CUDA kernels (plain-version calls are not counted): all,
@@ -292,7 +318,11 @@ def scan_linrec_prod_plain(a: torch.Tensor, b: torch.Tensor, *,
 
 
 def _launch_linrec(a: torch.Tensor, b: torch.Tensor, rows: int, tile_n: int,
-                   stages: Tuple[int, ...], gate: bool, products: bool):
+                   stages: Tuple[int, ...], gate: bool, products: bool,
+                   route: Optional[str] = None):
+    """Launch one linrec kernel: ``route`` "warp" or "block"; by default
+    the one :func:`linrec_route` picks.  Returns (h, products or None);
+    counts nothing."""
     from repro_torch.kernels.build import check, load_library
 
     _check_linrec(a, b, rows, tile_n, stages)
@@ -305,26 +335,35 @@ def _launch_linrec(a: torch.Tensor, b: torch.Tensor, rows: int, tile_n: int,
         # the chunk kernel has no carry to walk pieces with
         raise ValueError(f"a {rows} x {tile_n} tile exceeds the chunk "
                          f"kernel's {MAX_TILE_ELEMS} elements per block")
-    # the carrying kernel runs a tile longer than its staging as pieces
+    route = route or linrec_route(rows, tile_n, stages, products)
+    if route not in ROUTES:
+        raise ValueError(f"unknown scan_linrec route {route!r}")
+    # the carrying kernels run a tile longer than their staging as pieces
     piece, stages = (tile_n, stages) if products \
         else staged_piece(rows, tile_n, stages)
     lib = load_library()
+    entry = lib.repro_scan_linrec_warp if route == "warp" \
+        else lib.repro_scan_linrec
     batch, n = a.shape
     h = torch.empty_like(a)
     p = torch.empty_like(a) if products else None
-    floats = lib.repro_linrec_scratch(batch, rows, piece)
+    floats = lib.repro_linrec_scratch(batch, rows, piece,
+                                      1 if route == "warp" else 0)
+    if floats < 0:
+        raise ValueError(f"the {route} linrec kernel does not take a "
+                         f"{rows} x {piece} tile")
     scratch = torch.empty(floats, dtype=torch.float32, device=a.device) \
         if floats else None
     fan_in = (ctypes.c_int * max(len(stages), 1))(*stages)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        code = lib.repro_scan_linrec(
+        code = entry(
             a.data_ptr(), b.data_ptr(), h.data_ptr(),
             p.data_ptr() if products else None, DTYPE_CODES[a.dtype], batch,
             n, rows, piece, fan_in, len(stages), int(gate),
             0 if products else 1,
             scratch.data_ptr() if scratch is not None else None, stream)
-    check(code, "scan_linrec launch")
+    check(code, f"scan_linrec launch ({route})")
     return h, p
 
 
@@ -340,9 +379,11 @@ def scan_linrec(a: torch.Tensor, b: torch.Tensor, *, rows_per_program: int,
     if not kernel_path(a):
         return scan_linrec_plain(a, b, rows_per_program=rows_per_program,
                                  tile_n=tile_n, stages=stages, gate=gate)
+    _check_linrec(a, b, rows_per_program, tile_n, stages)
+    route = linrec_route(rows_per_program, tile_n, stages)
     h, _ = _launch_linrec(a.contiguous(), b.contiguous(), rows_per_program,
-                          tile_n, stages, gate, products=False)
-    scan_linrec.launches += 1
+                          tile_n, stages, gate, products=False, route=route)
+    count_launch(scan_linrec, route)
     return h
 
 
@@ -357,12 +398,21 @@ def scan_linrec_prod(a: torch.Tensor, b: torch.Tensor, *,
     if not kernel_path(a):
         return scan_linrec_prod_plain(a, b, rows_per_program=rows_per_program,
                                       stages=stages, gate=gate)
+    _check_linrec(a, b, rows_per_program, a.shape[-1], stages)
+    route = linrec_route(rows_per_program, a.shape[-1], stages,
+                         products=True)
     out = _launch_linrec(a.contiguous(), b.contiguous(), rows_per_program,
-                         a.shape[-1], stages, gate, products=True)
-    scan_linrec_prod.launches += 1
+                         a.shape[-1], stages, gate, products=True,
+                         route=route)
+    count_launch(scan_linrec_prod, route)
     return out
 
 
-# launches of the CUDA kernels (plain-version calls are not counted)
+# launches of the CUDA kernels (plain-version calls are not counted): all,
+# and by route
 scan_linrec.launches = 0
+scan_linrec.launches_warp = 0
+scan_linrec.launches_block = 0
 scan_linrec_prod.launches = 0
+scan_linrec_prod.launches_warp = 0
+scan_linrec_prod.launches_block = 0

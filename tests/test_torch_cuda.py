@@ -17,21 +17,38 @@ from repro_torch.kernels.blocks.plan import plan_for, stage_radices
 from repro_torch.kernels.fft import ops as fft_ops
 from repro_torch.kernels.fft.kernel import (fft_generic, fft_plain,
                                             fft_route, fft_stockham)
-from repro_torch.kernels.scan.kernel import (scan_add, scan_add_block,
-                                             scan_add_plain, scan_linrec,
-                                             scan_linrec_plain,
+from repro_torch.kernels.scan import kernel as scan_kernel
+from repro_torch.kernels.scan.kernel import (linrec_route, scan_add,
+                                             scan_add_block, scan_add_plain,
+                                             scan_linrec, scan_linrec_plain,
                                              scan_linrec_prod,
                                              scan_linrec_prod_plain,
                                              scan_route, staged_piece)
 from repro_torch.kernels.scan.ops import linear_recurrence, prefix_sum
 from repro_torch.kernels.scan.ref import scan_linrec_assoc_ref
 from repro_torch.kernels.tridiag import ops as tridiag_ops
-from repro_torch.kernels.tridiag.kernel import pcr, pcr_plain
+from repro_torch.kernels.tridiag import kernel as pcr_kernel
+from repro_torch.kernels.tridiag.kernel import pcr, pcr_plain, pcr_route
 from repro_torch.kernels.tridiag.ref import random_system, residual
 
 pytestmark = pytest.mark.cuda
 
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _linrec_block(a, b, rows, tile_n, stages, gate=False, products=False):
+    """The block linrec kernel forced (its record beside the warp kernel):
+    h, or (h, products)."""
+    out = scan_kernel._launch_linrec(a, b, rows, tile_n, tuple(stages), gate,
+                                     products, route="block")
+    return out if products else out[0]
+
+
+def _pcr_block(planes, rows, unroll=1):
+    """The block PCR kernel forced, as _linrec_block (unroll capped at its
+    16 equations a thread: the knob changes no result)."""
+    return pcr_kernel._launch(tuple(v.contiguous() for v in planes), rows,
+                              min(unroll, 16), route="block")
 
 
 @pytest.fixture
@@ -148,8 +165,11 @@ def test_prefix_sum_on_the_card(cuda, cfg):
         _close(y, torch.cumsum(x.double(), dim=-1), "float32")
 
 
-def _linrec_pair(gen, batch, n, dtype, device):
-    a = torch.rand(batch, n, generator=gen, device=device) * 0.19 + 0.8
+def _linrec_pair(gen, batch, n, dtype, device, slow=False):
+    """a in [0.8, 0.99), or with ``slow`` in [0.9999, 1) (prefix products
+    near 1, so every stage's neighbours show in h); b standard normal."""
+    lo, width = (0.9999, 1e-4) if slow else (0.8, 0.19)
+    a = torch.rand(batch, n, generator=gen, device=device) * width + lo
     b = torch.randn(batch, n, generator=gen, device=device)
     return a.to(_TORCH[dtype]), b.to(_TORCH[dtype])
 
@@ -190,6 +210,75 @@ def test_scan_linrec_prod_kernel_matches_plain(cuda, gate, dtype, batch, n,
     _close(p, pr, dtype)
 
 
+@pytest.mark.parametrize("gate", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch,n,rows,tile_n,stages", [
+    # a warp a row at tiles 128 and 1024 (register stages), fan-ins 2, 4, 8
+    *[(8, 1024, 2, t, stage_radices(t, r)) for t in (128, 1024)
+      for r in (2, 4, 8)],
+    (16, 4096, 4, 256, stage_radices(256, 4)),       # multi-tile carry
+    (48, 64, 8, 16, stage_radices(16, 4)),           # two rows a warp
+    (40, 64, 5, 4, stage_radices(4, 2)),             # a partial warp
+    (8, 8192, 2, 2048, stage_radices(2048, 4)),      # rows over warps
+    (4, 32768, 1, 32768, stage_radices(32768, 8)),   # global-scratch planes
+    (16, 32768, 16, 32768, stage_radices(32768, 8)),  # a staged piece
+    (5, 212, 5, 106, (2, 53)),                       # prime stages (block)
+])
+@pytest.mark.parametrize("slow", [False, True])
+def test_linrec_kernels_are_bit_equal_to_plain(cuda, slow, gate, dtype, batch,
+                                               n, rows, tile_n, stages):
+    """Both linrec kernels keep scan_linrec_plain's order: every element
+    equal, whichever route the plan takes (and the block kernel on the
+    warp route's plans too)."""
+    gen = torch.Generator(device=cuda).manual_seed(batch * n + tile_n)
+    a, b = _linrec_pair(gen, batch, n, dtype, cuda, slow)
+    kw = dict(rows_per_program=rows, tile_n=tile_n, stages=stages, gate=gate)
+    ref = scan_linrec_plain(a, b, **kw)
+    assert torch.equal(scan_linrec(a, b, **kw), ref)
+    assert torch.equal(_linrec_block(a, b, rows, tile_n, stages, gate), ref)
+
+
+@pytest.mark.parametrize("gate", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch,n,rows,radix", [
+    (96, 128, 3, 4), (512, 2048, 4, 2), (64, 16, 8, 4), (2, 32768, 1, 8),
+    (7, 106, 7, 2)])
+def test_chunk_kernels_are_bit_equal_to_plain(cuda, gate, dtype, batch, n,
+                                              rows, radix):
+    """The chunk kernel's h and prefix products, on both routes."""
+    gen = torch.Generator(device=cuda).manual_seed(batch + n + 1)
+    a, b = _linrec_pair(gen, batch, n, dtype, cuda, slow=True)
+    kw = dict(rows_per_program=rows, stages=stage_radices(n, radix),
+              gate=gate)
+    hr, pr = scan_linrec_prod_plain(a, b, **kw)
+    for h, p in (scan_linrec_prod(a, b, **kw),
+                 _linrec_block(a, b, rows, n, kw["stages"], gate,
+                               products=True)):
+        assert torch.equal(h, hr) and torch.equal(p, pr)
+
+
+def test_linrec_kernels_count_their_route(cuda):
+    """One call on each route adds one to its count and to the total; the
+    block kernels forced for the record count nothing."""
+    a, b = _linrec_pair(torch.Generator(device=cuda).manual_seed(9), 8,
+                        1024, "float32", cuda)
+    for stages, route in ((stage_radices(1024, 4), "warp"),
+                          ((2, 4) + (2,) * 7, "block")):
+        assert linrec_route(2, 1024, stages) == route
+        for fn, kw in ((scan_linrec, dict(tile_n=1024)),
+                       (scan_linrec_prod, {})):
+            before = (fn.launches, fn.launches_warp, fn.launches_block)
+            fn(a, b, rows_per_program=2, stages=stages, **kw)
+            after = (fn.launches, fn.launches_warp, fn.launches_block)
+            assert after == (before[0] + 1, before[1] + (route == "warp"),
+                             before[2] + (route == "block"))
+    before = (scan_linrec.launches, scan_linrec_prod.launches)
+    stages = stage_radices(1024, 4)
+    _linrec_block(a, b, 2, 1024, stages)
+    _linrec_block(a, b, 2, 1024, stages, products=True)
+    assert (scan_linrec.launches, scan_linrec_prod.launches) == before
+
+
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
 def test_apply_linrec_kernel_matches_plain(cuda, out_dtype):
     h = torch.randn(96, 1000, device=cuda)
@@ -204,15 +293,88 @@ def test_apply_linrec_kernel_matches_plain(cuda, out_dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("batch,n,rows,unroll", [
     (64, 1024, 4, 1), (6, 96, 3, 2), (10, 100, 5, 4), (8, 1, 2, 1),
-    (4, 8192, 1, 1)])
+    (4, 8192, 1, 1), (1024, 256, 16, 4), (96, 32, 3, 1), (40, 512, 5, 2),
+    (16, 1024, 2, 32), (16, 1024, 4, 16), (64, 256, 8, 8), (32, 512, 4, 3)])
 def test_pcr_kernel_matches_plain(cuda, dtype, batch, n, rows, unroll):
+    """Both pcr kernels keep pcr_plain's order: every element equal,
+    whichever route the plan takes (and the block kernel on the warp
+    route's plans too); on the warp kernel 1 ... 32 equations a lane and
+    1 ... 32 warps a system."""
     gen = torch.Generator(device=cuda).manual_seed(batch * n)
     planes = [v.to(_TORCH[dtype]) for v in random_system(gen, batch, n)]
     before = pcr.launches
     got = pcr(*planes, rows_per_program=rows, unroll=unroll)
     assert pcr.launches == before + 1
-    _close(got, pcr_plain(*planes, rows_per_program=rows, unroll=unroll),
-           dtype)
+    ref = pcr_plain(*planes, rows_per_program=rows, unroll=unroll)
+    assert torch.equal(got, ref)
+    assert torch.equal(_pcr_block(planes, rows, unroll), ref)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch,n,rows,unroll", [
+    (64, 1024, 4, 4), (1024, 256, 16, 1), (96, 32, 3, 1), (40, 512, 5, 2),
+    (6, 96, 3, 2)])
+def test_pcr_kernels_are_bit_equal_on_a_laplacian(cuda, dtype, batch, n,
+                                                  rows, unroll):
+    """A perturbed 1-D Laplacian keeps its off-diagonals at every level
+    (those of random_system underflow to 0 after a few), so every level's
+    neighbours show in x."""
+    gen = torch.Generator(device=cuda).manual_seed(batch + n)
+    a, c = (-1.0 - 0.01 * torch.rand(batch, n, generator=gen, device=cuda)
+            for _ in range(2))
+    b = 2.03 + 0.01 * torch.rand(batch, n, generator=gen, device=cuda)
+    d = torch.randn(batch, n, generator=gen, device=cuda)
+    a[:, 0], c[:, -1] = 0.0, 0.0
+    planes = [v.to(_TORCH[dtype]) for v in (a, b, c, d)]
+    ref = pcr_plain(*planes, rows_per_program=rows, unroll=unroll)
+    assert bool(torch.isfinite(ref.float()).all())
+    assert torch.equal(pcr(*planes, rows_per_program=rows, unroll=unroll),
+                       ref)
+    assert torch.equal(_pcr_block(planes, rows, unroll), ref)
+
+
+@pytest.mark.parametrize("n", [32, 256, 1024])
+@pytest.mark.parametrize("kind", ["scaled", "signed zeros", "subnormal"])
+def test_pcr_warp_divides_are_exact_on_every_path(cuda, n, kind):
+    """The warp kernel's divides take one of three paths a level (the
+    fast-path sequence of __fdiv_rn, its scaled form for tiny dividends,
+    __fdiv_rn itself): systems scaled by 2^30 (divisors out of the fast
+    ranges), with -0 / +0 off-diagonals, and with subnormal ones, all
+    bit-equal to pcr_plain, at one warp a system and at n / 32 warps (the
+    shared levels too)."""
+    gen = torch.Generator(device=cuda).manual_seed(n + len(kind))
+    a, b, c, d = random_system(gen, 64, n)
+    if kind == "scaled":
+        a, b, c, d = (v * 2.0 ** 30 for v in (a, b, c, d))
+    elif kind == "signed zeros":
+        zero = torch.rand(a.shape, generator=gen, device=cuda) < 0.2
+        a = torch.where(zero, -0.0 * torch.sign(a), a)
+        c = torch.where(zero.roll(1, 1), 0.0 * c, c)
+    else:
+        tiny = torch.rand(a.shape, generator=gen, device=cuda) < 0.2
+        a = torch.where(tiny, a * 2.0 ** -140, a)
+        c = torch.where(tiny.roll(3, 1), c * 2.0 ** -130, c)
+    ref = pcr_plain(a, b, c, d, rows_per_program=2)
+    for unroll in (1, n // 32):
+        assert torch.equal(pcr(a, b, c, d, rows_per_program=2,
+                               unroll=unroll), ref)
+    assert torch.equal(_pcr_block((a, b, c, d), 2), ref)
+
+
+def test_pcr_counts_its_route(cuda):
+    planes = random_system(torch.Generator(device=cuda).manual_seed(10), 8,
+                           256)
+    for n, route in ((256, "warp"), (96, "block")):
+        part = [v[:, :n].contiguous() for v in planes]
+        assert pcr_route(2, n, 1) == route
+        before = (pcr.launches, pcr.launches_warp, pcr.launches_block)
+        pcr(*part, rows_per_program=2)
+        after = (pcr.launches, pcr.launches_warp, pcr.launches_block)
+        assert after == (before[0] + 1, before[1] + (route == "warp"),
+                         before[2] + (route == "block"))
+    before = pcr.launches
+    _pcr_block(planes, 2)
+    assert pcr.launches == before
 
 
 @pytest.mark.parametrize("variant", ["pcr", "cr", "lf", "wm"])
