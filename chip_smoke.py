@@ -66,14 +66,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
 7. the SSD chain: ``ssd_intra``, ``ssd_state_apply`` and
    ``ssd_apply_entry`` against their plain versions (chunk 64 ... 2048,
    nc = 1, 3 and 16, (S, P) = (8, 16), (16, 8) and (128, 64), a strong
-   decay, f32 and bf16, at the tests' SSD tolerance, DTYPE_TOL x 10); the
+   decay, f32 and bf16, at the tests' SSD tolerance, DTYPE_TOL x 10),
+   kernels 8 and 9 on both routes (the tiled kernels and the earlier
+   block kernels), with the elements not bit-equal counted (the run fails
+   unless there are none); the
    Mamba-2 block (``SSDBlock``) at mamba2-130m's width on 8 x 2048 tokens
    with the session's config, and one decode step; the ``ssd`` op at the
    block's shapes with chunk 128 and 256, fuse 0 and 1, and an odd chunk
    count — each SSD output against a float64 sequential ``ssd_ref`` of
    sampled heads, each launch list against ``plan_for_chain``, the launch
-   counts read around the block and around the whole SSD path; kernel 8
-   timed over chunk 128 ... 2048;
+   counts read around the block and around the whole SSD path, every
+   launch of kernels 8 and 9 on the tiled kernels; kernels 8 and 9 timed
+   on both routes over chunk 128 ... 2048 (9 where nc > 1), beside their
+   bounds, ``torch.profiler``'s device time by kernel at chunk 128 and
+   2048 (``[trace] ssd``), and the port's torch ``ssd_chunked_ref`` at
+   chunk 128 (the op's ``composed_ms``, never called by the port);
 8. the RG-LRU: ``rglru`` at recurrentgemma-9b's width (2 x 2048 x 4096)
    with the gate in the kernel (fuse = 1) and in torch (fuse = 0), and a
    multipass call at 2^22 x 16, against a float64 sequential recurrence;
@@ -96,7 +103,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    forward, the forward's time split into the flash kernel and the rest,
    and one forward under ``torch.profiler``: the five kernels with the
    most device time and the device's idle share; one full-depth
-   mamba2-130m ``Model.forward`` on 8 x 2048 tokens;
+   mamba2-130m ``Model.forward`` on 8 x 2048 tokens, every ``ssd_intra``
+   launch on the tiled kernel, its time split into those launches and
+   the rest;
 11. the multipass ``prefix_sum`` and ``linear_recurrence`` at 2^22 x 16
    forced to tile_n 128, rows 2, whose carry-scan tile (2, 32768) is
    walked in staged pieces, against float64, launch lists equal to the
@@ -112,9 +121,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    0;
 13. the ``kernels`` line: per kernel (all twelve) its launches on the main
    paths (by route for ``scan_add``, ``scan_linrec``, ``scan_linrec_prod``,
-   ``pcr`` and ``fft_stockham``, with the earlier kernel's time beside
-   theirs), its error against the plain version, its time, the plain
-   version's and the library call's (null where no one PyTorch call
+   ``pcr``, ``fft_stockham``, ``ssd_intra`` and ``ssd_state_apply``, with
+   the earlier kernel's time beside theirs; by path for the kernels that
+   run on several; kernels 8 and 9 also by chunk length), its error
+   against the plain version, its time, the plain version's and the
+   library call's (null where no one PyTorch call
    computes the function; ``scaled_dot_product_attention`` and
    ``torch.matmul`` for kernels 11 and 12, timed as yardsticks and never
    called by the port), and its bound (bytes over the card's memory
@@ -125,8 +136,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    CUDA-core kernel on the same bf16 inputs.
 
 The build phase prints each source's nvcc time and counts, per scan,
-linrec, PCR and FFT kernel, the local-memory instructions (LDL / STL) and
-calls in the library's SASS (``cuobjdump``).
+linrec, PCR, FFT and SSD kernel, the local-memory instructions (LDL / STL)
+and calls in the library's SASS (``cuobjdump``).
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 nothing of JAX or of the JAX package.
 """
@@ -257,20 +268,27 @@ def sass_functions(path):
 
 
 def sass_counts(path):
-    """Per scan, linrec, PCR and FFT kernel of the built library: its SASS
+    """Per scan, linrec, PCR, FFT and SSD kernel of the built library: its SASS
     instructions, local-memory loads and stores (LDL / STL: spills and
-    stack arrays) and calls."""
+    stack arrays) and calls; for the SSD kernels also the mix of their
+    FFMA-heavy basic blocks (the unrolled loops)."""
     counts = {}
     for name, blocks in sass_functions(path).items():
         if not any(k in name for k in ("scan_add_kernel", "scan_warp",
                                        "linrec_kernel", "linrec_warp",
                                        "pcr_kernel", "pcr_warp",
-                                       "fft_kernel", "fft_pow2")):
+                                       "fft_kernel", "fft_pow2", "ssd_")):
             continue
         ops = [op for block in blocks for op in block]
         counts[name] = {"instructions": len(ops)}
         for key in ("LDL", "STL", "CALL"):
             counts[name][key] = sum(op.startswith(key) for op in ops)
+        if "ssd_" in name:
+            # [instructions, FFMA, LDS] of each block of 64 FFMA or more
+            counts[name]["ffma_blocks"] = sorted(
+                [len(b), sum(op.split(".")[0] == "FFMA" for op in b),
+                 sum(op.startswith("LDS") for op in b)] for b in blocks
+                if sum(op.split(".")[0] == "FFMA" for op in b) >= 64)
     return counts
 
 
@@ -476,15 +494,19 @@ def counted_wrappers():
 # kernels with one launch counter per route besides their total: bf16 runs
 # the tensor-core kernel (wgmma), f32 the CUDA-core one (simt); the prefix
 # sum, the linear recurrence, PCR and the FFT pick theirs by the plan
-# (scan_route, linrec_route, pcr_route, fft_route)
+# (scan_route, linrec_route, pcr_route, fft_route), SSD phase A and the
+# fused phases B + C by the shapes (ssd_intra_route, ssd_state_apply_route)
 ROUTES = {"flash_attention": ("wgmma", "simt"), "matmul": ("wgmma", "simt"),
           "scan_add": ("warp", "block"), "scan_linrec": ("warp", "block"),
           "scan_linrec_prod": ("warp", "block"), "pcr": ("warp", "block"),
-          "fft_stockham": ("pow2", "generic")}
+          "fft_stockham": ("pow2", "generic"),
+          "ssd_intra": ("tiled", "block"),
+          "ssd_state_apply": ("tiled", "block")}
 # the kernels whose main-path launches must all take the new route
 NEW_ROUTES = {"scan_add": "warp", "scan_linrec": "warp",
               "scan_linrec_prod": "warp", "pcr": "warp",
-              "fft_stockham": "pow2"}
+              "fft_stockham": "pow2", "ssd_intra": "tiled",
+              "ssd_state_apply": "tiled"}
 
 
 def reset_counts():
@@ -1919,15 +1941,19 @@ RGLRU_LONG = (1, 2 ** 22, 16)     # the multipass call, as linrec's
 def ssd_kernel_cases():
     """(BH, G, L, P, S, chunk, dtype, strong): chunk 64 ... 2048, nc = 1,
     3 and 16, (S, P) = (8, 16), (16, 8) and (128, 64), shared b / c (G <
-    BH), a strong decay (a x 0.01), ragged tiles (P = 70, S = 130, Q =
-    100), f32 and bf16."""
+    BH), a strong decay (a x 0.01), a chunk that is no multiple of the
+    tiled kernels' 16-row warps and 128-row panels (Q = 100: both
+    routes), ragged tiles (P = 70, S = 130, Q = 100: the block route
+    alone), f32 and bf16."""
     return [(4, 2, 1024, 16, 8, 64, "float32", False),
             (6, 3, 384, 8, 16, 128, "bfloat16", False),
             (4, 2, 256, 64, 128, 256, "float32", False),
             (2, 1, 2048, 64, 128, 2048, "float32", False),
             (4, 2, 2048, 64, 128, 128, "float32", True),
             (4, 2, 768, 64, 128, 256, "bfloat16", True),
+            (2, 1, 3072, 64, 128, 1024, "float32", False),
             (2, 1, 6144, 64, 128, 2048, "bfloat16", False),
+            (2, 1, 300, 8, 16, 100, "float32", True),
             (2, 1, 300, 70, 130, 100, "float32", False)]
 
 
@@ -1946,51 +1972,80 @@ def ssd_inputs(gen, dev, BH, G, L, P, S, dtype, strong):
 
 def phase_ssd_kernels(dev, quick: bool):
     """ssd_intra, ssd_state_apply and ssd_apply_entry against their plain
-    versions on the card, at the tests' SSD tolerance (DTYPE_TOL x 10).
-    The plain versions keep the kernels' order (and emulate their fused
-    multiply-adds exactly), so the count of elements that are not
-    bit-equal is printed beside the largest error."""
+    versions on the card, kernels 8 and 9 on both routes (the tiled kernel
+    wherever its route function takes the shape, and the block kernel
+    forced), at the tests' SSD tolerance (DTYPE_TOL x 10).  The plain
+    versions keep the kernels' order (and emulate their fused
+    multiply-adds exactly): the run fails unless every element of every
+    output is bit-equal to the plain version's."""
     import torch
     from repro_torch.kernels.ssd.kernel import (ssd_apply_entry,
                                                 ssd_apply_entry_plain,
                                                 ssd_intra, ssd_intra_plain,
+                                                ssd_intra_route,
                                                 ssd_state_apply,
-                                                ssd_state_apply_plain)
+                                                ssd_state_apply_plain,
+                                                ssd_state_apply_route)
 
     gen = torch.Generator(device=dev).manual_seed(9)
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     worst = {"ssd_intra": 0.0, "ssd_state_apply": 0.0, "ssd_apply_entry": 0.0}
-    unequal = dict.fromkeys(worst, 0)
+    unequal = {"ssd_intra.tiled": 0, "ssd_intra.block": 0,
+               "ssd_state_apply.tiled": 0, "ssd_state_apply.block": 0,
+               "ssd_apply_entry.block": 0}
+    launched = dict.fromkeys(unequal, 0)
     cases = ssd_kernel_cases()[:3] if quick else ssd_kernel_cases()
     for BH, G, L, P, S, chunk, dtype, strong in cases:
         x, a, b, c = ssd_inputs(gen, dev, BH, G, L, P, S, dtypes[dtype],
                                 strong)
         what = (f"BH={BH} G={G} L={L} P={P} S={S} chunk={chunk} {dtype}"
                 f"{' strong' if strong else ''}")
-        got = ssd_intra(x, a, b, c, chunk=chunk)
         want = ssd_intra_plain(x, a, b, c, chunk=chunk)
-        torch.cuda.synchronize()
-        for name, g, w in zip(("y", "a_chunk", "state"), got, want):
-            worst["ssd_intra"] = max(worst["ssd_intra"], check_close(
-                g, w, dtype if name == "y" else "float32",
-                f"ssd_intra {name} {what}", scale=10.0))
-            unequal["ssd_intra"] += int((g != w).sum())
+        routes = {"block", ssd_intra_route(P, S, chunk)}
+        for route in sorted(routes):
+            got = ssd_intra(x, a, b, c, chunk=chunk, route=route)
+            torch.cuda.synchronize()
+            for name, g, w in zip(("y", "a_chunk", "state"), got, want):
+                worst["ssd_intra"] = max(worst["ssd_intra"], check_close(
+                    g, w, dtype if name == "y" else "float32",
+                    f"ssd_intra ({route}) {name} {what}", scale=10.0))
+                unequal[f"ssd_intra.{route}"] += int((g != w).sum())
+            launched[f"ssd_intra.{route}"] += 1
         y, ac, st = want
         if L // chunk > 1:
-            for name, fn, plain, args in (
-                    ("ssd_state_apply", ssd_state_apply,
-                     ssd_state_apply_plain, (y, a, c, ac, st)),
-                    ("ssd_apply_entry", ssd_apply_entry,
-                     ssd_apply_entry_plain, (y, a, c, st))):
-                g, w = fn(*args, chunk=chunk), plain(*args, chunk=chunk)
+            args = (y, a, c, ac, st)
+            w = ssd_state_apply_plain(*args, chunk=chunk)
+            for route in sorted({"block", ssd_state_apply_route(P, S,
+                                                                chunk)}):
+                g = ssd_state_apply(*args, chunk=chunk, route=route)
                 torch.cuda.synchronize()
-                worst[name] = max(worst[name], check_close(
-                    g, w, dtype, f"{name} {what}", scale=10.0))
-                unequal[name] += int((g != w).sum())
-        log(f"[kernels] ssd {what}: within tolerance")
+                worst["ssd_state_apply"] = max(
+                    worst["ssd_state_apply"], check_close(
+                        g, w, dtype, f"ssd_state_apply ({route}) {what}",
+                        scale=10.0))
+                unequal[f"ssd_state_apply.{route}"] += int((g != w).sum())
+                launched[f"ssd_state_apply.{route}"] += 1
+            g = ssd_apply_entry(y, a, c, st, chunk=chunk)
+            w = ssd_apply_entry_plain(y, a, c, st, chunk=chunk)
+            torch.cuda.synchronize()
+            worst["ssd_apply_entry"] = max(worst["ssd_apply_entry"],
+                                           check_close(
+                g, w, dtype, f"ssd_apply_entry {what}", scale=10.0))
+            unequal["ssd_apply_entry.block"] += int((g != w).sum())
+            launched["ssd_apply_entry.block"] += 1
+        log(f"[kernels] ssd {what}: within tolerance on routes "
+            f"{sorted(routes)}")
     log(f"[kernels] ssd kernels: {len(cases)} cases within tolerance; max "
-        f"abs err {json.dumps(worst)}; elements not bit-equal to the plain "
+        f"abs err {json.dumps(worst)}; launches by kernel and route "
+        f"{json.dumps(launched)}; elements not bit-equal to the plain "
         f"version {json.dumps(unequal)}")
+    if any(unequal.values()):
+        raise AssertionError(f"ssd kernels: elements not bit-equal to the "
+                             f"plain versions {unequal}")
+    if not (launched["ssd_intra.tiled"]
+            and launched["ssd_state_apply.tiled"]):
+        raise AssertionError(f"ssd kernels: a tiled kernel was not checked "
+                             f"{launched}")
     return worst
 
 
@@ -2110,10 +2165,49 @@ def phase_ssd_path(dev):
             "ops": ops, "block_counts": block_counts, "counts": counts}
 
 
+def ssd_bounds(BH, G, L, P, S, chunk, bandwidth: float):
+    """The least time the card could take for kernels 8, 9 and 10 at these
+    f32 shapes: each function's bytes (inputs read once, outputs written
+    once; b and c per sequence, as the kernels read them) over the memory
+    rate, and its operations over the f32 rate; the larger, and which."""
+    f4, nc = 4, L // chunk
+    x_bytes = BH * L * P * f4
+    a_bytes = BH * L * f4
+    bc_bytes = 2 * G * L * S * f4
+    st_bytes = BH * nc * S * P * f4
+    pairs = chunk * (chunk + 1) // 2            # s <= t in a chunk
+    # intra: per (row, chunk) the causal pairs' S-dot, decay multiply and
+    # P-term (2S + 2 + 2P), the state's S x P x Q fma and b x decay
+    intra_flops = BH * nc * (pairs * (2 * S + 2 + 2 * P)
+                             + 2 * chunk * S * P + chunk * S)
+    # apply: the Q x P x S dot, the decay multiply and the add; the fused
+    # kernel also the S x P carry fma per chunk
+    apply_flops = BH * nc * (2 * chunk * S * P + 2 * chunk * P)
+    work = {"ssd_intra": (2 * x_bytes + a_bytes + bc_bytes + st_bytes
+                          + BH * nc * f4, intra_flops),
+            "ssd_state_apply": (2 * x_bytes + a_bytes + bc_bytes // 2
+                                + st_bytes + BH * nc * f4,
+                                apply_flops + BH * nc * 2 * S * P),
+            "ssd_apply_entry": (2 * x_bytes + a_bytes + bc_bytes // 2
+                                + st_bytes, apply_flops)}
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        by_bytes = nbytes / bandwidth * 1e3
+        by_ops = flops / F32_PEAK * 1e3
+        out[name] = {"bytes": nbytes, "flops": flops,
+                     "bound_ms": max(by_bytes, by_ops),
+                     "bound_by": "bytes" if by_bytes >= by_ops
+                     else "operations"}
+    return out
+
+
 def phase_ssd_numbers(dev, run, errs, bandwidth: float):
     """Times at the block's shapes: the block, the op at the resolved and
-    the forced configs, kernel 8 over chunk 128 ... 2048, and the kernels
-    line's entries for kernels 8, 9 and 10 at chunk 128."""
+    the forced configs and the port's torch ``ssd_chunked_ref`` (the op's
+    ``composed_ms``, a yardstick the port never calls), kernels 8 and 9
+    over the chunk lengths on both routes, their device time by kernel
+    (``[trace] ssd``), and the kernels line's entries for kernels 8, 9 and
+    10 at chunk 128."""
     import torch
     from repro_torch.kernels.ssd.kernel import (ssd_apply_entry,
                                                 ssd_apply_entry_plain,
@@ -2121,6 +2215,7 @@ def phase_ssd_numbers(dev, run, errs, bandwidth: float):
                                                 ssd_state_apply,
                                                 ssd_state_apply_plain)
     from repro_torch.kernels.ssd.ops import ssd
+    from repro_torch.kernels.ssd.ref import ssd_chunked_ref
 
     block, x, args = run["block"], run["x"], run["args"]
     B, L, H, P = args[0].shape
@@ -2129,7 +2224,11 @@ def phase_ssd_numbers(dev, run, errs, bandwidth: float):
     with torch.inference_mode():
         times = {"block_prefill_ms": time_ms(lambda: block(x), 5),
                  "ssd_resolved_ms": time_ms(lambda: ssd(*args), 5),
-                 "resolved": run["resolved"]}
+                 "resolved": run["resolved"],
+                 "composed_ms": time_ms(
+                     lambda: ssd_chunked_ref(*args, chunk=128), 3),
+                 "composed": "ssd_chunked_ref, chunk 128, f32 einsums, "
+                             "TF32 off"}
         for op in run["ops"]:
             if op["L"] != L:
                 continue
@@ -2141,61 +2240,85 @@ def phase_ssd_numbers(dev, run, errs, bandwidth: float):
         xbh = args[0].permute(0, 2, 1, 3).reshape(BH, L, P)
         abh = args[1].permute(0, 2, 1).reshape(BH, L)
         b, c = args[2], args[3]
-        intra = {}
-        for chunk in (ch for ch in (128, 256, 512, 1024, 2048) if ch <= L):
-            intra[chunk] = time_ms(lambda: ssd_intra(xbh, abh, b, c,
-                                                     chunk=chunk), 5)
-        times["ssd_intra_ms_by_chunk"] = intra
+        chunks = [ch for ch in (128, 256, 512, 1024, 2048) if ch <= L]
+        by_chunk = {"ssd_intra": {}, "ssd_state_apply": {}}
+        for chunk in chunks:
+            bounds = ssd_bounds(BH, B, L, P, S, chunk, bandwidth)
+            row = {"bound_ms": bounds["ssd_intra"]["bound_ms"]}
+            for route in ("tiled", "block"):
+                row[f"{route}_ms"] = time_ms(
+                    lambda: ssd_intra(xbh, abh, b, c, chunk=chunk,
+                                      route=route), 5)
+            by_chunk["ssd_intra"][chunk] = row
+            if L // chunk > 1:
+                y, ac, st = ssd_intra(xbh, abh, b, c, chunk=chunk)
+                row = {"bound_ms": bounds["ssd_state_apply"]["bound_ms"]}
+                for route in ("tiled", "block"):
+                    row[f"{route}_ms"] = time_ms(
+                        lambda: ssd_state_apply(y, abh, c, ac, st,
+                                                chunk=chunk, route=route), 5)
+                by_chunk["ssd_state_apply"][chunk] = row
+                del y, ac, st
+        times["by_chunk"] = by_chunk
         log(f"[numbers] ssd at ({B}, {L}, {H}, {P}), state {S}: "
             f"{json.dumps(times, sort_keys=True)}")
 
         chunk = 128
-        nc = L // chunk
         y, ac, st = ssd_intra(xbh, abh, b, c, chunk=chunk)
-        f4 = 4
-        # bytes each function must move: inputs read once, outputs written
-        # once (b and c read per sequence, as the kernels read them)
-        x_bytes = xbh.numel() * f4
-        bc_bytes = 2 * b.numel() * f4
-        a_bytes = abh.numel() * f4
-        st_bytes = st.numel() * f4
-        pairs = chunk * (chunk + 1) // 2            # s <= t in a chunk
-        # intra: per (row, chunk) the causal pairs' S-dot, decay multiply
-        # and P-term (2S + 2 + 2P), the state's S x P x Q fma and b x decay
-        intra_flops = BH * nc * (pairs * (2 * S + 2 + 2 * P)
-                                 + 2 * chunk * S * P + chunk * S)
-        # apply: the Q x P x S dot, the decay multiply and the add, and (the
-        # fused kernel) the S x P carry fma per chunk
-        apply_flops = BH * nc * (2 * chunk * S * P + 2 * chunk * P)
+        ssd_trace({
+            f"ssd_intra chunk {ch} ({route})":
+                (lambda ch=ch, route=route: ssd_intra(xbh, abh, b, c,
+                                                      chunk=ch, route=route))
+            for ch in (128, L) for route in ("tiled", "block")} | {
+            f"ssd_state_apply chunk {chunk} ({route})":
+                (lambda route=route: ssd_state_apply(y, abh, c, ac, st,
+                                                     chunk=chunk,
+                                                     route=route))
+            for route in ("tiled", "block")} | {
+            f"ssd_apply_entry chunk {chunk}":
+                lambda: ssd_apply_entry(y, abh, c, st, chunk=chunk)},
+            f"BH {BH}, L {L}, P {P}, S {S}, f32")
+        bounds = ssd_bounds(BH, B, L, P, S, chunk, bandwidth)
 
-        def entry(name, replaces, fn, plain, nbytes, flops, err_name):
+        def entry(name, replaces, fn, plain, block_fn=None):
             got, want = fn(), plain()
             torch.cuda.synchronize()
             if not isinstance(got, tuple):
                 got, want = (got,), (want,)
+            per = [{"max_abs_err": max_err(g, w),
+                    "not_bit_equal": int((g != w).sum()),
+                    "elements": g.numel(), "max_abs": float(w.abs().max())}
+                   for g, w in zip(got, want)]
             log(f"[numbers] {name} against its plain version at the "
-                f"block's shape, per output: " + json.dumps(
-                    [{"max_abs_err": max_err(g, w),
-                      "not_bit_equal": int((g != w).sum()),
-                      "elements": g.numel(),
-                      "max_abs": float(w.abs().max())}
-                     for g, w in zip(got, want)]))
-            by_bytes = nbytes / bandwidth * 1e3
-            by_ops = flops / F32_PEAK * 1e3
+                f"block's shape, per output: " + json.dumps(per))
+            if any(p["not_bit_equal"] for p in per):
+                raise AssertionError(f"{name}: not bit-equal to its plain "
+                                     f"version at the block's shape")
             out = {"name": name, "route": "cuda",
                    "source": "src/repro_torch/csrc/ssd.cu",
                    "replaces": replaces, "launches": run["counts"][name],
-                   "max_abs_err": max(max_err(g, w)
-                                      for g, w in zip(got, want)),
+                   "max_abs_err": max(p["max_abs_err"] for p in per),
                    "ms": time_ms(fn, 10),
                    "plain_ms": time_ms(plain, 2, warmup=1),
-                   "bound_ms": max(by_bytes, by_ops),
-                   "bound_by": "bytes" if by_bytes >= by_ops
-                   else "operations",
+                   "bound_ms": bounds[name]["bound_ms"],
+                   "bound_by": bounds[name]["bound_by"],
                    "library_ms": None,
                    "shape": [BH, L, P, S], "dtype": "float32",
-                   "config": {"chunk": chunk}, "bytes": nbytes,
-                   "flops": flops, "check_max_abs_err": errs[err_name]}
+                   "config": {"chunk": chunk},
+                   "bytes": bounds[name]["bytes"],
+                   "flops": bounds[name]["flops"],
+                   "check_max_abs_err": errs[name]}
+            if block_fn is not None:
+                out["launches_by_route"] = {
+                    r: run["counts"][f"{name}.{r}"] for r in ROUTES[name]}
+                out["block_ms"] = time_ms(block_fn, 10)
+                rows = by_chunk[name]
+                out["ms_by_chunk"] = {ch: r["tiled_ms"]
+                                      for ch, r in rows.items()}
+                out["block_ms_by_chunk"] = {ch: r["block_ms"]
+                                            for ch, r in rows.items()}
+                out["bound_ms_by_chunk"] = {ch: r["bound_ms"]
+                                            for ch, r in rows.items()}
             log(f"[numbers] {json.dumps(out, sort_keys=True)}")
             return out
 
@@ -2203,21 +2326,55 @@ def phase_ssd_numbers(dev, run, errs, bandwidth: float):
             entry("ssd_intra", "src/repro/kernels/ssd/kernel.py:74",
                   lambda: ssd_intra(xbh, abh, b, c, chunk=chunk),
                   lambda: ssd_intra_plain(xbh, abh, b, c, chunk=chunk),
-                  2 * x_bytes + a_bytes + bc_bytes + st_bytes + BH * nc * f4,
-                  intra_flops, "ssd_intra"),
+                  lambda: ssd_intra(xbh, abh, b, c, chunk=chunk,
+                                    route="block")),
             entry("ssd_state_apply", "src/repro/kernels/ssd/kernel.py:136",
                   lambda: ssd_state_apply(y, abh, c, ac, st, chunk=chunk),
                   lambda: ssd_state_apply_plain(y, abh, c, ac, st,
                                                 chunk=chunk),
-                  2 * x_bytes + a_bytes + bc_bytes // 2 + st_bytes
-                  + BH * nc * f4, apply_flops + BH * nc * 2 * S * P,
-                  "ssd_state_apply"),
+                  lambda: ssd_state_apply(y, abh, c, ac, st, chunk=chunk,
+                                          route="block")),
             entry("ssd_apply_entry", "src/repro/kernels/ssd/kernel.py:169",
                   lambda: ssd_apply_entry(y, abh, c, st, chunk=chunk),
-                  lambda: ssd_apply_entry_plain(y, abh, c, st, chunk=chunk),
-                  2 * x_bytes + a_bytes + bc_bytes // 2 + st_bytes,
-                  apply_flops, "ssd_apply_entry")]
+                  lambda: ssd_apply_entry_plain(y, abh, c, st, chunk=chunk))]
     return entries, times
+
+
+def ssd_trace(calls, what: str, reps: int = 3):
+    """torch.profiler's device time of each labelled SSD call, by kernel:
+    per launch, launches per call, and each kernel's share of the call's
+    device time.  One profiler window per label (the labels share kernel
+    names), opened with a spin of about a millisecond (a window can lose
+    its first kernels), after a warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for label, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(2_000_000)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        per = {}
+        for evt in prof.key_averages():
+            t = getattr(evt, "device_time_total", None)
+            if t is None:
+                t = getattr(evt, "cuda_time_total", 0.0)
+            if t and "ssd" in evt.key and evt.count:
+                per[evt.key[:80]] = {"ms_per_launch": t / 1e3 / evt.count,
+                                     "launches_per_call": evt.count / reps,
+                                     "ms_per_call": t / 1e3 / reps}
+        total = sum(v["ms_per_call"] for v in per.values())
+        for v in per.values():
+            v["share"] = v["ms_per_call"] / total if total else None
+        out[label] = per
+    log(f"[trace] ssd at {what}, device time by kernel: "
+        f"{json.dumps(out, sort_keys=True)}")
+    return out
 
 
 def rglru_f64_sequential(a, u):
@@ -2703,17 +2860,23 @@ def phase_trace(dev, run):
     return out
 
 
-def phase_mamba_model(dev):
+def phase_mamba_model(dev, bandwidth: float):
     """One full-depth mamba2-130m Model.forward (24 SSD groups, 8 x 2048
     tokens, random weights, bf16): finite logits of the right shape, the
-    SSD kernels launched."""
+    SSD kernels launched, every ssd_intra launch on the tiled kernel; the
+    forward's time split into its ssd_intra launches (kernel 8 timed at
+    the forward's shapes and resolved chunk, times the layers) and the
+    rest."""
     import torch
     from repro_torch.configs.mamba2_130m import CONFIG
+    from repro_torch.core.space import Workload
+    from repro_torch.kernels.ssd.kernel import ssd_intra
     from repro_torch.models.model import Model
+    from repro_torch.tuning import default_session
 
     gen = torch.Generator(device=dev).manual_seed(15)
     model = Model.init(CONFIG, gen, device=dev)
-    tokens = torch.randint(0, CONFIG.vocab, (MAMBA_BATCH, 2048),
+    tokens = torch.randint(0, CONFIG.vocab, (MAMBA_BATCH, SSD_LEN),
                            generator=gen, device=dev)
     torch.cuda.synchronize()
     reset_counts()
@@ -2722,19 +2885,42 @@ def phase_mamba_model(dev):
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"[mamba] {CONFIG.arch} forward launches: {counts}")
-    require_launched(counts, ("ssd_intra",), "the ssm Model.forward")
-    if tuple(logits.shape) != (MAMBA_BATCH, 2048, CONFIG.vocab) \
+    require_launched(counts, ("ssd_intra", "ssd_intra.tiled"),
+                     "the ssm Model.forward")
+    require_new_routes(counts, "the ssm Model.forward")
+    if tuple(logits.shape) != (MAMBA_BATCH, SSD_LEN, CONFIG.vocab) \
             or not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"mamba2 forward logits {tuple(logits.shape)}, "
                              f"finite {bool(torch.isfinite(logits).all())}")
     del logits
+    H = CONFIG.ssm_expand * CONFIG.d_model // CONFIG.ssm_head_dim
+    P, S = CONFIG.ssm_head_dim, CONFIG.ssm_state
+    wl = Workload(op="ssd", n=SSD_LEN, batch=MAMBA_BATCH * H,
+                  variant="chunked")
+    chunk = default_session().resolve(wl)["chunk"]
+    x, a, b, c = ssd_inputs(gen, dev, MAMBA_BATCH * H, MAMBA_BATCH, SSD_LEN,
+                            P, S, torch.float32, False)
     with torch.inference_mode():
         ms = time_ms(lambda: model(tokens), 2, warmup=1)
-    log(f"[numbers] mamba2-130m forward ({MAMBA_BATCH} x 2048 tokens): "
-        f"{ms:.3f} ms")
-    del model
+        intra_ms = time_ms(lambda: ssd_intra(x, a, b, c, chunk=chunk), 5)
+        block_ms = time_ms(lambda: ssd_intra(x, a, b, c, chunk=chunk,
+                                             route="block"), 3)
+    layers = counts["ssd_intra"]
+    out = {"forward_ms": ms, "tokens": MAMBA_BATCH * SSD_LEN,
+           "ssd_chunk": chunk, "ssd_intra_launches": layers,
+           "ssd_intra_ms_per_launch": intra_ms,
+           "ssd_intra_ms": intra_ms * layers,
+           "ssd_intra_share": intra_ms * layers / ms,
+           "rest_ms": ms - intra_ms * layers,
+           "ssd_intra_block_ms_per_launch": block_ms,
+           "ssd_intra_bound_ms_per_launch": ssd_bounds(
+               MAMBA_BATCH * H, MAMBA_BATCH, SSD_LEN, P, S, chunk,
+               bandwidth)["ssd_intra"]["bound_ms"]}
+    log(f"[numbers] mamba2-130m forward ({MAMBA_BATCH} x {SSD_LEN} tokens): "
+        f"{json.dumps(out, sort_keys=True)}")
+    del model, x, a, b, c
     torch.cuda.empty_cache()
-    return counts
+    return counts, out
 
 
 def phase_long_carry(dev):
@@ -3095,8 +3281,19 @@ def main(argv=None) -> int:
         del dense
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        phase_mamba_model(dev)
+        mamba_counts, _ = phase_mamba_model(dev, bandwidth)
         log(f"[mamba] {time.perf_counter() - t0:.1f} s")
+        # kernel 8 runs on two main paths: the SSD block and op, and the
+        # mamba2-130m forward
+        for entry in entries:
+            if entry["name"] == "ssd_intra":
+                paths = {"ssd": entry["launches"],
+                         "mamba2 forward": mamba_counts["ssd_intra"]}
+                entry["launches_by_path"] = paths
+                entry["launches"] = sum(paths.values())
+                for route in ROUTES["ssd_intra"]:
+                    entry["launches_by_route"][route] += \
+                        mamba_counts[f"ssd_intra.{route}"]
         t0 = time.perf_counter()
         phase_long_carry(dev)
         log(f"[long] {time.perf_counter() - t0:.1f} s")

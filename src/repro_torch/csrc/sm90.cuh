@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (csrc/matmul.cu, csrc/attention.cu): plain inline PTX, no CUTLASS.
+// (csrc/matmul.cu, csrc/attention.cu) and the SSD kernels (csrc/ssd.cu):
+// plain inline PTX, no CUTLASS.
 //
 //   * wgmma shared-memory descriptors for 128-byte-swizzled tiles, as TMA
 //     writes them with CU_TENSOR_MAP_SWIZZLE_128B;
@@ -9,7 +10,8 @@
 //   * mbarrier init / arrive / arrive.expect_tx / try_wait.parity;
 //   * cp.async.bulk.tensor 2d / 3d loads (TMA) completing on an mbarrier;
 //   * the host's cuTensorMapEncodeTiled, fetched from the driver library
-//     at run time, so the shared library links without -lcuda.
+//     at run time, so the shared library links without -lcuda (make_map;
+//     make_map_bf16 for the tensor-core kernels' operands).
 //
 // Layout conventions (bf16, 128-byte swizzle).  A tile whose rows are 64
 // elements (128 bytes) wide is stored row after row; eight rows form a
@@ -279,31 +281,40 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// A bf16 tensor map of rank 2 or 3 over a contiguous tensor whose dims
-// (innermost first) are dims[0..rank); box[0] is 64 elements (one 128-byte
-// swizzle row).  Elements outside the tensor read as zero.  Returns 0 or an
-// error code (kErrNoEncoder, kErrEncode + CUresult).
-inline int make_map_bf16(CUtensorMap* map, const void* base, int rank,
-                         const uint64_t* dims, const uint32_t* box) {
+// A tensor map of rank 2 or 3 over a contiguous tensor of elem_bytes-byte
+// elements whose dims (innermost first) are dims[0..rank), boxes box[0..
+// rank), the given swizzle (with CU_TENSOR_MAP_SWIZZLE_128B a box row is
+// at most 128 bytes).  Elements outside the tensor read as zero.  Returns
+// 0 or an error code (kErrNoEncoder, kErrEncode + CUresult).
+inline int make_map(CUtensorMap* map, CUtensorMapDataType type,
+                    uint32_t elem_bytes, const void* base, int rank,
+                    const uint64_t* dims, const uint32_t* box,
+                    CUtensorMapSwizzle swizzle) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return kErrNoEncoder;
   cuuint64_t gdim[3], gstride[2];
   cuuint32_t bdim[3], estride[3] = {1, 1, 1};
-  uint64_t pitch = 2;
+  uint64_t pitch = elem_bytes;
   for (int i = 0; i < rank; ++i) {
     gdim[i] = dims[i];
     bdim[i] = box[i];
     if (i > 0) gstride[i - 1] = pitch;
     pitch *= dims[i];
   }
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                        static_cast<cuuint32_t>(rank),
+  const CUresult r = fn(map, type, static_cast<cuuint32_t>(rank),
                         const_cast<void*>(base), gdim, gstride, bdim, estride,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kErrEncode + static_cast<int>(r);
+}
+
+// The tensor-core kernels' operands: bf16, box[0] 64 elements (one
+// 128-byte swizzle row).
+inline int make_map_bf16(CUtensorMap* map, const void* base, int rank,
+                         const uint64_t* dims, const uint32_t* box) {
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rank, dims,
+                  box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace sm90

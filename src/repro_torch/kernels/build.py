@@ -27,7 +27,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 SOURCES = ("scan.cu", "linrec.cu", "tridiag.cu", "fft.cu", "ssd.cu",
            "attention.cu", "matmul.cu")
-HEADERS = ("sm90.cuh",)   # included by attention.cu and matmul.cu
+HEADERS = ("sm90.cuh",)   # included by attention.cu, matmul.cu and ssd.cu
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_kernels.so"
@@ -151,6 +151,13 @@ def load_library() -> ctypes.CDLL:
     lib.repro_ssd_apply.argtypes = [vp, vp, vp, vp, vp, vp, i32, i64, i64,
                                     i32, i32, i64, i32, i32, vp]
     lib.repro_ssd_apply.restype = i32
+    lib.repro_ssd_intra_tiled.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32,
+                                          i64, i64, i32, i32, i64, i32, vp]
+    lib.repro_ssd_intra_tiled.restype = i32
+    lib.repro_ssd_state_apply_tiled.argtypes = [vp, vp, vp, vp, vp, vp, i32,
+                                                i64, i64, i32, i32, i64, i32,
+                                                vp]
+    lib.repro_ssd_state_apply_tiled.restype = i32
     lib.repro_flash_attention.argtypes = [vp, vp, vp, vp, i32, i64, i32, i32,
                                           i32, i32, i32, i32, i32,
                                           ctypes.c_float, vp]

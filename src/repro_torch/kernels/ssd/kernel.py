@@ -16,6 +16,15 @@ another, every dot product one fused multiply-add after another in
 ascending index order (``_fma``: exact, through float64).  Any other
 device raises; nothing falls back.
 
+``ssd_intra`` and ``ssd_state_apply`` each have two kernels, chosen by
+the shapes alone (:func:`ssd_intra_route`, :func:`ssd_state_apply_route`):
+the tiled kernels (route "tiled", redesigned for Hopper: one launch for
+phase A, 8 x 4 register tiles over a TMA ring; phases B + C with a
+producer warp's TMA loads a panel ahead of eight consumer warps) for S
+and P multiples of 8 with S <= 128 (and, for phase A, P <= 64 and chunk
+<= 2048), and the earlier kernels (route "block") for every other shape.
+A ``route`` keyword forces one; each route counts its own launches.
+
 Layout: rows of (BH, L, .) tensors, BH = batch x heads.  ``b`` and ``c``
 are (G, L, S) with G dividing BH: row ``bh`` reads group ``bh // (BH //
 G)``.  G = BH is the JAX kernels' pre-broadcast layout; G = batch shares
@@ -30,16 +39,55 @@ about equally (at mamba2-130m's widths, b and c read per sequence).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.scan.kernel import DTYPE_CODES
+from repro_torch.kernels.scan.kernel import DTYPE_CODES, count_launch
 from repro_torch.tuning.dispatch import kernel_path
 
 # the apply kernels keep a block's (S, 32) slice of the carry or entry in
 # shared memory beside their staging tiles, within a block's 227 KB
 MAX_STATE = 1024
+# the tiled kernels (route "tiled"): S and P multiples of 8, S up to
+# TILED_MAX_S; phase A also P up to TILED_MAX_P and chunks up to
+# TILED_MAX_CHUNK (its shared memory holds the chunk's decay prefix)
+TILED_MAX_S = 128
+TILED_MAX_P = 64
+TILED_MAX_CHUNK = 2048
+# the routes of ssd_intra and ssd_state_apply, each with its own count
+ROUTES = ("tiled", "block")
+
+
+def ssd_intra_route(P: int, S: int, chunk: int) -> str:
+    """The kernel phase A runs on, by the shapes alone: "tiled" for S and
+    P multiples of 8, S <= TILED_MAX_S, P <= TILED_MAX_P and chunk <=
+    TILED_MAX_CHUNK; else "block"."""
+    if S % 8 == 0 and P % 8 == 0 and S <= TILED_MAX_S \
+            and P <= TILED_MAX_P and chunk <= TILED_MAX_CHUNK:
+        return "tiled"
+    return "block"
+
+
+def ssd_state_apply_route(P: int, S: int, chunk: int) -> str:
+    """The kernel the fused phases B + C run on: "tiled" for S and P
+    multiples of 8 with S <= TILED_MAX_S (any chunk, any P slice count);
+    else "block"."""
+    if S % 8 == 0 and P % 8 == 0 and S <= TILED_MAX_S:
+        return "tiled"
+    return "block"
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte boundary (the tiled kernels' TMA
+    tensor maps need one): a view at an odd offset is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _check_route(route) -> None:
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"unknown ssd route {route!r}")
 
 
 def _fma(x: torch.Tensor, y: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
@@ -172,43 +220,59 @@ def ssd_intra_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
             state)
 
 
-def _launch_intra(x, a, b, c, chunk):
+def _launch_intra(x, a, b, c, chunk, route=None):
+    """Launch phase A: ``route`` "tiled" or "block"; by default the one
+    :func:`ssd_intra_route` picks.  Returns (y, a_chunk, state); counts
+    nothing."""
     from repro_torch.kernels.build import check, load_library
 
     _check_intra(x, a, b, c, chunk)
+    _check_route(route)
     if not x.is_cuda:
         raise ValueError(f"the CUDA SSD kernels need CUDA tensors, got ones "
                          f"on {x.device}")
-    x, a, b, c = (t.contiguous() for t in (x, a, b, c))
+    x, a, b, c = (_aligned(t) for t in (x, a, b, c))
     BH, L, P = x.shape
     G, _, S = b.shape
     nc = L // chunk
+    route = route or ssd_intra_route(P, S, chunk)
     y = torch.empty_like(x)
     a_chunk = torch.empty(BH, nc, dtype=torch.float32, device=x.device)
     state = torch.empty(BH, nc, S, P, dtype=torch.float32, device=x.device)
-    la = torch.empty(BH, L, dtype=torch.float32, device=x.device)
     lib = load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.repro_ssd_intra(
-            x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-            y.data_ptr(), a_chunk.data_ptr(), state.data_ptr(), la.data_ptr(),
-            DTYPE_CODES[x.dtype], BH, L, P, S, G, chunk, stream)
-    check(code, "ssd_intra launch")
+        ptrs = (x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                y.data_ptr(), a_chunk.data_ptr(), state.data_ptr())
+        if route == "tiled":
+            code = lib.repro_ssd_intra_tiled(
+                *ptrs, DTYPE_CODES[x.dtype], BH, L, P, S, G, chunk, stream)
+        else:
+            la = torch.empty(BH, L, dtype=torch.float32, device=x.device)
+            code = lib.repro_ssd_intra(
+                *ptrs, la.data_ptr(), DTYPE_CODES[x.dtype], BH, L, P, S, G,
+                chunk, stream)
+    check(code, f"ssd_intra launch ({route})")
     return y, a_chunk, state
 
 
 def ssd_intra(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-              c: torch.Tensor, *, chunk: int = 128
+              c: torch.Tensor, *, chunk: int = 128,
+              route: Optional[str] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Phase A.  x: (BH, L, P); a: (BH, L); b, c: (G, L, S).
 
     Returns (y_intra (BH, L, P) in x's type, a_chunk (BH, nc) f32, state
-    (BH, nc, S, P) f32), nc = L / chunk."""
+    (BH, nc, S, P) f32), nc = L / chunk.  ``route`` forces a kernel (CUDA
+    tensors only)."""
     if not kernel_path(x):
+        if route is not None:
+            raise ValueError(f"ssd_intra: route {route!r} needs CUDA "
+                             f"tensors, got ones on {x.device}")
         return ssd_intra_plain(x, a, b, c, chunk=chunk)
-    out = _launch_intra(x, a, b, c, chunk)
-    ssd_intra.launches += 1
+    out = _launch_intra(x, a, b, c, chunk, route)
+    count_launch(ssd_intra,
+                 route or ssd_intra_route(x.shape[-1], b.shape[-1], chunk))
     return out
 
 
@@ -274,45 +338,66 @@ def ssd_apply_entry_plain(y_intra: torch.Tensor, a: torch.Tensor,
     return _apply_chunks(y_intra, a, c, chunk, lambda j: entry[:, j])
 
 
-def _launch_apply(what, y_intra, a, c, chunk, a_chunk, state, fused):
+def _launch_apply(what, y_intra, a, c, chunk, a_chunk, state, fused,
+                  route=None):
+    """Launch phase C: fused (kernel 9, on ``route``; by default the one
+    :func:`ssd_state_apply_route` picks) or not (kernel 10, the block
+    kernel).  Counts nothing."""
     from repro_torch.kernels.build import check, load_library
 
+    _check_route(route)
     if not y_intra.is_cuda:
         raise ValueError(f"the CUDA SSD kernels need CUDA tensors, got ones "
                          f"on {y_intra.device}")
-    y_intra, a, c, state = (t.contiguous() for t in (y_intra, a, c, state))
+    y_intra, a, c, state = (_aligned(t) for t in (y_intra, a, c, state))
     BH, L, P = y_intra.shape
     G, _, S = c.shape
-    if S > MAX_STATE:
+    route = route or (ssd_state_apply_route(P, S, chunk) if fused
+                      else "block")
+    if route == "tiled" and not fused:
+        raise ValueError(f"{what}: the tiled kernel is the fused one")
+    if route == "block" and S > MAX_STATE:
         raise ValueError(f"{what}: state size S={S} above the kernel's "
                          f"{MAX_STATE}")
     out = torch.empty_like(y_intra)
     lib = load_library()
     with torch.cuda.device(y_intra.device):
         stream = torch.cuda.current_stream(y_intra.device).cuda_stream
-        code = lib.repro_ssd_apply(
-            y_intra.data_ptr(), a.data_ptr(), c.data_ptr(),
-            a_chunk.contiguous().data_ptr() if fused else None,
-            state.data_ptr(), out.data_ptr(), DTYPE_CODES[y_intra.dtype], BH,
-            L, P, S, G, chunk, int(fused), stream)
-    check(code, f"{what} launch")
+        ptrs = (y_intra.data_ptr(), a.data_ptr(), c.data_ptr(),
+                a_chunk.contiguous().data_ptr() if fused else None,
+                state.data_ptr(), out.data_ptr())
+        if route == "tiled":
+            code = lib.repro_ssd_state_apply_tiled(
+                *ptrs, DTYPE_CODES[y_intra.dtype], BH, L, P, S, G, chunk,
+                stream)
+        else:
+            code = lib.repro_ssd_apply(
+                *ptrs, DTYPE_CODES[y_intra.dtype], BH, L, P, S, G, chunk,
+                int(fused), stream)
+    check(code, f"{what} launch ({route})")
     return out
 
 
 def ssd_state_apply(y_intra: torch.Tensor, a: torch.Tensor, c: torch.Tensor,
                     a_chunk: torch.Tensor, state: torch.Tensor, *,
-                    chunk: int = 128) -> torch.Tensor:
+                    chunk: int = 128,
+                    route: Optional[str] = None) -> torch.Tensor:
     """Fused phases B + C: y_intra (BH, L, P), a (BH, L), c (G, L, S),
     a_chunk (BH, nc), state (BH, nc, S, P) -> (BH, L, P).  Any chunk
-    count, odd included: the carry walks the chunks in order."""
+    count, odd included: the carry walks the chunks in order.  ``route``
+    forces a kernel (CUDA tensors only)."""
     if not kernel_path(y_intra):
+        if route is not None:
+            raise ValueError(f"ssd_state_apply: route {route!r} needs CUDA "
+                             f"tensors, got ones on {y_intra.device}")
         return ssd_state_apply_plain(y_intra, a, c, a_chunk, state,
                                      chunk=chunk)
     _check_apply("ssd_state_apply", y_intra, a, c, chunk, a_chunk=a_chunk,
                  state=state)
     out = _launch_apply("ssd_state_apply", y_intra, a, c, chunk, a_chunk,
-                        state, fused=True)
-    ssd_state_apply.launches += 1
+                        state, fused=True, route=route)
+    count_launch(ssd_state_apply, route or ssd_state_apply_route(
+        y_intra.shape[-1], c.shape[-1], chunk))
     return out
 
 
@@ -328,7 +413,12 @@ def ssd_apply_entry(y_intra: torch.Tensor, a: torch.Tensor, c: torch.Tensor,
     return out
 
 
-# launches of the CUDA kernels (plain-version calls are not counted)
+# launches of the CUDA kernels (plain-version calls are not counted): all,
+# and by route for kernels 8 and 9
 ssd_intra.launches = 0
+ssd_intra.launches_tiled = 0
+ssd_intra.launches_block = 0
 ssd_state_apply.launches = 0
+ssd_state_apply.launches_tiled = 0
+ssd_state_apply.launches_block = 0
 ssd_apply_entry.launches = 0

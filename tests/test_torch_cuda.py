@@ -556,6 +556,55 @@ def test_ssd_kernels_match_plain(cuda, dtype, BH, G, L, P, S, chunk, strong):
                                                        chunk=chunk), dtype)
 
 
+@pytest.mark.parametrize("route", ["tiled", "block"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("BH,G,L,P,S,chunk,strong", [
+    (4, 2, 192, 16, 8, 64, False), (6, 3, 384, 8, 16, 128, False),
+    (4, 2, 512, 64, 128, 128, True), (3, 1, 2048, 64, 128, 2048, False),
+    (2, 1, 3072, 64, 128, 1024, False), (2, 2, 96, 16, 8, 96, False),
+    (2, 1, 300, 8, 16, 100, True)])
+def test_ssd_routes_equal_the_plain_versions_bit_for_bit(
+        cuda, route, dtype, BH, G, L, P, S, chunk, strong):
+    """Kernels 8 and 9 on each route (the tiled kernels and the earlier
+    block kernels, forced) against their plain versions, every element
+    equal; each launch counted on its route."""
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    assert ssd_kernel.ssd_intra_route(P, S, chunk) == "tiled"
+    gen = torch.Generator(device=cuda).manual_seed(BH * L + P + 1)
+    x, a, b, c = _ssd_rows(gen, BH, G, L, P, S, dtype, cuda, strong)
+    fn = ssd_kernel.ssd_intra
+    before = (fn.launches, getattr(fn, f"launches_{route}"))
+    got = fn(x, a, b, c, chunk=chunk, route=route)
+    assert (fn.launches, getattr(fn, f"launches_{route}")) \
+        == (before[0] + 1, before[1] + 1)
+    want = ssd_kernel.ssd_intra_plain(x, a, b, c, chunk=chunk)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    y, ac, st = want
+    if L // chunk > 1:
+        got = ssd_kernel.ssd_state_apply(y, a, c, ac, st, chunk=chunk,
+                                         route=route)
+        assert torch.equal(got, ssd_kernel.ssd_state_apply_plain(
+            y, a, c, ac, st, chunk=chunk))
+
+
+def test_ssd_default_routes_are_the_tiled_kernels(cuda):
+    """At the block's widths the wrappers' own choice is the tiled
+    kernel; the ragged shape takes the block kernel."""
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for (P, S, chunk), route in (((64, 128, 128), "tiled"),
+                                 ((70, 130, 100), "block")):
+        x, a, b, c = _ssd_rows(gen, 2, 1, 300 if chunk == 100 else 256, P,
+                               S, "float32", cuda)
+        y, ac, st = ssd_kernel.ssd_intra_plain(x, a, b, c, chunk=chunk)
+        for fn, args in ((ssd_kernel.ssd_intra, (x, a, b, c)),
+                         (ssd_kernel.ssd_state_apply, (y, a, c, ac, st))):
+            before = getattr(fn, f"launches_{route}")
+            fn(*args, chunk=chunk)
+            assert getattr(fn, f"launches_{route}") == before + 1
+
+
 @pytest.mark.parametrize("fuse", [0, 1])
 @pytest.mark.parametrize("L,chunk", [(1024, 128), (384, 128), (256, 256)])
 def test_ssd_on_the_card(cuda, fuse, L, chunk):
