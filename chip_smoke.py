@@ -67,20 +67,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``ssd_apply_entry`` against their plain versions (chunk 64 ... 2048,
    nc = 1, 3 and 16, (S, P) = (8, 16), (16, 8) and (128, 64), a strong
    decay, f32 and bf16, at the tests' SSD tolerance, DTYPE_TOL x 10),
-   kernels 8 and 9 on both routes (the tiled kernels and the earlier
-   block kernels), with the elements not bit-equal counted (the run fails
-   unless there are none); the
+   each on both routes (the tiled kernels and the earlier block kernels),
+   with the elements not bit-equal counted (the run fails unless there are none); the
    Mamba-2 block (``SSDBlock``) at mamba2-130m's width on 8 x 2048 tokens
    with the session's config, and one decode step; the ``ssd`` op at the
    block's shapes with chunk 128 and 256, fuse 0 and 1, and an odd chunk
    count — each SSD output against a float64 sequential ``ssd_ref`` of
    sampled heads, each launch list against ``plan_for_chain``, the launch
    counts read around the block and around the whole SSD path, every
-   launch of kernels 8 and 9 on the tiled kernels; kernels 8 and 9 timed
-   on both routes over chunk 128 ... 2048 (9 where nc > 1), beside their
-   bounds, ``torch.profiler``'s device time by kernel at chunk 128 and
-   2048 (``[trace] ssd``), and the port's torch ``ssd_chunked_ref`` at
-   chunk 128 (the op's ``composed_ms``, never called by the port);
+   launch of kernels 8, 9 and 10 on the tiled kernels; the three timed on
+   both routes over chunk 128 ... 2048 (9 and 10 where nc > 1), beside
+   their bounds, ``torch.profiler``'s device time by kernel at chunk 128
+   and 2048 (``[trace] ssd``), the port's torch ``ssd_chunked_ref`` at
+   chunk 128 (the op's ``composed_ms``) and kernel 10's function in torch
+   calls (``entry_composed``: its ``composed_ms``), both never called by
+   the port;
 8. the RG-LRU: ``rglru`` at recurrentgemma-9b's width (2 x 2048 x 4096)
    with the gate in the kernel (fuse = 1) and in torch (fuse = 0), and a
    multipass call at 2^22 x 16, against a float64 sequential recurrence;
@@ -121,9 +122,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    0;
 13. the ``kernels`` line: per kernel (all twelve) its launches on the main
    paths (by route for ``scan_add``, ``scan_linrec``, ``scan_linrec_prod``,
-   ``pcr``, ``fft_stockham``, ``ssd_intra`` and ``ssd_state_apply``, with
-   the earlier kernel's time beside theirs; by path for the kernels that
-   run on several; kernels 8 and 9 also by chunk length), its error
+   ``pcr``, ``fft_stockham`` and the three SSD kernels, with the earlier
+   kernel's time beside theirs; by path for the kernels that run on
+   several; kernels 8–10 also by chunk length and with the tuning loop's
+   launches by route), its error
    against the plain version, its time, the plain version's and the
    library call's (null where no one PyTorch call
    computes the function; ``scaled_dot_product_attention`` and
@@ -135,9 +137,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (the ``[turns]`` line) against their yardsticks and against the
    CUDA-core kernel on the same bf16 inputs.
 
-The build phase prints each source's nvcc time and counts, per scan,
-linrec, PCR, FFT and SSD kernel, the local-memory instructions (LDL / STL)
-and calls in the library's SASS (``cuobjdump``).
+The build phase prints each source's nvcc time, each SSD kernel's
+registers and spills from ``-Xptxas -v`` (``[ptxas]``) and counts, per
+scan, linrec, PCR, FFT and SSD kernel, the local-memory instructions (LDL
+/ STL) and calls in the library's SASS (``cuobjdump``; for the SSD
+kernels also the FFMA, LDS and BAR of their FFMA-heavy loop blocks).
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 nothing of JAX or of the JAX package.
 """
@@ -148,6 +152,7 @@ import functools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -230,8 +235,32 @@ def phase_build():
     for line in str(build.BUILD_INFO.get("log", "")).splitlines():
         if "registers" in line or "spill" in line.lower():
             log(f"[build]   {line.strip()}")
+    ssd = {}
+    for name, v in ptxas_counts(str(build.BUILD_INFO.get("log", ""))).items():
+        m = re.search(r"(ssd_[a-z_]*kernel)(I\w*?E)E*v", name)
+        if m:   # e.g. ssd_apply_entry_tiled_kernelIfLi128E
+            ssd[m.group(1) + m.group(2)] = v
+    log(f"[ptxas] SSD kernels: {json.dumps(ssd, sort_keys=True)}")
     log(f"[sass] {json.dumps(sass_counts(path), sort_keys=True)}")
     return lib, seconds
+
+
+def ptxas_counts(text):
+    """Registers and stack / spill bytes per kernel (mangled name) from
+    the build's ``-Xptxas -v`` output."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function '" in line:
+            cur = out.setdefault(line.split("'")[1], {})
+        elif cur is not None and "spill stores" in line:
+            for n, what in re.findall(
+                    r"(\d+) bytes (stack frame|spill stores|spill loads)",
+                    line):
+                cur[what.replace(" ", "_")] = int(n)
+        elif cur is not None and re.search(r"Used \d+ registers", line):
+            cur["registers"] = int(re.search(r"Used (\d+) registers",
+                                             line).group(1))
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -271,7 +300,8 @@ def sass_counts(path):
     """Per scan, linrec, PCR, FFT and SSD kernel of the built library: its SASS
     instructions, local-memory loads and stores (LDL / STL: spills and
     stack arrays) and calls; for the SSD kernels also the mix of their
-    FFMA-heavy basic blocks (the unrolled loops)."""
+    FFMA-heavy basic blocks (the unrolled loops: instructions, FFMA, LDS,
+    BAR)."""
     counts = {}
     for name, blocks in sass_functions(path).items():
         if not any(k in name for k in ("scan_add_kernel", "scan_warp",
@@ -284,10 +314,12 @@ def sass_counts(path):
         for key in ("LDL", "STL", "CALL"):
             counts[name][key] = sum(op.startswith(key) for op in ops)
         if "ssd_" in name:
-            # [instructions, FFMA, LDS] of each block of 64 FFMA or more
+            # [instructions, FFMA, LDS, BAR] of each block of 64 FFMA or
+            # more
             counts[name]["ffma_blocks"] = sorted(
                 [len(b), sum(op.split(".")[0] == "FFMA" for op in b),
-                 sum(op.startswith("LDS") for op in b)] for b in blocks
+                 sum(op.startswith("LDS") for op in b),
+                 sum(op.startswith("BAR") for op in b)] for b in blocks
                 if sum(op.split(".")[0] == "FFMA" for op in b) >= 64)
     return counts
 
@@ -494,19 +526,20 @@ def counted_wrappers():
 # kernels with one launch counter per route besides their total: bf16 runs
 # the tensor-core kernel (wgmma), f32 the CUDA-core one (simt); the prefix
 # sum, the linear recurrence, PCR and the FFT pick theirs by the plan
-# (scan_route, linrec_route, pcr_route, fft_route), SSD phase A and the
-# fused phases B + C by the shapes (ssd_intra_route, ssd_state_apply_route)
+# (scan_route, linrec_route, pcr_route, fft_route), the SSD phases by the
+# shapes (ssd_intra_route, ssd_state_apply_route, ssd_apply_entry_route)
 ROUTES = {"flash_attention": ("wgmma", "simt"), "matmul": ("wgmma", "simt"),
           "scan_add": ("warp", "block"), "scan_linrec": ("warp", "block"),
           "scan_linrec_prod": ("warp", "block"), "pcr": ("warp", "block"),
           "fft_stockham": ("pow2", "generic"),
           "ssd_intra": ("tiled", "block"),
-          "ssd_state_apply": ("tiled", "block")}
+          "ssd_state_apply": ("tiled", "block"),
+          "ssd_apply_entry": ("tiled", "block")}
 # the kernels whose main-path launches must all take the new route
 NEW_ROUTES = {"scan_add": "warp", "scan_linrec": "warp",
               "scan_linrec_prod": "warp", "pcr": "warp",
               "fft_stockham": "pow2", "ssd_intra": "tiled",
-              "ssd_state_apply": "tiled"}
+              "ssd_state_apply": "tiled", "ssd_apply_entry": "tiled"}
 
 
 def reset_counts():
@@ -1972,15 +2005,16 @@ def ssd_inputs(gen, dev, BH, G, L, P, S, dtype, strong):
 
 def phase_ssd_kernels(dev, quick: bool):
     """ssd_intra, ssd_state_apply and ssd_apply_entry against their plain
-    versions on the card, kernels 8 and 9 on both routes (the tiled kernel
-    wherever its route function takes the shape, and the block kernel
-    forced), at the tests' SSD tolerance (DTYPE_TOL x 10).  The plain
+    versions on the card, each on both routes (the tiled kernel wherever
+    its route function takes the shape, and the block kernel forced), at
+    the tests' SSD tolerance (DTYPE_TOL x 10).  The plain
     versions keep the kernels' order (and emulate their fused
     multiply-adds exactly): the run fails unless every element of every
     output is bit-equal to the plain version's."""
     import torch
     from repro_torch.kernels.ssd.kernel import (ssd_apply_entry,
                                                 ssd_apply_entry_plain,
+                                                ssd_apply_entry_route,
                                                 ssd_intra, ssd_intra_plain,
                                                 ssd_intra_route,
                                                 ssd_state_apply,
@@ -1992,7 +2026,7 @@ def phase_ssd_kernels(dev, quick: bool):
     worst = {"ssd_intra": 0.0, "ssd_state_apply": 0.0, "ssd_apply_entry": 0.0}
     unequal = {"ssd_intra.tiled": 0, "ssd_intra.block": 0,
                "ssd_state_apply.tiled": 0, "ssd_state_apply.block": 0,
-               "ssd_apply_entry.block": 0}
+               "ssd_apply_entry.tiled": 0, "ssd_apply_entry.block": 0}
     launched = dict.fromkeys(unequal, 0)
     cases = ssd_kernel_cases()[:3] if quick else ssd_kernel_cases()
     for BH, G, L, P, S, chunk, dtype, strong in cases:
@@ -2025,14 +2059,16 @@ def phase_ssd_kernels(dev, quick: bool):
                         scale=10.0))
                 unequal[f"ssd_state_apply.{route}"] += int((g != w).sum())
                 launched[f"ssd_state_apply.{route}"] += 1
-            g = ssd_apply_entry(y, a, c, st, chunk=chunk)
             w = ssd_apply_entry_plain(y, a, c, st, chunk=chunk)
-            torch.cuda.synchronize()
-            worst["ssd_apply_entry"] = max(worst["ssd_apply_entry"],
-                                           check_close(
-                g, w, dtype, f"ssd_apply_entry {what}", scale=10.0))
-            unequal["ssd_apply_entry.block"] += int((g != w).sum())
-            launched["ssd_apply_entry.block"] += 1
+            for r in sorted({"block", ssd_apply_entry_route(P, S, chunk)}):
+                g = ssd_apply_entry(y, a, c, st, chunk=chunk, route=r)
+                torch.cuda.synchronize()
+                worst["ssd_apply_entry"] = max(
+                    worst["ssd_apply_entry"], check_close(
+                        g, w, dtype, f"ssd_apply_entry ({r}) {what}",
+                        scale=10.0))
+                unequal[f"ssd_apply_entry.{r}"] += int((g != w).sum())
+                launched[f"ssd_apply_entry.{r}"] += 1
         log(f"[kernels] ssd {what}: within tolerance on routes "
             f"{sorted(routes)}")
     log(f"[kernels] ssd kernels: {len(cases)} cases within tolerance; max "
@@ -2042,8 +2078,8 @@ def phase_ssd_kernels(dev, quick: bool):
     if any(unequal.values()):
         raise AssertionError(f"ssd kernels: elements not bit-equal to the "
                              f"plain versions {unequal}")
-    if not (launched["ssd_intra.tiled"]
-            and launched["ssd_state_apply.tiled"]):
+    if not (launched["ssd_intra.tiled"] and launched["ssd_state_apply.tiled"]
+            and launched["ssd_apply_entry.tiled"]):
         raise AssertionError(f"ssd kernels: a tiled kernel was not checked "
                              f"{launched}")
     return worst
@@ -2201,13 +2237,29 @@ def ssd_bounds(BH, G, L, P, S, chunk, bandwidth: float):
     return out
 
 
+def entry_composed(y, a, c, entry, chunk):
+    """Kernel 10's function as plain PyTorch calls: exp(cumsum(log a)) a
+    chunk, ``torch.bmm`` (TF32 off) of c against the entry states, and the
+    add.  A yardstick, timed only: the port never calls it."""
+    import torch
+    BH, L, P = y.shape
+    G, _, S = c.shape
+    nc = L // chunk
+    la = torch.cumsum(torch.log(torch.clamp_min(a, 1e-30))
+                      .view(BH, nc, chunk), -1)
+    rows = c.view(G, 1, nc, chunk, S).expand(G, BH // G, nc, chunk, S)
+    dots = torch.bmm(rows.reshape(BH * nc, chunk, S),
+                     entry.view(BH * nc, S, P))
+    return y + dots.view(BH, L, P) * torch.exp(la).view(BH, L, 1)
+
+
 def phase_ssd_numbers(dev, run, errs, bandwidth: float):
     """Times at the block's shapes: the block, the op at the resolved and
     the forced configs and the port's torch ``ssd_chunked_ref`` (the op's
-    ``composed_ms``, a yardstick the port never calls), kernels 8 and 9
-    over the chunk lengths on both routes, their device time by kernel
-    (``[trace] ssd``), and the kernels line's entries for kernels 8, 9 and
-    10 at chunk 128."""
+    ``composed_ms``, a yardstick the port never calls), kernels 8, 9 and
+    10 over the chunk lengths on both routes, their device time by kernel (``[trace] ssd``), and the
+    kernels line's entries for kernels 8, 9 and 10 at chunk 128 (kernel
+    10 with ``entry_composed``'s time as its ``composed_ms``)."""
     import torch
     from repro_torch.kernels.ssd.kernel import (ssd_apply_entry,
                                                 ssd_apply_entry_plain,
@@ -2241,7 +2293,8 @@ def phase_ssd_numbers(dev, run, errs, bandwidth: float):
         abh = args[1].permute(0, 2, 1).reshape(BH, L)
         b, c = args[2], args[3]
         chunks = [ch for ch in (128, 256, 512, 1024, 2048) if ch <= L]
-        by_chunk = {"ssd_intra": {}, "ssd_state_apply": {}}
+        by_chunk = {"ssd_intra": {}, "ssd_state_apply": {},
+                    "ssd_apply_entry": {}}
         for chunk in chunks:
             bounds = ssd_bounds(BH, B, L, P, S, chunk, bandwidth)
             row = {"bound_ms": bounds["ssd_intra"]["bound_ms"]}
@@ -2258,6 +2311,12 @@ def phase_ssd_numbers(dev, run, errs, bandwidth: float):
                         lambda: ssd_state_apply(y, abh, c, ac, st,
                                                 chunk=chunk, route=route), 5)
                 by_chunk["ssd_state_apply"][chunk] = row
+                row = {"bound_ms": bounds["ssd_apply_entry"]["bound_ms"]}
+                for route in ("tiled", "block"):
+                    row[f"{route}_ms"] = time_ms(
+                        lambda: ssd_apply_entry(y, abh, c, st, chunk=chunk,
+                                                route=route), 5)
+                by_chunk["ssd_apply_entry"][chunk] = row
                 del y, ac, st
         times["by_chunk"] = by_chunk
         log(f"[numbers] ssd at ({B}, {L}, {H}, {P}), state {S}: "
@@ -2275,12 +2334,15 @@ def phase_ssd_numbers(dev, run, errs, bandwidth: float):
                                                      chunk=chunk,
                                                      route=route))
             for route in ("tiled", "block")} | {
-            f"ssd_apply_entry chunk {chunk}":
-                lambda: ssd_apply_entry(y, abh, c, st, chunk=chunk)},
+            f"ssd_apply_entry chunk {chunk} ({route})":
+                (lambda route=route: ssd_apply_entry(y, abh, c, st,
+                                                     chunk=chunk,
+                                                     route=route))
+            for route in ("tiled", "block")},
             f"BH {BH}, L {L}, P {P}, S {S}, f32")
         bounds = ssd_bounds(BH, B, L, P, S, chunk, bandwidth)
 
-        def entry(name, replaces, fn, plain, block_fn=None):
+        def entry(name, replaces, fn, plain, block_fn=None, composed=None):
             got, want = fn(), plain()
             torch.cuda.synchronize()
             if not isinstance(got, tuple):
@@ -2319,6 +2381,10 @@ def phase_ssd_numbers(dev, run, errs, bandwidth: float):
                                             for ch, r in rows.items()}
                 out["bound_ms_by_chunk"] = {ch: r["bound_ms"]
                                             for ch, r in rows.items()}
+            if composed is not None:
+                out["composed"], comp = composed
+                out["composed_ms"] = time_ms(comp, 10)
+                out["composed_max_abs_err"] = max_err(comp(), want[0])
             log(f"[numbers] {json.dumps(out, sort_keys=True)}")
             return out
 
@@ -2336,7 +2402,11 @@ def phase_ssd_numbers(dev, run, errs, bandwidth: float):
                                           route="block")),
             entry("ssd_apply_entry", "src/repro/kernels/ssd/kernel.py:169",
                   lambda: ssd_apply_entry(y, abh, c, st, chunk=chunk),
-                  lambda: ssd_apply_entry_plain(y, abh, c, st, chunk=chunk))]
+                  lambda: ssd_apply_entry_plain(y, abh, c, st, chunk=chunk),
+                  lambda: ssd_apply_entry(y, abh, c, st, chunk=chunk,
+                                          route="block"),
+                  ("exp(cumsum(log a)), torch.bmm (TF32 off), add",
+                   lambda: entry_composed(y, abh, c, st, chunk)))]
     return entries, times
 
 
@@ -3302,6 +3372,13 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         _, loop_counts = phase_loop(dev)
         log(f"[loop] {time.perf_counter() - t0:.1f} s")
+        # the SSD kernels' launches in the tuning loop, apart from the
+        # main paths', by route
+        for entry in entries:
+            if entry["name"].startswith("ssd_"):
+                entry["launches_loop"] = {
+                    r: loop_counts[f"{entry['name']}.{r}"]
+                    for r in ROUTES[entry["name"]]}
         t0 = time.perf_counter()
         entries += phase_attention_matmul_numbers(
             dev, dense_counts, mm, loop_counts, kernel_errs, bandwidth)

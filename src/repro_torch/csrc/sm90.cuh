@@ -8,7 +8,8 @@
 //     products, A from shared memory (_ss) or from registers (_rs), with
 //     the B-transpose bit as a template argument; setmaxnreg;
 //   * mbarrier init / arrive / arrive.expect_tx / try_wait.parity;
-//   * cp.async.bulk.tensor 2d / 3d loads (TMA) completing on an mbarrier;
+//   * cp.async.bulk.tensor 2d / 3d loads (TMA) completing on an mbarrier,
+//     and 2d prefetches into L2;
 //   * the host's cuTensorMapEncodeTiled, fetched from the driver library
 //     at run time, so the shared library links without -lcuda (make_map;
 //     make_map_bf16 for the tensor-core kernels' operands).
@@ -258,6 +259,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// ask TMA to bring a box into L2 (nothing lands in shared memory)
+__device__ __forceinline__ void tma_prefetch_2d(const CUtensorMap* map, int c0,
+                                                int c1) {
+  asm volatile(
+      "cp.async.bulk.prefetch.tensor.2d.L2.global [%0, {%1, %2}];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1)
       : "memory");
 }
 

@@ -6,12 +6,14 @@
 //                    (phase A);
 //   repro_ssd_state_apply_tiled, repro_ssd_apply (fused = 1)
 //                    replace ssd_state_apply_pallas (phases B + C);
-//   repro_ssd_apply (fused = 0) replaces ssd_apply_entry_pallas (phase C).
+//   repro_ssd_apply_entry_tiled, repro_ssd_apply (fused = 0)
+//                    replace ssd_apply_entry_pallas (phase C).
 //
 // The *_tiled kernels (route "tiled", described below the earlier ones)
 // are the redesign for Hopper; the wrappers take them for S and P
-// multiples of 8 with S <= 128 (phase A also P <= 64, chunk <= 2048) and
-// the earlier kernels (route "block") for every other shape.
+// multiples of 8 with S <= 128 (phase A also P <= 64, chunk <= 2048; the
+// unfused phase C P <= 64) and the earlier kernels (route "block") for
+// every other shape.
 //
 // Built with nvcc for sm_90a into the port's shared library (plain C
 // interface, loaded with ctypes by repro_torch/kernels/build.py).  Every
@@ -59,7 +61,7 @@
 // memory staging (33 KB a block), 4 x 4 register tiles; tensor cores and
 // TMA are later work.
 //
-// repro_ssd_apply (route "block" for fused = 1) — per (row, chunk), with
+// repro_ssd_apply (route "block" for both) — per (row, chunk), with
 // h the chunk's entry state:
 //   out[t, p] = y_intra[t, p] + (c_t . h[:, p]) * exp(la_t)
 // fused = 1 walks the chunks in order inside the block, with h the f32
@@ -485,6 +487,31 @@ __global__ void __launch_bounds__(kThreads)
 // registers of the lanes that own it (k = tg + 32 m) and write it to
 // shared memory once for the next chunk's products.
 // What bounds it: the dots over S and the bytes about equally.
+//
+// ssd_apply_entry_tiled_kernel — repro_ssd_apply_entry_tiled, kernel 10.
+// The chunks are independent, so a block owns one (row, chunk, panel of
+// 128 t rows) with all P <= 64 columns: the grid covers every (row,
+// chunk) pair, the last panels (the longest decay chains) first, and c
+// and the chunk's entry (S, P) are read once a panel.  One thread asks TMA
+// (2-D tensor maps) for the panel's c a k box at a time (128-byte swizzled
+// boxes of 128-byte rows) together with the entry's rows of that box, each
+// box on its own mbarrier, so the products start on the first; and for y.
+// The last warp sums the decay chain from the chunk's start to the
+// panel's last row (warp_chain: one __fadd_rn chain, the logs
+// lane-parallel, the decays a load ahead) and writes exp(la) of the
+// panel's rows once; the eight consumer warps meanwhile compute 8 x 4
+// register tiles of c . entry (rows r + 2 i, columns 4 tx + jj; one
+// __fmaf_rn chain in ascending k, 128-bit loads: 12 shared loads a 128
+// FFMA), then add y + acc * exp(la) after a named barrier with that warp.
+// Shared memory sets the overlap: two blocks share an SM, so one block's
+// copies run under the other's products without a producer ring.  Where y
+// would keep a second block off the SM (f32, 128 rows: c 64 KB, entry 32
+// KB, y 32 KB), y is only brought into L2 at the start and copied into
+// the first c boxes once every consumer is done with them.  (64-row
+// panels, two stages' worth a block, were slower at every chunk.)
+// What bounds it: the dots over S and the bytes about equally on paper;
+// on the card the product loop, whose 48 shared-memory values a lane per
+// 128 FFMA keep the FMA pipes below their rate.
 
 constexpr int kPanel = 128;        // t rows of an intra block's panel
 constexpr int kSTile = 64;         // s rows of an intra ring stage
@@ -999,6 +1026,228 @@ __global__ void __launch_bounds__(kConsumers + 32, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// repro_ssd_apply_entry_tiled
+// ---------------------------------------------------------------------------
+
+// an entry-apply block: kEntryRows t rows x all P <= 64 columns, a
+// consumer lane an 8 x 4 tile (kEntryConsumers threads), and one warp for
+// the copies and the decay chain
+constexpr int kEntryRows = 128;
+constexpr int kEntryConsumers = kEntryRows * kTiledMaxP / 32;
+
+// shared memory an entry-apply block may use so that two share an SM
+constexpr size_t kTwoBlockSmem = 115712;
+
+__host__ __device__ inline size_t round1024(size_t n) {
+  return (n + 1023) / 1024 * 1024;
+}
+
+// bytes of the c region: the panel's swizzled c boxes, or (y_after) the
+// larger of those and the y panel, which then reuses the space
+template <typename T>
+__host__ __device__ size_t entry_region(int rows, int S, int P,
+                                        bool y_after) {
+  const size_t c = Box<T>::bytes(S, rows);
+  const size_t y = sizeof(T) * static_cast<size_t>(rows) * P;
+  return y_after && y > c ? y : c;
+}
+
+// the entry's rows as they arrive: one box of Box<T>::kK rows beside each
+// c box (the last may run past S)
+template <typename T>
+__host__ __device__ size_t entry_bytes(int S, int P) {
+  return sizeof(float) * static_cast<size_t>(Box<T>::count(S)) *
+         Box<T>::kK * P;
+}
+
+// barriers (128 bytes) and exp(la) of the panel's rows, then from the next
+// 1024-byte boundary the c region, the entry boxes f32 and, unless
+// y_after, the y panel (rows, P) in T
+template <typename T>
+size_t entry_tiled_smem(int rows, int S, int P, bool y_after) {
+  return 1024 + 128 + sizeof(float) * rows +
+         entry_region<T>(rows, S, P, y_after) +
+         round1024(entry_bytes<T>(S, P)) +
+         (y_after ? 0 : sizeof(T) * static_cast<size_t>(rows) * P);
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kEntryConsumers + 32, 2)
+    ssd_apply_entry_tiled_kernel(const __grid_constant__ CUtensorMap cmap,
+                                 const __grid_constant__ CUtensorMap ymap,
+                                 const __grid_constant__ CUtensorMap emap,
+                                 const T* __restrict__ a, T* __restrict__ out,
+                                 long long L, int P, int S, int Q, int nc,
+                                 int rows_per_group, int panels,
+                                 int y_after) {
+  constexpr int kRows = kEntryRows;
+  constexpr int kC = kEntryConsumers;
+  constexpr int kK = Box<T>::kK;
+  constexpr size_t kBoxBytes = static_cast<size_t>(kRows) * 128;
+  extern __shared__ __align__(128) unsigned char smem_entry[];
+  // one barrier a k box (c and the entry's rows), then y's
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_entry);
+  float* am = reinterpret_cast<float*>(smem_entry + 128);     // (kRows)
+  unsigned char* tiles = smem_entry + 128 + sizeof(float) * kRows;
+  tiles += (1024 - (sm90::smem_addr(tiles) & 1023)) & 1023;
+  const int boxes = Box<T>::count(S);
+  uint64_t* ybar = bars + boxes;
+  const size_t y_bytes = sizeof(T) * static_cast<size_t>(kRows) * P;
+  // with y_after, y lands in the first y_boxes c boxes once every consumer
+  // is done with them
+  const int y_boxes =
+      y_after ? min(boxes, static_cast<int>((y_bytes + kBoxBytes - 1) /
+                                            kBoxBytes))
+              : 0;
+  unsigned char* e_at = tiles + entry_region<T>(kRows, S, P, y_after);
+  unsigned char* y_at =
+      y_after ? tiles : e_at + round1024(entry_bytes<T>(S, P));
+
+  const int tid = threadIdx.x;
+  // the last panels (the longest decay chains) first
+  const long long rc = gridDim.x / panels;
+  const long long rcid = blockIdx.x % rc;  // row * nc + chunk
+  const int t0 = (panels - 1 - static_cast<int>(blockIdx.x / rc)) * kRows;
+  const int rows = min(kRows, Q - t0);     // the panel's rows
+  const long long row = rcid / nc;
+  const long long pos0 = (rcid % nc) * Q;
+  const int yrow = static_cast<int>(row * L + pos0 + t0);
+
+  if (tid == kC) {
+    // one thread asks TMA for each k box (c of the panel and the entry's
+    // rows) on its own barrier, so the products start on the first; y on
+    // its own, or, with y_after, only into L2 for now
+    for (int kb = 0; kb <= boxes; ++kb) sm90::mbar_init(&bars[kb], 1);
+    sm90::mbar_fence_init();
+    const int crow = static_cast<int>(row / rows_per_group * L + pos0 + t0);
+    for (int kb = 0; kb < boxes; ++kb) {
+      sm90::mbar_expect_tx(&bars[kb], static_cast<uint32_t>(
+                                          kBoxBytes + sizeof(float) * kK * P));
+      sm90::tma_load_2d(tiles + kb * kBoxBytes, &cmap, &bars[kb], kb * kK,
+                        crow);
+      sm90::tma_load_2d(e_at + sizeof(float) * kb * kK * P, &emap, &bars[kb],
+                        0, static_cast<int>(rcid * S + kb * kK));
+    }
+    if (y_after) {
+      sm90::tma_prefetch_2d(&ymap, 0, yrow);
+    } else {
+      sm90::mbar_expect_tx(ybar, static_cast<uint32_t>(y_bytes));
+      sm90::tma_load_2d(y_at, &ymap, ybar, 0, yrow);
+    }
+  }
+  __syncthreads();  // the barriers are initialised
+
+  if (tid >= kC) {
+    // the decay chain from the chunk's start to the panel's last row, 256
+    // positions of decays a load (the next 256 in flight while these are
+    // summed); exp(la) of the panel's rows to shared memory, then the
+    // consumers are told
+    const int lane = tid - kC;
+    const T* ar = a + row * L + pos0;
+    const int t_end = t0 + rows;
+    float av[8], next[8];
+    auto load = [&](float (&v)[8], int base) {
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        const int t = base + 32 * m + lane;
+        v[m] = t < t_end ? to_f32(ar[t]) : 1.0f;
+      }
+    };
+    load(av, 0);
+    float run = 0.0f;
+    for (int base = 0; base < t_end; base += 256) {
+      load(next, base + 256);
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        const int b = base + 32 * m;
+        if (b >= t_end) break;
+        const float lg = clamped_log(av[m]);
+        if (b + 32 <= t0) {
+          // before the panel: the sum only (n = 32 and no prefix read, so
+          // the inlined chain drops its per-lane selects)
+          warp_chain(lg, 32, run, lane);
+        } else {
+          const float mine = warp_chain(lg, t_end - b, run, lane);
+          if (b + lane >= t0 && b + lane < t_end)
+            am[b + lane - t0] = expf(mine);
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < 8; ++m) av[m] = next[m];
+    }
+    named_arrive(1, kC + 32);
+    return;
+  }
+
+  // the consumers: rows r + 2 i of the panel (warp w's rows 16 w ... 16 w
+  // + 15), columns 4 tx + jj; lanes past P read the last four columns
+  const int warp = tid >> 5, lane = tid & 31;
+  const int r = warp * kWarpRows + (lane >> 4);
+  const int tx = lane & 15;
+  const int pc = min(4 * tx, P - 4);
+  const T* c_s = reinterpret_cast<const T*>(tiles);
+  const float* e_s = reinterpret_cast<const float*>(e_at);
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.0f;
+  for (int kb = 0; kb < boxes; ++kb) {
+    sm90::mbar_wait(&bars[kb], 0);  // k box kb is in
+    const int k_end = min(S, (kb + 1) * kK);
+    for (int k = kb * kK; k < k_end; k += 4) {
+      float4 ev[4], cv[8];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) ev[kk] = ld4(e_s + (k + kk) * P + pc);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        cv[i] = ld4_swizzled(c_s, kRows, r + 2 * i, k);
+      // 32 independent chains a step, k ascending in each
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            acc[i][jj] = __fmaf_rn(at(cv[i], kk), at(ev[kk], jj), acc[i][jj]);
+    }
+    if (kb + 1 == y_boxes) {
+      named_sync(2, kC);  // every consumer is done with y's boxes
+      if (tid == 0) {
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        sm90::mbar_expect_tx(ybar, static_cast<uint32_t>(y_bytes));
+        sm90::tma_load_2d(y_at, &ymap, ybar, 0, yrow);
+      }
+    }
+  }
+  sm90::mbar_wait(ybar, 0);  // y is in
+  named_sync(1, kC + 32);    // exp(la) is in
+  if (4 * tx < P) {
+    const T* y_s = reinterpret_cast<const T*>(y_at);
+    T* outr = out + static_cast<long long>(yrow) * P + 4 * tx;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int t = r + 2 * i;
+      if (t >= rows) continue;
+      const float4 yv = ld4(y_s + t * P + 4 * tx);
+      const float m = am[t];
+      st4(outr + static_cast<long long>(t) * P,
+          make_float4(__fadd_rn(yv.x, __fmul_rn(acc[i][0], m)),
+                      __fadd_rn(yv.y, __fmul_rn(acc[i][1], m)),
+                      __fadd_rn(yv.z, __fmul_rn(acc[i][2], m)),
+                      __fadd_rn(yv.w, __fmul_rn(acc[i][3], m))));
+    }
+  }
+}
+
 unsigned blocks_of(long long n, int tile) {
   return static_cast<unsigned>((n + tile - 1) / tile);
 }
@@ -1149,9 +1398,49 @@ int launch_apply_tiled(const void* y_intra, const void* a, const void* c,
   return cudaGetLastError();
 }
 
+template <typename T>
+int launch_entry_tiled(const void* y_intra, const void* a, const void* c,
+                       const float* entry, void* out, long long BH,
+                       long long L, int P, int S, long long G, int Q,
+                       cudaStream_t stream) {
+  constexpr int kRows = kEntryRows;
+  const long long nc = L / Q;
+  const int panels = (Q + kRows - 1) / kRows;
+  const long long blocks = BH * nc * panels;
+  if (blocks == 0) return cudaSuccess;
+  if (blocks > 0x7fffffffLL || BH * nc * S > 0x7fffffffLL ||
+      BH * L > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  // y gets its own space unless that keeps two blocks off an SM
+  bool y_after = entry_tiled_smem<T>(kRows, S, P, false) > kTwoBlockSmem;
+  const size_t smem = entry_tiled_smem<T>(kRows, S, P, y_after);
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  CUtensorMap cmap, ymap, emap;
+  int code = map_rows<T>(&cmap, c, G * L, S, kRows, Box<T>::kK,
+                         CU_TENSOR_MAP_SWIZZLE_128B);
+  if (code == 0)
+    code = map_rows<T>(&ymap, y_intra, BH * L, P, kRows, P,
+                       CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (code == 0)
+    code = map_rows<float>(&emap, entry, BH * nc * S, P, Box<T>::kK, P,
+                           CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (code != 0) return code;
+  auto kernel = ssd_apply_entry_tiled_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(blocks), kEntryConsumers + 32, smem,
+           stream>>>(cmap, ymap, emap, static_cast<const T*>(a),
+                     static_cast<T*>(out), L, P, S, Q, static_cast<int>(nc),
+                     static_cast<int>(BH / G), panels, y_after ? 1 : 0);
+  return cudaGetLastError();
+}
+
 // the shapes the tiled kernels take (the wrappers' route functions say the
 // same): S and P multiples of 8 (16-byte rows in bf16), S <= 128; the
-// intra kernel also P <= 64 and chunk <= 2048; every pointer 16-byte aligned
+// intra kernel also P <= 64 and chunk <= 2048, the entry-apply kernel P
+// <= 64; every pointer 16-byte aligned
 bool bad_tiled(int P, int S, int chunk, bool intra,
                std::initializer_list<const void*> ptrs) {
   for (const void* p : ptrs)
@@ -1249,6 +1538,25 @@ int repro_ssd_state_apply_tiled(const void* y_intra, const void* a,
     return launch_apply_tiled<__nv_bfloat16>(y_intra, a, c, a_chunk, state,
                                              out, BH, L, P, S, G, chunk,
                                              strm);
+  return cudaErrorInvalidValue;
+}
+
+// repro_ssd_apply with fused = 0 on the tiled kernel: entry (BH, nc, S, P)
+// f32, the other arguments as repro_ssd_apply's.
+int repro_ssd_apply_entry_tiled(const void* y_intra, const void* a,
+                                const void* c, const float* entry, void* out,
+                                int dtype, long long BH, long long L, int P,
+                                int S, long long G, int chunk, void* stream) {
+  if (bad_geometry(BH, L, P, S, G, chunk) || P > kTiledMaxP ||
+      bad_tiled(P, S, chunk, false, {y_intra, c, entry, out}))
+    return cudaErrorInvalidValue;
+  auto strm = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_entry_tiled<float>(y_intra, a, c, entry, out, BH, L, P, S,
+                                     G, chunk, strm);
+  if (dtype == 1)
+    return launch_entry_tiled<__nv_bfloat16>(y_intra, a, c, entry, out, BH,
+                                             L, P, S, G, chunk, strm);
   return cudaErrorInvalidValue;
 }
 

@@ -158,6 +158,9 @@ def load_library() -> ctypes.CDLL:
                                                 i64, i64, i32, i32, i64, i32,
                                                 vp]
     lib.repro_ssd_state_apply_tiled.restype = i32
+    lib.repro_ssd_apply_entry_tiled.argtypes = [vp, vp, vp, vp, vp, i32, i64,
+                                                i64, i32, i32, i64, i32, vp]
+    lib.repro_ssd_apply_entry_tiled.restype = i32
     lib.repro_flash_attention.argtypes = [vp, vp, vp, vp, i32, i64, i32, i32,
                                           i32, i32, i32, i32, i32,
                                           ctypes.c_float, vp]

@@ -16,14 +16,17 @@ another, every dot product one fused multiply-add after another in
 ascending index order (``_fma``: exact, through float64).  Any other
 device raises; nothing falls back.
 
-``ssd_intra`` and ``ssd_state_apply`` each have two kernels, chosen by
-the shapes alone (:func:`ssd_intra_route`, :func:`ssd_state_apply_route`):
-the tiled kernels (route "tiled", redesigned for Hopper: one launch for
-phase A, 8 x 4 register tiles over a TMA ring; phases B + C with a
-producer warp's TMA loads a panel ahead of eight consumer warps) for S
+Each has two kernels, chosen by the shapes alone
+(:func:`ssd_intra_route`, :func:`ssd_state_apply_route`,
+:func:`ssd_apply_entry_route`): the tiled kernels (route "tiled",
+redesigned for Hopper: one launch for phase A, 8 x 4 register tiles over
+a TMA ring; phases B + C with a producer warp's TMA loads a panel ahead
+of eight consumer warps; the unfused phase C a block a (row, chunk,
+128-row panel), TMA copies, 8 x 4 register tiles, two blocks an SM) for S
 and P multiples of 8 with S <= 128 (and, for phase A, P <= 64 and chunk
-<= 2048), and the earlier kernels (route "block") for every other shape.
-A ``route`` keyword forces one; each route counts its own launches.
+<= 2048; for the unfused phase C, P <= 64), and the earlier kernels
+(route "block") for every other shape.  A ``route`` keyword forces one;
+each route counts its own launches.
 
 Layout: rows of (BH, L, .) tensors, BH = batch x heads.  ``b`` and ``c``
 are (G, L, S) with G dividing BH: row ``bh`` reads group ``bh // (BH //
@@ -51,11 +54,12 @@ from repro_torch.tuning.dispatch import kernel_path
 MAX_STATE = 1024
 # the tiled kernels (route "tiled"): S and P multiples of 8, S up to
 # TILED_MAX_S; phase A also P up to TILED_MAX_P and chunks up to
-# TILED_MAX_CHUNK (its shared memory holds the chunk's decay prefix)
+# TILED_MAX_CHUNK (its shared memory holds the chunk's decay prefix); the
+# unfused phase C also P up to TILED_MAX_P (a block holds all columns)
 TILED_MAX_S = 128
 TILED_MAX_P = 64
 TILED_MAX_CHUNK = 2048
-# the routes of ssd_intra and ssd_state_apply, each with its own count
+# the routes of the three kernels, each with its own count
 ROUTES = ("tiled", "block")
 
 
@@ -74,6 +78,15 @@ def ssd_state_apply_route(P: int, S: int, chunk: int) -> str:
     multiples of 8 with S <= TILED_MAX_S (any chunk, any P slice count);
     else "block"."""
     if S % 8 == 0 and P % 8 == 0 and S <= TILED_MAX_S:
+        return "tiled"
+    return "block"
+
+
+def ssd_apply_entry_route(P: int, S: int, chunk: int) -> str:
+    """The kernel the unfused phase C runs on: "tiled" for S and P
+    multiples of 8 with S <= TILED_MAX_S and P <= TILED_MAX_P (any
+    chunk); else "block"."""
+    if S % 8 == 0 and P % 8 == 0 and S <= TILED_MAX_S and P <= TILED_MAX_P:
         return "tiled"
     return "block"
 
@@ -340,9 +353,9 @@ def ssd_apply_entry_plain(y_intra: torch.Tensor, a: torch.Tensor,
 
 def _launch_apply(what, y_intra, a, c, chunk, a_chunk, state, fused,
                   route=None):
-    """Launch phase C: fused (kernel 9, on ``route``; by default the one
-    :func:`ssd_state_apply_route` picks) or not (kernel 10, the block
-    kernel).  Counts nothing."""
+    """Launch phase C: fused (kernel 9) or not (kernel 10), on ``route``;
+    by default the one :func:`ssd_state_apply_route` or
+    :func:`ssd_apply_entry_route` picks.  Counts nothing."""
     from repro_torch.kernels.build import check, load_library
 
     _check_route(route)
@@ -352,10 +365,8 @@ def _launch_apply(what, y_intra, a, c, chunk, a_chunk, state, fused,
     y_intra, a, c, state = (_aligned(t) for t in (y_intra, a, c, state))
     BH, L, P = y_intra.shape
     G, _, S = c.shape
-    route = route or (ssd_state_apply_route(P, S, chunk) if fused
-                      else "block")
-    if route == "tiled" and not fused:
-        raise ValueError(f"{what}: the tiled kernel is the fused one")
+    route = route or (ssd_state_apply_route if fused
+                      else ssd_apply_entry_route)(P, S, chunk)
     if route == "block" and S > MAX_STATE:
         raise ValueError(f"{what}: state size S={S} above the kernel's "
                          f"{MAX_STATE}")
@@ -366,10 +377,14 @@ def _launch_apply(what, y_intra, a, c, chunk, a_chunk, state, fused,
         ptrs = (y_intra.data_ptr(), a.data_ptr(), c.data_ptr(),
                 a_chunk.contiguous().data_ptr() if fused else None,
                 state.data_ptr(), out.data_ptr())
-        if route == "tiled":
+        if route == "tiled" and fused:
             code = lib.repro_ssd_state_apply_tiled(
                 *ptrs, DTYPE_CODES[y_intra.dtype], BH, L, P, S, G, chunk,
                 stream)
+        elif route == "tiled":
+            code = lib.repro_ssd_apply_entry_tiled(
+                *ptrs[:3], *ptrs[4:], DTYPE_CODES[y_intra.dtype], BH, L, P,
+                S, G, chunk, stream)
         else:
             code = lib.repro_ssd_apply(
                 *ptrs, DTYPE_CODES[y_intra.dtype], BH, L, P, S, G, chunk,
@@ -402,19 +417,25 @@ def ssd_state_apply(y_intra: torch.Tensor, a: torch.Tensor, c: torch.Tensor,
 
 
 def ssd_apply_entry(y_intra: torch.Tensor, a: torch.Tensor, c: torch.Tensor,
-                    entry: torch.Tensor, *, chunk: int = 128) -> torch.Tensor:
-    """Phase C unfused: adds each chunk's entry state (BH, nc, S, P)."""
+                    entry: torch.Tensor, *, chunk: int = 128,
+                    route: Optional[str] = None) -> torch.Tensor:
+    """Phase C unfused: adds each chunk's entry state (BH, nc, S, P).
+    ``route`` forces a kernel (CUDA tensors only)."""
     if not kernel_path(y_intra):
+        if route is not None:
+            raise ValueError(f"ssd_apply_entry: route {route!r} needs CUDA "
+                             f"tensors, got ones on {y_intra.device}")
         return ssd_apply_entry_plain(y_intra, a, c, entry, chunk=chunk)
     _check_apply("ssd_apply_entry", y_intra, a, c, chunk, state=entry)
     out = _launch_apply("ssd_apply_entry", y_intra, a, c, chunk, None, entry,
-                        fused=False)
-    ssd_apply_entry.launches += 1
+                        fused=False, route=route)
+    count_launch(ssd_apply_entry, route or ssd_apply_entry_route(
+        y_intra.shape[-1], c.shape[-1], chunk))
     return out
 
 
 # launches of the CUDA kernels (plain-version calls are not counted): all,
-# and by route for kernels 8 and 9
+# and by route
 ssd_intra.launches = 0
 ssd_intra.launches_tiled = 0
 ssd_intra.launches_block = 0
@@ -422,3 +443,5 @@ ssd_state_apply.launches = 0
 ssd_state_apply.launches_tiled = 0
 ssd_state_apply.launches_block = 0
 ssd_apply_entry.launches = 0
+ssd_apply_entry.launches_tiled = 0
+ssd_apply_entry.launches_block = 0

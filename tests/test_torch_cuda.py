@@ -565,9 +565,9 @@ def test_ssd_kernels_match_plain(cuda, dtype, BH, G, L, P, S, chunk, strong):
     (2, 1, 300, 8, 16, 100, True)])
 def test_ssd_routes_equal_the_plain_versions_bit_for_bit(
         cuda, route, dtype, BH, G, L, P, S, chunk, strong):
-    """Kernels 8 and 9 on each route (the tiled kernels and the earlier
-    block kernels, forced) against their plain versions, every element
-    equal; each launch counted on its route."""
+    """Kernels 8, 9 and 10 on each route (the tiled kernels and the
+    earlier block kernels, forced) against their plain versions, every
+    element equal; each launch counted on its route."""
     from repro_torch.kernels.ssd import kernel as ssd_kernel
     assert ssd_kernel.ssd_intra_route(P, S, chunk) == "tiled"
     gen = torch.Generator(device=cuda).manual_seed(BH * L + P + 1)
@@ -586,6 +586,36 @@ def test_ssd_routes_equal_the_plain_versions_bit_for_bit(
                                          route=route)
         assert torch.equal(got, ssd_kernel.ssd_state_apply_plain(
             y, a, c, ac, st, chunk=chunk))
+        fn = ssd_kernel.ssd_apply_entry
+        before = (fn.launches, getattr(fn, f"launches_{route}"))
+        got = fn(y, a, c, st, chunk=chunk, route=route)
+        assert (fn.launches, getattr(fn, f"launches_{route}")) \
+            == (before[0] + 1, before[1] + 1)
+        assert torch.equal(got, ssd_kernel.ssd_apply_entry_plain(
+            y, a, c, st, chunk=chunk))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("BH,G,L,P,S,chunk,strong", [
+    (4, 2, 192, 16, 8, 64, False), (6, 3, 384, 8, 16, 128, False),
+    (4, 2, 512, 64, 128, 128, True), (2, 1, 3072, 64, 128, 1024, False),
+    (2, 1, 300, 8, 16, 100, True), (2, 1, 768, 64, 128, 256, False)])
+def test_ssd_apply_entry_tiled_equals_the_plain_version_bit_for_bit(
+        cuda, dtype, BH, G, L, P, S, chunk, strong):
+    """Kernel 10's tiled kernel through its launcher, every element equal
+    to the plain version; the launcher counts nothing."""
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    gen = torch.Generator(device=cuda).manual_seed(BH * L + P + 2)
+    _, a, _, c = _ssd_rows(gen, BH, G, L, P, S, dtype, cuda, strong)
+    y = torch.randn(BH, L, P, generator=gen, device=cuda).to(_TORCH[dtype])
+    st = torch.randn(BH, L // chunk, S, P, generator=gen, device=cuda)
+    fn = ssd_kernel.ssd_apply_entry
+    before = (fn.launches, fn.launches_tiled)
+    got = ssd_kernel._launch_apply("ssd_apply_entry", y, a, c, chunk, None,
+                                   st, False, route="tiled")
+    assert (fn.launches, fn.launches_tiled) == before
+    assert torch.equal(got, ssd_kernel.ssd_apply_entry_plain(
+        y, a, c, st, chunk=chunk))
 
 
 def test_ssd_default_routes_are_the_tiled_kernels(cuda):
@@ -599,7 +629,8 @@ def test_ssd_default_routes_are_the_tiled_kernels(cuda):
                                S, "float32", cuda)
         y, ac, st = ssd_kernel.ssd_intra_plain(x, a, b, c, chunk=chunk)
         for fn, args in ((ssd_kernel.ssd_intra, (x, a, b, c)),
-                         (ssd_kernel.ssd_state_apply, (y, a, c, ac, st))):
+                         (ssd_kernel.ssd_state_apply, (y, a, c, ac, st)),
+                         (ssd_kernel.ssd_apply_entry, (y, a, c, st))):
             before = getattr(fn, f"launches_{route}")
             fn(*args, chunk=chunk)
             assert getattr(fn, f"launches_{route}") == before + 1

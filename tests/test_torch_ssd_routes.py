@@ -1,11 +1,13 @@
-"""Which kernel an SSD phase-A or fused phase-B + C launch runs on the
-card, decided by the shapes, and the tiled kernels' schedules replayed.
+"""Which kernel an SSD phase-A, fused phase-B + C or unfused phase-C launch
+runs on the card, decided by the shapes, and the tiled kernels' schedules
+replayed (kernel 10's in ``test_torch_ssd_apply_entry.py``).
 
-``ssd_intra`` (kernel 8) and ``ssd_state_apply`` (kernel 9) each have two
-CUDA kernels: the tiled kernel, redesigned for Hopper, and the earlier
-block kernel for the shapes the tiled one does not take.  The choice is a
-pure function of (P, S, chunk) (``ssd_intra_route``,
-``ssd_state_apply_route``), so it is held here on the CPU: every admitted
+``ssd_intra`` (kernel 8), ``ssd_state_apply`` (kernel 9) and
+``ssd_apply_entry`` (kernel 10) each have two CUDA kernels: the tiled
+kernel, redesigned for Hopper, and the earlier block kernel for the shapes
+the tiled one does not take.  The choice is a pure function of (P, S,
+chunk) (``ssd_intra_route``, ``ssd_state_apply_route``,
+``ssd_apply_entry_route``), so it is held here on the CPU: every admitted
 h100 ssd config at the Mamba-2 block's shapes (n = 2048) and the tuning
 loop's (n = 1024) goes to the tiled kernels; ragged shapes go to the
 block kernels.  On the CPU the wrappers run their plain versions and count
@@ -34,6 +36,7 @@ from repro_torch.core.space import Workload, build_space
 from repro_torch.kernels.blocks.plan import plan_for_chain
 from repro_torch.kernels.ssd import kernel as ssd_kernel
 from repro_torch.kernels.ssd.kernel import (_fma, _groups, ssd_apply_entry,
+                                            ssd_apply_entry_route,
                                             ssd_intra, ssd_intra_plain,
                                             ssd_intra_route, ssd_state_apply,
                                             ssd_state_apply_plain,
@@ -69,13 +72,15 @@ def _ssd_launches(n):
 
 
 ROUTE_OF = {"ssd-intra": ssd_intra_route,
-            "ssd-state-apply": ssd_state_apply_route}
+            "ssd-state-apply": ssd_state_apply_route,
+            "ssd-apply": ssd_apply_entry_route}
 
 
 @pytest.mark.parametrize("n,configs", [(1024, 600), (2048, 696)])
 def test_every_h100_ssd_config_takes_the_tiled_kernels(n, configs):
-    """Every phase-A and fused-apply launch of every admitted config at
-    mamba2-130m's (P, S) = (64, 128), chunks 128 ... n."""
+    """Every phase-A, fused-apply and unfused-apply launch of every
+    admitted config at mamba2-130m's (P, S) = (64, 128), chunks 128 ...
+    n."""
     wl = Workload(op="ssd", n=n, batch=MAMBA_ROWS, variant="chunked")
     assert len(build_space(wl, H100).enumerate_valid()) == configs
     launches = _ssd_launches(n)
@@ -111,9 +116,8 @@ def test_shapes_the_tiled_kernels_do_not_take_go_to_the_block_kernels(
 
 def _counts():
     return tuple(getattr(fn, f"launches{r}")
-                 for fn in (ssd_intra, ssd_state_apply)
-                 for r in ("", "_tiled", "_block")) \
-        + (ssd_apply_entry.launches,)
+                 for fn in (ssd_intra, ssd_state_apply, ssd_apply_entry)
+                 for r in ("", "_tiled", "_block"))
 
 
 @pytest.mark.parametrize("fuse", [0, 1])
@@ -146,6 +150,11 @@ def test_forced_routes_need_a_card(route):
     with pytest.raises(ValueError):
         ssd_kernel._launch_apply("ssd_state_apply", y, a, c, 64, ac, st,
                                  True, route=route)
+    with pytest.raises(ValueError):
+        ssd_apply_entry(y, a, c, st, chunk=64, route=route)
+    with pytest.raises(ValueError):
+        ssd_kernel._launch_apply("ssd_apply_entry", y, a, c, 64, None, st,
+                                 False, route=route)
 
 
 def test_an_unknown_route_is_refused():
