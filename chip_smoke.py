@@ -120,12 +120,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (``WallClockObjective``): exhaustive / analytical / bayesian / random,
    the Phi table, the sweep sizes and the runner failures, which must be
    0;
-13. the ``kernels`` line: per kernel (all twelve) its launches on the main
+13. the paper's ML-based methodology on the card (``[ml]``): every config of
+   ``launch.tune.card_workloads`` (the ``repro_torch.tuning.ml`` ``SUITE``'s
+   train and holdout sizes: 2^26 / n problems for scan, tridiag, fft,
+   large_fft and rglru, ssd at 8 x 24 rows, attention and matmul in bf16;
+   large_fft sizes that ``fft`` runs in one launch left out) timed once
+   into journals under ``artifacts/ml_card``; a forest per op family trained
+   from the train journals and saved there (``$REPRO_TORCH_ML_MODEL``);
+   on the held-out sizes ``evaluate_model`` (top-1, slowdowns, rank
+   correlation, the rungs that answered) and ``compare_methods`` for
+   exhaustive / analytical / ml / bayesian / random on the same times.
+   It fails on Phi > 1, a runner failure, a ``no-model`` or ``no-forest``
+   rung, a config measured twice, or a family (scan_add, scan_linrec, pcr,
+   fft_stockham, ssd_intra, flash_attention, matmul) its sweeps did not
+   launch; the held-out accuracy has no floor;
+14. the ``kernels`` line: per kernel (all twelve) its launches on the main
    paths (by route for ``scan_add``, ``scan_linrec``, ``scan_linrec_prod``,
    ``pcr``, ``fft_stockham`` and the three SSD kernels, with the earlier
    kernel's time beside theirs; by path for the kernels that run on
    several; kernels 8–10 also by chunk length and with the tuning loop's
-   launches by route), its error
+   launches by route; every kernel with its launches in the ``[ml]``
+   sweeps, ``launches_ml``), its error
    against the plain version, its time, the plain version's and the
    library call's (null where no one PyTorch call
    computes the function; ``scaled_dot_product_attention`` and
@@ -164,7 +179,7 @@ SRC = os.path.join(ROOT, "src")
 # atol relative to the reference's magnitude (prefix sums accumulate)
 DTYPE_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2),
              "complex64": (1e-4, 1e-4)}
-TOTAL_ELEMS = 2 ** 26      # paper: batch = 2^26 / n problems per call
+TOTAL_ELEMS = None         # the paper's 2^26 / n problems a call: load_port
 F32_PEAK = 67e12           # H100 SXM f32 outside the tensor cores (FLOP/s)
 FFT_DEEP = (2 ** 23, 8)    # the FFT size driven at both four-step depths
 FFT_TRIPS = (1024, 2 ** 20)  # ifft(fft(x)): one fused, one four-step
@@ -172,6 +187,15 @@ FFT_TRIPS = (1024, 2 ** 20)  # ifft(fft(x)): one fused, one four-step
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def load_port():
+    """Put the checkout's ``src`` on the path and read the paper's problem
+    size from the port's ``configs/paper_ops.py`` (no torch import, so the
+    cuSPARSE child can call it after loading its libraries)."""
+    global TOTAL_ELEMS
+    sys.path.insert(0, SRC)
+    from repro_torch.configs.paper_ops import TOTAL_ELEMS
 
 
 def max_err(got, ref) -> float:
@@ -630,21 +654,9 @@ def phase_loop(dev):
     from repro_torch.core.objective import WallClockObjective
     from repro_torch.evaluation import check_report, compare_methods, format_report
     from repro_torch.launch.tune import (ATTN_HEADS, SSD_HEADS,
-                                         make_attention_runner,
-                                         make_fft_runner, make_matmul_runner,
-                                         make_scan_runner, make_ssd_runner,
-                                         make_tridiag_runner)
+                                         make_suite_runner)
 
-    runners = {"scan": make_scan_runner(dev, seed=2),
-               "tridiag": make_tridiag_runner(dev, seed=2),
-               "fft": make_fft_runner(dev, seed=2),
-               "ssd": make_ssd_runner(dev, seed=2),
-               "attention": make_attention_runner(dev, seed=2),
-               "matmul": make_matmul_runner(dev, seed=2)}
-
-    def runner(wl, cfg):
-        return runners[wl.op](wl, cfg)
-
+    runner = make_suite_runner(dev, seed=2)
     made = []
 
     def factory():
@@ -699,6 +711,131 @@ def phase_loop(dev):
         {op: {name: agg["phi"] for name, agg in per.items()}
          for op, per in report["per_op"].items()}))
     return report, counts
+
+
+ML_SEED = 3                 # the [ml] sweeps' inputs
+ML_METHODS = ("exhaustive", "analytical", "ml", "bayesian", "random")
+# a kernel of each family the card suite sweeps
+ML_KERNELS = ("scan_add", "scan_linrec", "pcr", "fft_stockham", "ssd_intra",
+              "flash_attention", "matmul")
+ML_BAD_RUNGS = ("ml-fallback:no-model", "ml-fallback:no-forest")
+
+
+def phase_ml(dev):
+    """The paper's ML-based methodology on measured times: every config of
+    the card suite's train and holdout sizes timed once
+    (``WallClockObjective``, reps 3, warmup 1) into journals under
+    ``artifacts/ml_card`` (gitignored); one forest per op family (48
+    trees, depth 12, seed 0) trained from the train journals and saved
+    there; the held-out sizes scored by
+    ``evaluate_model`` and by ``compare_methods`` against exhaustive /
+    analytical / bayesian / random on the same times.  Fails on Phi > 1,
+    a runner failure, a ``no-model`` or ``no-forest`` rung, a family whose
+    kernels the sweeps did not launch, or a config measured twice."""
+    import shutil
+
+    import torch
+    from repro_torch.core.objective import CachedObjective, WallClockObjective
+    from repro_torch.core.space import build_space
+    from repro_torch.evaluation import (check_report, compare_methods,
+                                        format_report)
+    from repro_torch.launch.tune import (card_workloads, make_suite_runner,
+                                         sweep_into)
+    from repro_torch.tuning.ml import (dataset_from_journal_dir,
+                                       evaluate_model, train_bundle)
+    from repro_torch.tuning.ml.dataset import POOLED_OPS
+
+    root = os.path.join(ROOT, "artifacts", "ml_card")
+    shutil.rmtree(root, ignore_errors=True)
+    train_dir = os.path.join(root, "train")
+    hold_dir = os.path.join(root, "holdout")
+    train, hold = card_workloads("train"), card_workloads("holdout")
+    sizes = {split: sum(len(build_space(w).enumerate_valid()) for w in wls)
+             for split, wls in (("train", train), ("holdout", hold))}
+    inner = WallClockObjective(make_suite_runner(dev, seed=ML_SEED), reps=3,
+                               warmup=1, device="cuda")
+    measured = CachedObjective(inner)
+    t0 = time.perf_counter()
+    reset_counts()
+    sweep_into(measured, train, train_dir)
+    t_train = time.perf_counter() - t0
+    sweep_into(measured, hold, hold_dir)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    t_sweeps = time.perf_counter() - t0
+    swept = measured.evaluations
+    log(f"[ml] card suite: {len(train)} train workloads ({sizes['train']} "
+        f"configs), {len(hold)} holdout ({sizes['holdout']}); swept once in "
+        f"{t_sweeps:.1f} s (train {t_train:.1f} s); {swept} measurements; "
+        f"launches {counts}")
+
+    t0 = time.perf_counter()
+    ds = dataset_from_journal_dir(train_dir, objective=inner)
+    bundle = train_bundle(ds.by_op(), n_trees=48, max_depth=12, seed=0,
+                          meta={"aliases": POOLED_OPS})
+    path = bundle.save(os.path.join(root, "ml_model_torch.npz"))
+    os.environ["REPRO_TORCH_ML_MODEL"] = path
+    t_fit = time.perf_counter() - t0
+    log(f"[ml] trained on {len(ds)} rows of {len(ds.keys)} train journals "
+        f"in {t_fit:.1f} s: rows {bundle.meta['train_rows']}; {path}")
+
+    t0 = time.perf_counter()
+    ev = evaluate_model(bundle, hold, objective=measured)
+    report = compare_methods(hold, ML_METHODS, objective_factory=lambda:
+                             measured, seed=0, max_evals=20,
+                             journal_dir=hold_dir)
+    t_score = time.perf_counter() - t0
+    for op, r in sorted(ev["per_op"].items()):
+        rows = [w for w in ev["workloads"] if w["op"] == op]
+        rungs = {}
+        for w in rows:
+            rungs[w["rung"]] = rungs.get(w["rung"], 0) + 1
+        corr = [w["rank_corr"] for w in rows if w["rank_corr"] is not None]
+        log(f"[ml] eval {op}: top1 {r['top1_rate']:.3f}, mean slowdown "
+            f"{r['mean_slowdown']:.4f}, max {r['max_slowdown']:.4f}, rank "
+            f"corr {sum(corr) / len(corr) if corr else float('nan'):.3f}, "
+            f"rungs {rungs} (n={r['n']})")
+    log(f"[ml] eval overall: top1 {ev['top1_rate']:.3f}, mean slowdown "
+        f"{ev['mean_slowdown']:.4f}, max {ev['max_slowdown']:.4f}, ml_rate "
+        f"{ev['ml_rate']:.3f}, rank corr {ev['mean_rank_corr']:.3f}, rungs "
+        f"{ev['rungs']}")
+    for w in ev["workloads"]:
+        log(f"[ml] {w['workload']}: {w['candidates']} configs, rung "
+            f"{w['rung']}, slowdown {w['slowdown']:.4f}, chosen "
+            f"{w['chosen_config']}, best {w['best_config']}")
+    for line in format_report(report).splitlines():
+        log(f"[ml] {line}")
+    for row in report["workloads"]:
+        picks = {m: [row["methods"][m]["config"],
+                     row["methods"][m]["time_s"] * 1e3]
+                 for m in row["methods"]}
+        log(f"[ml] compare {row['workload']}: optimum "
+            f"{row['best_time_s'] * 1e3:.4f} ms; ml's rung "
+            f"{row['methods']['ml']['stopped_by']}; config, ms by method "
+            f"{json.dumps(picks, sort_keys=True)}")
+    log("[ml] phi " + json.dumps(
+        {op: {name: agg["phi"] for name, agg in per.items()}
+         for op, per in report["per_op"].items()}
+        | {"overall": {name: agg["phi"]
+                       for name, agg in report["overall"].items()}}))
+    log(f"[ml] runner failures: {inner.failures}; {t_sweeps + t_fit + t_score:.1f} "
+        f"s (sweeps {t_sweeps:.1f}, training {t_fit:.1f}, scoring "
+        f"{t_score:.1f})")
+
+    problems = check_report(report)
+    bad = [f"{w['workload']}: {w['rung']}" for w in ev["workloads"]
+           if w["rung"].startswith(ML_BAD_RUNGS)]
+    bad += [f"compare {row['workload']}: {row['methods']['ml']['stopped_by']}"
+            for row in report["workloads"]
+            if row["methods"]["ml"]["stopped_by"].startswith(ML_BAD_RUNGS)]
+    if problems or inner.failures or bad:
+        raise AssertionError(f"[ml]: {problems}, runner failures "
+                             f"{inner.failures}, rungs {bad}")
+    if measured.evaluations != swept:
+        raise AssertionError(f"[ml]: {measured.evaluations - swept} configs "
+                             f"measured a second time")
+    require_launched(counts, ML_KERNELS, "the [ml] sweeps")
+    return counts
 
 
 def phase_numbers(dev, inputs, runs, counts, bandwidth: float):
@@ -3250,6 +3387,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.cusparse:
         lib, path = cusparse_library()     # before torch: see its note
+        load_port()
         cusparse_probe(lib, path, json.loads(args.cusparse))
         return 0
 
@@ -3257,7 +3395,7 @@ def main(argv=None) -> int:
         print(f"chip_smoke: no src/repro_torch beside {__file__}: run it "
               f"from a checkout of the repository", file=sys.stderr)
         return 2
-    sys.path.insert(0, SRC)
+    load_port()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs the card",
@@ -3372,6 +3510,10 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         _, loop_counts = phase_loop(dev)
         log(f"[loop] {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        ml_counts = phase_ml(dev)
+        log(f"[ml] {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
         # the SSD kernels' launches in the tuning loop, apart from the
         # main paths', by route
         for entry in entries:
@@ -3383,6 +3525,14 @@ def main(argv=None) -> int:
         entries += phase_attention_matmul_numbers(
             dev, dense_counts, mm, loop_counts, kernel_errs, bandwidth)
         log(f"[numbers] {time.perf_counter() - t0:.1f} s")
+        # every kernel's launches in the [ml] sweeps, apart from the main
+        # paths', by route where it has routes
+        for entry in entries:
+            name = entry["name"]
+            entry["launches_ml"] = ml_counts[name]
+            if name in ROUTES:
+                entry["launches_ml_by_route"] = {
+                    r: ml_counts[f"{name}.{r}"] for r in ROUTES[name]}
         log(json.dumps({"kernels": entries}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all (build "
         f"{build_s:.1f} s)")

@@ -6,8 +6,8 @@ One object owns everything the paper's deployment story needs:
   * the platform spec (resolve/tune minimize time: the latency policy;
     the JAX package's energy / edp / memory_cap policies are still to be
     ported),
-  * the search strategies (bayesian / exhaustive / random / analytical;
-    the JAX package's ml / online / transfer strategies are still to be
+  * the search strategies (bayesian / exhaustive / random / analytical /
+    ml; the JAX package's online / transfer strategies are still to be
     ported),
   * an in-memory LRU of fully resolved (normalized) configs, so the online
     hot path does not re-run the analytical model or re-fit dicts on every
@@ -75,11 +75,23 @@ def _analytical(space, objective, *, seed: int = 0, max_evals: int = 0,
     return TuneResult(cfg, m.time_s, 0, [(cfg, m.time_s)], "analytical")
 
 
+def _ml(space, objective, *, seed: int = 0, max_evals: int = 0,
+        journal_dir=None) -> TuneResult:
+    # lazy import: the forest/feature stack only loads when strategy="ml" is
+    # actually used. Resolution ladder: ml -> analytical -> default (see
+    # repro_torch.tuning.ml.strategy — the fallback is inside MLStrategy, so
+    # this always returns a config even with no model artifact on disk).
+    from repro_torch.tuning.ml.strategy import default_strategy
+    return default_strategy().tune(space, objective, seed=seed,
+                                   max_evals=max_evals)
+
+
 _STRATEGIES: Dict[str, Strategy] = {
     "bayesian": _bayesian,
     "exhaustive": _exhaustive,
     "random": _random,
     "analytical": _analytical,
+    "ml": _ml,
 }
 
 

@@ -90,7 +90,7 @@ def test_cli_compare_methods_on_cpu(tmp_path, capsys):
     report = json.loads(out.read_text())
     assert report["runner_failures"] == 0
     assert report["device"]["type"] == "cpu"
-    assert set(report["overall"]) == set(METHODS)
+    assert set(report["overall"]) == set(METHODS) | {"ml"}
     assert "runner failures: 0" in capsys.readouterr().out
 
 
@@ -135,7 +135,7 @@ def test_cli_compare_methods_fft_on_cpu(tmp_path, capsys):
     assert report["runner_failures"] == 0
     assert [row["workload"] for row in report["workloads"]] == [
         "fft:stockham:n64:b4:float32", "fft:stockham:n128:b4:float32"]
-    assert set(report["overall"]) == set(METHODS)
+    assert set(report["overall"]) == set(METHODS) | {"ml"}
     assert "runner failures: 0" in capsys.readouterr().out
 
 
@@ -199,7 +199,7 @@ def test_cli_compare_methods_ssd_rglru_on_cpu(tmp_path, capsys, monkeypatch,
     report = json.loads(out.read_text())
     assert report["runner_failures"] == 0
     assert [row["workload"] for row in report["workloads"]] == keys
-    assert set(report["overall"]) == set(METHODS)
+    assert set(report["overall"]) == set(METHODS) | {"ml"}
     assert "runner failures: 0" in capsys.readouterr().out
 
 

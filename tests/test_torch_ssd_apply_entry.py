@@ -31,6 +31,19 @@ PANEL = 128              # t rows of a block (csrc/ssd.cu kEntryRows)
 WARP_ROWS = 16           # t rows of a consumer warp (csrc/ssd.cu kWarpRows)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The replays are thousands of small torch ops.  Beside other busy
+    test processes, torch's pool of threads makes each of them wait (one
+    replay took 42.6 s with 8 threads and 1.2 s with one, next to five
+    processes multiplying matrices on an 8-core host), so this module runs
+    on one thread, as each op here fits one."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(tag, BH, G, L, P, S, chunk, dtype, strong):
     """y, a, c in ``dtype`` and the entry states (f32), from numpy."""
     rng = _rng(f"applyentry{tag}{BH}{G}{L}{P}{S}{chunk}{strong}")

@@ -52,6 +52,19 @@ PANEL, S_TILE, WARP_ROWS, WARPS = 128, 64, 16, 8
 APPLY_ROWS, SLICE = 128, 32
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The replays are thousands of small torch ops.  Beside other busy
+    test processes, torch's pool of threads makes each of them wait (one
+    replay took 42.6 s with 8 threads and 1.2 s with one, next to five
+    processes multiplying matrices on an 8-core host), so this module runs
+    on one thread, as each op here fits one."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # ---------------------------------------------------------------------------
 # Routes
 # ---------------------------------------------------------------------------
