@@ -107,12 +107,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
    mamba2-130m ``Model.forward`` on 8 x 2048 tokens, every ``ssd_intra``
    launch on the tiled kernel, its time split into those launches and
    the rest;
-11. the multipass ``prefix_sum`` and ``linear_recurrence`` at 2^22 x 16
+11. the model families (``[models]``): every other arch of the registry
+   through the port's ``Model`` at full width in bf16, random weights at
+   the JAX init's scales, ``use_pallas`` on, one after another (each freed
+   before the next): gemma-2b, minitron-4b and granite-34b (its first 44
+   of 88 layers) on 2 x 2048 tokens, recurrentgemma-9b on 1 x 4096 (its
+   2048 window binds), qwen2-moe-a2.7b on 2 x 2048, qwen3-moe-30b-a3b on
+   1 x 2048, llama-3.2-vision-90b (5 of 20 groups) on 1 x 2048 over a
+   1 x 1601 patch memory and whisper-large-v3 encoding 2 x 1500 frames
+   and decoding 2 x 448 tokens.  Per arch: the flash launches equal its
+   attention layers (encoder and cross-attention included), all on the
+   tensor cores, and recurrentgemma's linrec launch list equals its rec
+   layers times the plan's, all on the warp kernel; the logits against
+   the plain-op path (DENSE_LOGITS_TOL; the moe archs with the flash
+   path's expert choices replayed, and the tokens whose own choice
+   differed counted); 8 teacher-forced decode steps against the forward
+   (DECODE_TOL) after a 63-token prefill, or a 2112-token one that wraps
+   recurrentgemma's ring buffer, or from position 0 with the memory (vlm,
+   audio), the moe archs' only timed (a forward and a decode drop
+   different pairs at capacity factor 1.25; the aux and the dropped share
+   printed); the forward's time split into flash, linrec and the rest,
+   the f32 unembedding's time, peak memory; one RecurrentBlock at full
+   width in f32 and bf16 against its arithmetic in float64; a
+   ``torch.profiler`` trace of the recurrentgemma forward; kernel 11 at
+   the new shapes (Lk = 1601 at block_k 1, L = 1500 at blocks of 4, 448,
+   the 2048 window, head dim 256) against its plain version and timed
+   beside ``scaled_dot_product_attention``;
+12. the multipass ``prefix_sum`` and ``linear_recurrence`` at 2^22 x 16
    forced to tile_n 128, rows 2, whose carry-scan tile (2, 32768) is
    walked in staged pieces, against float64, launch lists equal to the
    plans'; ``matmul`` at (8192, 1024) @ (1024, 2816) bf16 against
    float64;
-12. the paper's loop on the card — ``compare_methods`` for scan ks at
+13. the paper's loop on the card — ``compare_methods`` for scan ks at
    n = 1024 and 4096, tridiag pcr at n = 256 and 1024, fft stockham at
    n = 1024 and 4096, ssd chunked at n = 1024 (8 x 24 rows), attention
    flash at n = 2048 (64 rows of head dim 64, bf16) and matmul tiled at
@@ -120,7 +146,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (``WallClockObjective``): exhaustive / analytical / bayesian / random,
    the Phi table, the sweep sizes and the runner failures, which must be
    0;
-13. the paper's ML-based methodology on the card (``[ml]``): every config of
+14. the paper's ML-based methodology on the card (``[ml]``): every config of
    ``launch.tune.card_workloads`` (the ``repro_torch.tuning.ml`` ``SUITE``'s
    train and holdout sizes: 2^26 / n problems for scan, tridiag, fft,
    large_fft and rglru, ssd at 8 x 24 rows, attention and matmul in bf16;
@@ -134,11 +160,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    rung, a config measured twice, or a family (scan_add, scan_linrec, pcr,
    fft_stockham, ssd_intra, flash_attention, matmul) its sweeps did not
    launch; the held-out accuracy has no floor;
-14. the ``kernels`` line: per kernel (all twelve) its launches on the main
+15. the ``kernels`` line: per kernel (all twelve) its launches on the main
    paths (by route for ``scan_add``, ``scan_linrec``, ``scan_linrec_prod``,
    ``pcr``, ``fft_stockham`` and the three SSD kernels, with the earlier
    kernel's time beside theirs; by path for the kernels that run on
-   several; kernels 8–10 also by chunk length and with the tuning loop's
+   several, kernels 2, 3, 5 and 11 also by model arch; kernels 8–10 also
+   by chunk length and with the tuning loop's
    launches by route; every kernel with its launches in the ``[ml]``
    sweeps, ``launches_ml``), its error
    against the plain version, its time, the plain version's and the
@@ -3015,31 +3042,37 @@ def phase_dense_numbers(dev, run):
 
 
 def phase_trace(dev, run):
-    """One qwen forward under torch.profiler (CPU + CUDA) after a warm-up:
-    the five kernels with the most device time, by name, and the device's
-    idle share over the forward (1 - the union of kernel intervals over
-    the time from the first kernel's start to the last one's end).  Where
-    the profiler records no device time, say so: the CUDA-event split of
-    phase_dense_numbers stands alone then."""
+    """One qwen forward under torch.profiler (see ``trace_call``)."""
+    import torch
+    model, tokens = run["model"], run["tokens"]
+    with torch.inference_mode():
+        return trace_call(lambda: model(tokens), "qwen forward")
+
+
+def trace_call(fn, what: str):
+    """One call of ``fn`` under torch.profiler (CPU + CUDA) after a
+    warm-up: the five kernels with the most device time, by name, and the
+    device's idle share over the call (1 - the union of kernel intervals
+    over the time from the first kernel's start to the last one's end).
+    Where the profiler records no device time, say so: the CUDA-event
+    splits stand alone then."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    model, tokens = run["model"], run["tokens"]
-    with torch.inference_mode():
-        model(tokens)
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            model(tokens)
-            torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events()
                if str(getattr(e, "device_type", "")).endswith("CUDA")
                and e.time_range.end > e.time_range.start]
     if not kernels:
-        log("[trace] torch.profiler recorded no device time on this machine; "
-            "the forward's split rests on CUDA events alone")
+        log(f"[trace] {what}: torch.profiler recorded no device time on "
+            f"this machine; the split rests on CUDA events alone")
         return None
     by_name = {}
     for e in kernels:
@@ -3062,7 +3095,7 @@ def phase_trace(dev, run):
            "idle_share": 1.0 - busy / window, "host_wall_ms": wall_ms,
            "top5": [{"name": name[:120], "ms": ms, "share": ms / total}
                     for name, ms in top]}
-    log(f"[trace] qwen forward under torch.profiler: "
+    log(f"[trace] {what} under torch.profiler: "
         f"{json.dumps(out, sort_keys=True)}")
     return out
 
@@ -3128,6 +3161,481 @@ def phase_mamba_model(dev, bandwidth: float):
     del model, x, a, b, c
     torch.cuda.empty_cache()
     return counts, out
+
+
+# ---------------------------------------------------------------------------
+# The model families (phase 11): every other arch of the registry
+# ---------------------------------------------------------------------------
+
+# arch: (batch, tokens, layers kept or None).  granite-34b is 93.9 GB and
+# llama-3.2-vision-90b 179 GB of bf16 weights: the first 44 layers (47 GB)
+# and 5 groups of 5 (46 GB) fit the 80 GB card with their activations.
+# recurrentgemma runs 4096 tokens so that its 2048 window binds; whisper
+# runs its encoder over 2 x 1500 frames and its decoder over 2 x 448
+# tokens (its context).
+MODEL_RUNS = {"gemma-2b": (2, 2048, None), "minitron-4b": (2, 2048, None),
+              "granite-34b": (2, 2048, 44),
+              "recurrentgemma-9b": (1, 4096, None),
+              "qwen2-moe-a2.7b": (2, 2048, None),
+              "qwen3-moe-30b-a3b": (1, 2048, None),
+              "llama-3.2-vision-90b": (1, 2048, 25),
+              "whisper-large-v3": (2, 448, None)}
+RG_PREFILL = 2112           # past recurrentgemma's 2048-slot ring buffer
+REC_BLOCK_SHAPE = (1, 4096)  # RecurrentBlock vs float64, at the forward's shape
+MODEL_SEED = 31
+
+
+class RouteLog:
+    """Wraps ``repro_torch.models.moe.route`` while installed: records each
+    call's expert choices and queue positions, or replays a recorded run's
+    choices (the expert indices and positions; the weights from this run's
+    own probabilities at those indices), so that the plain-op path is held
+    to the flash path on the same experts and the comparison sees the
+    attention cores alone.  Counts the (token, choice) pairs that
+    capacity drops and, in a replay, the tokens whose own top-k differs
+    from the replayed one."""
+
+    def __init__(self, replay=None):
+        self.replay = replay
+        self.calls = []
+        self.pairs = self.dropped = self.flipped = self.tokens = 0
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.original = moe.route
+        moe.route = self
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self.original
+
+    def __call__(self, p, x, cfg):
+        import torch
+        from repro_torch.models.moe import capacity
+        s, gate_w, idx, probs, pos = self.original(p, x, cfg)
+        if self.replay is not None:
+            want_idx, want_pos = self.replay.calls[len(self.calls)]
+            same = torch.sort(idx, -1).values == torch.sort(want_idx,
+                                                             -1).values
+            self.flipped += int((~same.all(-1)).sum())
+            self.tokens += idx.shape[0] * idx.shape[1]
+            gate_w = torch.gather(probs, -1, want_idx)
+            gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True),
+                                          min=1e-9)
+            idx, pos = want_idx, want_pos
+        self.calls.append((idx, pos))
+        self.pairs += pos.numel()
+        self.dropped += int((pos >= capacity(cfg, s)).sum())
+        return s, gate_w, idx, probs, pos
+
+
+def rec_layers(model) -> int:
+    """The RG-LRU layers of the built model (0 outside the hybrid family)."""
+    from repro_torch.models.recurrent import RecurrentBlock
+    return sum(isinstance(m, RecurrentBlock) for m in model.modules())
+
+
+def attention_calls(model, batch, length):
+    """The flash calls of one forward (an audio arch's encode included),
+    read off the built model: each decoder ``StdBlock``'s self-attention
+    over the tokens and cross-attention over the memory, each encoder
+    block's over the frames, as (label, BH, Lq, Lk, head_dim, causal,
+    window, launches)."""
+    from repro_torch.models.model import StdBlock
+    cfg = model.cfg
+    bh, hd = batch * cfg.n_heads, cfg.head_dim
+    dec = [m for m in model.blocks.modules() if isinstance(m, StdBlock)]
+    n_cross = sum(hasattr(m, "xattn") for m in dec)
+    n_enc = len(getattr(model, "enc_blocks", ()))
+    calls = [("self", bh, length, length, hd, True, cfg.attn_window,
+              len(dec))]
+    if n_cross:
+        calls.append(("cross", bh, length, cfg.vision_len, hd, False, None,
+                      n_cross))
+    if n_enc:
+        calls.append(("encoder", bh, cfg.enc_len, cfg.enc_len, hd, True,
+                      None, n_enc))
+    return calls
+
+
+def rec_block_f64(block, x, lru_f64):
+    """The RG-LRU block's arithmetic written out in float64 on the block's
+    own weights: projections, the tanh gelu, the causal conv, the f32
+    gates' formulas, and the recurrence one step after another by
+    ``lru_f64`` (``linrec_f64_sequential``)."""
+    import torch
+    w = {name: p.detach().double() for name, p in block.named_parameters()}
+    x = x.double()
+    bsz, L, _ = x.shape
+    u = x @ w["wx.w"]
+    g = x @ w["wy.w"]
+    gate = g * (0.5 * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi)
+                                        * (g + 0.044715 * g ** 3))))
+    K = w["conv_w"].shape[0]
+    ctx = torch.nn.functional.pad(u, (0, 0, K - 1, 0))
+    u = sum(ctx[:, i:i + L] * w["conv_w"][i] for i in range(K))
+    r = torch.sigmoid(u @ w["wa.w"])
+    i_gate = torch.sigmoid(u @ w["wi.w"])
+    log_a = -8.0 * torch.nn.functional.softplus(w["lambda"]) * r
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp(-torch.expm1(2.0 * log_a), min=1e-12)) \
+        * i_gate * u
+    W = a.shape[-1]
+    h = lru_f64(a.transpose(1, 2).reshape(bsz * W, L),
+                b.transpose(1, 2).reshape(bsz * W, L))
+    h = h.to(x.device).reshape(bsz, W, L).transpose(1, 2)
+    return (h * gate) @ w["wo.w"]
+
+
+def phase_rec_block(dev, cfg):
+    """One RecurrentBlock at recurrentgemma-9b's width (d_model 4096,
+    lru_width 4096) on bf16 weights drawn at the JAX init's scales, in f32
+    and bf16 compute, against its arithmetic in float64 (the recurrence by
+    ``linrec_f64_sequential``) at the tests' DTYPE_TOL; on a CUDA tensor
+    the block's recurrence is the tuned linear_recurrence (the linrec
+    kernels)."""
+    import torch
+    from repro_torch.models.recurrent import RecurrentBlock
+
+    gen = torch.Generator(device=dev).manual_seed(MODEL_SEED + 1)
+    block = RecurrentBlock(cfg, torch.bfloat16, device=dev)
+    block.reset(gen)
+    B, L = REC_BLOCK_SHAPE
+    x = torch.randn(B, L, cfg.d_model, generator=gen, device=dev).to(
+        torch.bfloat16)
+    t0 = time.perf_counter()
+    want = rec_block_f64(block, x, linrec_f64_sequential)
+    f64_s = time.perf_counter() - t0
+    errs = {}
+    with torch.inference_mode():
+        for dtype, name in ((torch.float32, "float32"),
+                            (torch.bfloat16, "bfloat16")):
+            got, _ = block(x.to(dtype), cfg, compute_dtype=dtype)
+            errs[name] = check_close(got, want, name,
+                                     f"RecurrentBlock {name} compute vs "
+                                     f"float64")
+    log(f"[models] RecurrentBlock ({B}, {L}, {cfg.d_model}) vs float64 "
+        f"(the recurrence in {f64_s:.1f} s on the host): max abs err "
+        f"{json.dumps(errs)}")
+    return errs
+
+
+def flash_at_shape(dev, timed, call, batch):
+    """Kernel 11 at one attention shape of a model's forward, once per
+    distinct shape (``timed`` keeps each result under its shape's key):
+    held against its plain version on a few rows, its route read from the
+    launch counters, then timed in turns beside
+    ``scaled_dot_product_attention`` on the same tensors, with the
+    session's blocks.  Returns (key, result)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.space import Workload
+    from repro_torch.kernels.attention.kernel import (flash_attention,
+                                                      flash_attention_plain)
+    from repro_torch.tuning import default_session
+
+    _, BH, lq, lk, hd, causal, window, _ = call
+    key = f"({BH}, {lq}, {lk}, {hd}) " + ("causal" if causal else "full") \
+        + (f" window {window}" if window else "")
+    if key in timed:
+        return key, timed[key]
+    gen = torch.Generator(device=dev).manual_seed(MODEL_SEED + 2)
+    q = torch.randn(BH, lq, hd, generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(BH, lk, hd, generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    blocks = default_session().resolve(
+        Workload(op="attention", n=lk, batch=BH, variant="flash"),
+        dims={"lq": lq, "lk": lk})
+    rows = slice(0, 4)
+    before = read_counts()
+    got = flash_attention(q[rows], k[rows], v[rows], causal=causal,
+                          window=window, **blocks)
+    after = read_counts()
+    route = [r for r in ROUTES["flash_attention"]
+             if after[f"flash_attention.{r}"] > before[f"flash_attention.{r}"]]
+    want = flash_attention_plain(q[rows], k[rows], v[rows], causal=causal,
+                                 window=window, **blocks)
+    err = check_flash(got, want, "bfloat16", f"flash_attention {key} "
+                      f"{blocks}")
+    heads = [t.view(batch, BH // batch, t.shape[1], hd) for t in (q, k, v)]
+    mask = None
+    if window is not None:
+        qpos = torch.arange(lq, device=dev)[:, None] + (lk - lq)
+        kpos = torch.arange(lk, device=dev)[None, :]
+        mask = (kpos <= qpos) & (kpos > qpos - window)
+    sdpa_causal = causal and mask is None
+    with torch.inference_mode():
+        turns = time_turns({
+            "flash": (lambda: flash_attention(
+                q, k, v, causal=causal, window=window, **blocks), 5),
+            "sdpa": (lambda: F.scaled_dot_product_attention(
+                *heads, attn_mask=mask, is_causal=sdpa_causal), 5)})
+    med = {name: sorted(ts)[len(ts) // 2] for name, ts in turns.items()}
+    timed[key] = {"shape": [BH, lq, lk, hd], "causal": causal,
+                  "window": window, "config": blocks,
+                  "route": ",".join(route),
+                  "max_abs_err_vs_plain": err, "ms": med["flash"],
+                  "sdpa_ms": med["sdpa"], "turns_ms": turns, "calls": []}
+    return key, timed[key]
+
+
+def model_forward_split(dev, model, tokens, forward_ms, timed, arch):
+    """The forward's time split into its flash launches (kernel 11 at each
+    attention shape, ``flash_at_shape``, times its launches), its linear
+    recurrences (the tuned entry point at the RG-LRU's rows, held against
+    float64 on the inputs it is timed on, times the rec layers) and the
+    rest; the f32 unembedding timed alone."""
+    import torch
+    from repro_torch.kernels.scan.ops import linear_recurrence
+    from repro_torch.models import layers as L
+
+    cfg = model.cfg
+    B, T = tokens.shape
+    gen = torch.Generator(device=dev).manual_seed(MODEL_SEED + 3)
+    flash_ms, shapes = 0.0, {}
+    for call in attention_calls(model, B, T):
+        key, res = flash_at_shape(dev, timed, call, B)
+        res["calls"].append(f"{arch} {call[0]}")
+        flash_ms += res["ms"] * call[-1]
+        shapes[call[0]] = {"shape": key, "launches": call[-1],
+                           "ms_per_launch": res["ms"]}
+    out = {}
+    linrec_ms, n_rec = 0.0, rec_layers(model)
+    if n_rec:
+        W = cfg.lru_width or cfg.d_model
+        a = torch.rand(B * W, T, generator=gen, device=dev) * 0.19 + 0.8
+        b = torch.randn(B * W, T, generator=gen, device=dev)
+        with torch.inference_mode():
+            h = linear_recurrence(a, b)
+            linrec_ms = time_ms(lambda: linear_recurrence(a, b), 5) * n_rec
+        out["linrec_max_abs_err_vs_float64"] = check_close(
+            h.cpu(), linrec_f64_sequential(a, b), "float32",
+            f"linear_recurrence {tuple(a.shape)} (the {arch} forward's "
+            f"shape) vs float64")
+        del a, b, h
+    x = torch.randn(B, T, cfg.d_model, generator=gen, device=dev).to(
+        torch.bfloat16)
+    with torch.inference_mode():
+        unembed_ms = time_ms(lambda: L.unembed(model.embed, x), 3)
+    del x
+    out.update({"forward_ms": forward_ms, "flash_ms": flash_ms,
+                "flash_share": flash_ms / forward_ms,
+                "flash_by_shape": shapes, "linrec_ms": linrec_ms,
+                "linrec_launches_timed": n_rec,
+                "linrec_share": linrec_ms / forward_ms,
+                "rest_ms": forward_ms - flash_ms - linrec_ms,
+                "unembed_ms": unembed_ms,
+                "unembed_share": unembed_ms / forward_ms,
+                "tokens": B * T, "tokens_per_s": B * T / (forward_ms / 1e3)})
+    return out
+
+
+def phase_model_arch(dev, arch, trace: bool, timed):
+    """One arch at full width in bf16 with ``use_pallas`` on, weights from
+    a seeded generator at the JAX init's scales: the forward (an audio
+    arch's encode first) with its launches counted; its logits against
+    the same weights on the plain-op path (max |diff| / max |logits| <
+    DENSE_LOGITS_TOL; moe archs with the flash path's expert choices
+    replayed); decode steps against the forward (DECODE_TOL), after a
+    prefill (dense, hybrid) or from an empty cache with the memory (vlm,
+    audio; the JAX model's prefill steps without memory) — moe archs only
+    timed, since a forward and a decode drop different pairs at capacity
+    factor 1.25; the forward's time split; for the hybrid arch, one
+    RecurrentBlock against float64 and a profiler trace."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.space import Workload
+    from repro_torch.kernels.blocks.driver import capture_launches
+    from repro_torch.kernels.blocks.plan import plan_for
+    from repro_torch.models.model import Model
+    from repro_torch.tuning import default_session
+
+    B, T, layers = MODEL_RUNS[arch]
+    full = get_arch(arch)
+    cfg = dataclasses.replace(full, use_pallas=True,
+                              n_layers=layers or full.n_layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(MODEL_SEED)
+    t0 = time.perf_counter()
+    model = Model.init(cfg, gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (B, T), generator=gen, device=dev)
+    frames = memory = None
+    if cfg.family == "audio":
+        frames = torch.randn(B, cfg.enc_len, cfg.d_model, generator=gen,
+                             device=dev).to(torch.bfloat16)
+    if cfg.family == "vlm":
+        memory = torch.randn(B, cfg.vision_len, cfg.d_model, generator=gen,
+                             device=dev).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    weights_gb = sum(p.numel() * p.element_size()
+                     for p in model.parameters()) / 1e9
+    out = {"arch": arch, "family": cfg.family, "batch": B, "tokens": T,
+           "layers": cfg.n_layers, "layers_published": full.n_layers,
+           "parameters": n_params, "weights_gb": weights_gb,
+           "init_s": time.perf_counter() - t0}
+    moe = cfg.family == "moe"
+
+    def forward():
+        mem = model.encode(frames) if frames is not None else memory
+        return model(tokens, memory=mem)
+
+    reset_counts()
+    route_log = RouteLog()
+    with torch.inference_mode(), capture_launches() as launched:
+        if moe:
+            with route_log:
+                logits, aux = forward()
+        else:
+            logits, aux = forward()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    out["counts"] = counts
+    calls = attention_calls(model, B, T)
+    n_flash = sum(c[-1] for c in calls)
+    if counts["flash_attention"] != n_flash \
+            or counts["flash_attention.wgmma"] != n_flash:
+        raise AssertionError(f"{arch}: flash_attention launched "
+                             f"{counts['flash_attention']} times, "
+                             f"{counts['flash_attention.wgmma']} on the "
+                             f"tensor cores, not once per attention layer "
+                             f"({n_flash}) there")
+    if cfg.family == "hybrid":
+        W = cfg.lru_width or cfg.d_model
+        wl = Workload(op="scan", n=T, batch=B * W, variant="linrec")
+        plan = plan_for(wl, default_session().resolve(wl))
+        n_rec = rec_layers(model)
+        want = list(plan.launches) * n_rec
+        if list(launched) != want:
+            raise AssertionError(f"{arch}: linrec launches {launched} != "
+                                 f"{n_rec} rec layers x {plan.launches}")
+        require_launched(counts, ("scan_linrec", "scan_linrec.warp"),
+                         f"the {arch} forward")
+        require_new_routes(counts, f"the {arch} forward")
+        out["linrec_plan"] = [launch.name for launch in plan.launches]
+    elif launched:
+        raise AssertionError(f"{arch}: unexpected block launches "
+                             f"{launched}")
+    want_shape = (B, T, cfg.vocab)
+    if tuple(logits.shape) != want_shape or logits.dtype != torch.float32 \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch}: logits {tuple(logits.shape)} "
+                             f"{logits.dtype}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    out["aux"] = float(aux)
+    if moe:
+        out["pairs"] = route_log.pairs
+        out["dropped_share"] = route_log.dropped / route_log.pairs
+
+    # the same weights on the plain-op path (moe: the same experts)
+    model.cfg = dataclasses.replace(cfg, use_pallas=False)
+    replay = RouteLog(replay=route_log)
+    with torch.inference_mode():
+        if moe:
+            with replay:
+                ref, _ = forward()
+        else:
+            ref, _ = forward()
+    model.cfg = cfg
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    rel = float((logits - ref).abs().max()) / scale
+    out["logits_rel_vs_plain_path"] = rel
+    out["argmax_agreement"] = float(
+        (logits.argmax(-1) == ref.argmax(-1)).float().mean())
+    if moe:
+        out["plain_path_tokens_choosing_other_experts"] = replay.flipped
+        out["plain_path_router_tokens"] = replay.tokens
+    del ref
+    if not rel < DENSE_LOGITS_TOL:
+        raise AssertionError(f"{arch}: flash-path logits off the plain path "
+                             f"by {rel:.3e} relative")
+
+    # decode: after a prefill (dense, hybrid, moe) or from position 0 with
+    # the memory (vlm, audio), teacher-forced, against the forward
+    mem = model.encode(frames) if frames is not None else memory
+    if cfg.family in ("vlm", "audio"):
+        start, prefill_len = 0, 0
+    else:
+        prefill_len = RG_PREFILL if cfg.family == "hybrid" else PROMPT - 1
+        start = prefill_len
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        cache = model.init_cache(B, start + DECODE_STEPS, device=dev)
+        if prefill_len:
+            steps = tokens[:, :prefill_len].T.contiguous()
+            pos = torch.arange(prefill_len, device=dev)[:, None].expand(
+                prefill_len, B).contiguous()
+            cache = model.prefill(steps, cache, pos, torch.ones(
+                prefill_len, B, dtype=torch.bool, device=dev))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dec = []
+        for t in range(start, start + DECODE_STEPS):
+            lg, cache = model.decode_step(
+                tokens[:, t:t + 1], cache,
+                torch.full((B, 1), t, device=dev), memory=mem)
+            dec.append(lg[:, 0])
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out["prefill_tokens"] = prefill_len
+    out["prefill_s"] = t1 - t0
+    out["decode_ms_per_step"] = (t2 - t1) * 1e3 / DECODE_STEPS
+    got = torch.stack(dec, dim=1)
+    fwd = logits[:, start:start + DECODE_STEPS]
+    out["decode_rel_vs_forward"] = float((got - fwd).abs().max()) \
+        / float(fwd.abs().max())
+    if cfg.family == "hybrid":
+        ring = cache[0][cfg.block_pattern.index("attn")]
+        out["ring_slots"] = int(ring["k"].shape[1])
+        out["ring_positions"] = [int(ring["pos"].min()),
+                                 int(ring["pos"].max())]
+    del cache, dec, got, fwd, logits
+    if not moe and not out["decode_rel_vs_forward"] < DECODE_TOL:
+        raise AssertionError(f"{arch}: decode logits off the forward by "
+                             f"{out['decode_rel_vs_forward']:.3e} relative")
+
+    with torch.inference_mode():
+        forward_ms = time_ms(forward, 2, warmup=1)
+    out.update(model_forward_split(dev, model, tokens, forward_ms, timed,
+                                   arch))
+    out["max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if trace:
+        with torch.inference_mode():
+            out["trace"] = trace_call(forward, f"{arch} forward")
+    if cfg.family == "hybrid":
+        del model, mem
+        torch.cuda.empty_cache()
+        out["rec_block_max_abs_err"] = phase_rec_block(dev, cfg)
+    shown = dict(out, counts={k: v for k, v in counts.items() if v})
+    log(f"[numbers] models {arch}: {json.dumps(shown, sort_keys=True)}")
+    return out
+
+
+def phase_models(dev):
+    """Every arch of the registry beside qwen1.5-0.5b and mamba2-130m (the
+    dense path and the mamba phase run those) through the port's Model at
+    full width, one after another, each freed before the next, with
+    kernel 11 at each distinct attention shape beside SDPA."""
+    import torch
+    log(f"[models] {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+        f"by earlier phases")
+    runs, timed = {}, {}
+    for arch in MODEL_RUNS:
+        t0 = time.perf_counter()
+        runs[arch] = phase_model_arch(dev, arch,
+                                      trace=arch == "recurrentgemma-9b",
+                                      timed=timed)
+        torch.cuda.empty_cache()
+        log(f"[models] {arch}: {time.perf_counter() - t0:.1f} s, peak "
+            f"{runs[arch]['max_memory_gb']:.1f} GB")
+    log(f"[numbers] flash at the models' shapes: "
+        f"{json.dumps(timed, sort_keys=True)}")
+    return runs, timed
 
 
 def phase_long_carry(dev):
@@ -3378,6 +3886,36 @@ def phase_attention_matmul_numbers(dev, dense_counts, mm, loop_counts, errs,
     return [flash, matmul]
 
 
+def add_model_launches(entries, model_runs, model_shapes):
+    """The kernels line's model paths: kernel 11 in every arch's forward
+    (encoder and cross-attention layers included), kernels 2, 3 and 5 in
+    the recurrentgemma-9b forward (0 where its plan is one pass), by arch,
+    added to each kernel's launches and routes."""
+    for entry in entries:
+        name = entry["name"]
+        if name not in ("flash_attention", "scan_linrec", "scan_linrec_prod",
+                        "apply_linrec"):
+            continue
+        per_arch = {arch: run["counts"][name]
+                    for arch, run in model_runs.items()
+                    if run["counts"][name]
+                    or (name != "flash_attention"
+                        and run["family"] == "hybrid")}
+        n = sum(per_arch.values())
+        entry["launches_by_model"] = per_arch
+        entry["launches_by_path"]["models"] = n
+        entry["launches"] += n
+        routes = {r: sum(run["counts"][f"{name}.{r}"]
+                         for run in model_runs.values())
+                  for r in ROUTES.get(name, ())}
+        if name == "flash_attention":
+            entry["launches_by_route"]["models"] = routes
+            entry["model_shapes"] = model_shapes
+        else:
+            for route, k in routes.items():
+                entry["launches_by_route"][route] += k
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -3503,6 +4041,10 @@ def main(argv=None) -> int:
                     entry["launches_by_route"][route] += \
                         mamba_counts[f"ssd_intra.{route}"]
         t0 = time.perf_counter()
+        model_runs, model_shapes = phase_models(dev)
+        log(f"[models] {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
         phase_long_carry(dev)
         log(f"[long] {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
@@ -3525,6 +4067,7 @@ def main(argv=None) -> int:
         entries += phase_attention_matmul_numbers(
             dev, dense_counts, mm, loop_counts, kernel_errs, bandwidth)
         log(f"[numbers] {time.perf_counter() - t0:.1f} s")
+        add_model_launches(entries, model_runs, model_shapes)
         # every kernel's launches in the [ml] sweeps, apart from the main
         # paths', by route where it has routes
         for entry in entries:

@@ -3,8 +3,7 @@
 The PyTorch port's own copy of ``repro.configs.base`` (``ModelConfig``,
 ``register``, ``reduced()``, ``get_arch``), field for field, so a
 configuration and its reduced smoke-test variant are the same in both
-packages.  The port runs two configurations so far (``mamba2_130m``,
-``qwen15_05b``).
+packages.  The registry holds the JAX package's ten configurations.
 """
 from __future__ import annotations
 
@@ -139,5 +138,7 @@ def all_archs() -> Tuple[str, ...]:
 def _load_all() -> None:
     # importing the config modules populates the registry
     import importlib
-    for mod in ("qwen15_05b", "mamba2_130m"):
+    for mod in ("gemma_2b", "minitron_4b", "qwen15_05b", "granite_34b",
+                "whisper_large_v3", "llama32_vision_90b", "qwen2_moe_a27b",
+                "qwen3_moe_30b_a3b", "recurrentgemma_9b", "mamba2_130m"):
         importlib.import_module(f"repro_torch.configs.{mod}")

@@ -1,4 +1,5 @@
-"""Attention blocks: GQA/MQA self-attention (+RoPE, local windows, KV cache).
+"""Attention blocks: GQA/MQA self-attention (+RoPE, local windows, KV cache)
+and cross-attention (enc-dec, VLM).
 
 The PyTorch port of ``repro.models.attention``.  ``Attention`` holds the
 projections under the JAX parameter tree's names (``wq``, ``wk``, ``wv``
@@ -14,9 +15,11 @@ function of the same name:
   * decode (one token with a cache): the full or ring-buffer KV cache,
     masked by true positions.
 
+``cross_attention`` attends from the queries over an encoder's or a
+vision stub's memory, without a mask: the flash kernel (``causal=False``,
+Lq and Lk apart) under ``use_pallas``, ``_attention_4d`` otherwise.
 The JAX package's sharding hints (``_score_constraint``) have no
-counterpart: the port runs on one device.  ``cross_attention`` (audio and
-vlm families) is not ported yet.
+counterpart: the port runs on one device.
 """
 from __future__ import annotations
 
@@ -189,13 +192,41 @@ def self_attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     if cfg.use_pallas:
         # the flash kernel over flattened rows (block sizes from the
         # TuningDB or the analytical model)
-        qf = q.transpose(1, 2).reshape(b * hq, l, hd)
-        kf = k.transpose(1, 2).reshape(b * hq, -1, hd)
-        vf = v.transpose(1, 2).reshape(b * hq, -1, hd)
-        of = attention_op(qf, kf, vf, causal=True, window=window)
-        o = of.reshape(b, hq, l, hd).transpose(1, 2)
+        o = _flash(q, k, v, causal=True, window=window)
     else:
         o = _attention_4d(q, k, v, causal=True, window=window,
                           compute_dtype=cd)
     o = o.reshape(b, l, hq * hd)
     return p.wo(o, cd), None
+
+
+def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool, window: Optional[int] = None) -> torch.Tensor:
+    """The tuned attention op over flattened (B*H, L, hd) rows of (B, L,
+    H, hd) tensors."""
+    b, lq, h, hd = q.shape
+    of = attention_op(*(t.transpose(1, 2).reshape(b * h, -1, hd)
+                        for t in (q, k, v)), causal=causal, window=window)
+    return of.reshape(b, h, lq, hd).transpose(1, 2)
+
+
+def cross_attention(p: Attention, x: torch.Tensor, memory: torch.Tensor,
+                    cfg: ModelConfig,
+                    compute_dtype: torch.dtype = torch.bfloat16
+                    ) -> torch.Tensor:
+    """x: (B, L, D) queries over encoder / vision memory (B, M, D)."""
+    b, l, _ = x.shape
+    hd, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    cd = compute_dtype
+    q = _split_heads(p.wq(x, cd), hq, hd)
+    k = _split_heads(p.wk(memory, cd), hkv, hd)
+    v = _split_heads(p.wv(memory, cd), hkv, hd)
+    n_rep = hq // max(hkv, 1)
+    k = _repeat_kv(k, n_rep)
+    v = _repeat_kv(v, n_rep)
+    if cfg.use_pallas:
+        o = _flash(q, k, v, causal=False)
+    else:
+        o = _attention_4d(q, k, v, causal=False, window=None,
+                          compute_dtype=cd)
+    return p.wo(o.reshape(b, l, hq * hd), cd)

@@ -8,8 +8,10 @@ the tree's ``params["in_proj"]["w"]``.  A whole model's tree stacks its
 layer groups on a leading axis (``blocks.attn.wq.w`` of shape (n_groups,
 d, hq * hd)); ``unstack_groups`` splits it into the port's per-group names
 (``blocks.{i}.attn.wq.w``), and ``load_params`` does so for a module whose
-``blocks`` is a ``ModuleList``.  This is how the tests make both packages
-compute the same block or model.
+``blocks`` (and, for an encoder-decoder, ``enc_blocks``) is a
+``ModuleList``.  A hybrid or vlm group holds a list of blocks, which the
+names number in turn (``blocks.{i}.blocks.{j}.rec.wx.w``).  This is how
+the tests make both packages compute the same block or model.
 """
 from __future__ import annotations
 
@@ -41,6 +43,9 @@ def state_dict_from_params(params: Mapping, prefix: str = ""
             continue
         if isinstance(value, Mapping):
             out.update(state_dict_from_params(value, prefix=key + "."))
+        elif isinstance(value, (list, tuple)):
+            out.update(state_dict_from_params(
+                {str(j): v for j, v in enumerate(value)}, prefix=key + "."))
         else:
             out[key] = _tensor(value)
     return out
@@ -51,6 +56,8 @@ def _take(tree, i: int):
         return None
     if isinstance(tree, Mapping):
         return {name: _take(value, i) for name, value in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_take(value, i) for value in tree]
     return np.asarray(tree)[i]
 
 
@@ -66,10 +73,12 @@ def unstack_groups(params: Mapping, n_groups: int,
 def load_params(module: nn.Module, params: Mapping) -> nn.Module:
     """Load a JAX parameter tree (numpy leaves) into ``module``: every
     parameter must be present with its shape, and nothing else; each is
-    cast to the module's parameter type.  A module whose ``blocks`` is a
-    ``ModuleList`` (a ``Model``) takes the tree with its groups stacked."""
-    if isinstance(getattr(module, "blocks", None), nn.ModuleList):
-        params = unstack_groups(params, len(module.blocks))
+    cast to the module's parameter type.  A module whose ``blocks`` or
+    ``enc_blocks`` is a ``ModuleList`` (a ``Model``) takes the tree with
+    their groups stacked."""
+    for key in ("blocks", "enc_blocks"):
+        if isinstance(getattr(module, key, None), nn.ModuleList):
+            params = unstack_groups(params, len(getattr(module, key)), key)
     state = state_dict_from_params(params)
     own = module.state_dict()
     if sorted(state) != sorted(own):

@@ -20,6 +20,7 @@ import torch
 
 from conftest import _rng, assert_kernel_close
 from repro import tuning as j_tuning
+from repro.configs import base as j_base
 from repro.configs.mamba2_130m import CONFIG as J_MAMBA
 from repro.configs.qwen15_05b import CONFIG as J_QWEN
 from repro.models import attention as j_attn
@@ -78,13 +79,15 @@ def _pair(arch, seed=0, **changes):
     return jm, params, tm
 
 
-@pytest.mark.parametrize("arch", [QWEN, MAMBA])
+@pytest.mark.parametrize("arch", all_archs())
 def test_configs_match_repro(arch):
-    assert dataclasses.asdict(get_arch(arch)) \
-        == dataclasses.asdict(j_get_arch(arch))
+    """Every arch of JAX's registry, field for field, full and reduced."""
+    j_base._load_all()
+    want = j_base._REGISTRY[arch]
+    assert dataclasses.asdict(get_arch(arch)) == dataclasses.asdict(want)
     assert dataclasses.asdict(get_arch(arch).reduced()) \
-        == dataclasses.asdict(j_get_arch(arch).reduced())
-    assert arch in all_archs()
+        == dataclasses.asdict(want.reduced())
+    assert all_archs() == tuple(sorted(j_base._REGISTRY))
 
 
 @pytest.mark.parametrize("use_pallas,L,dtype", [
@@ -277,10 +280,3 @@ def test_model_is_built_on_the_card_unless_asked_for_the_cpu(make):
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make(cfg)
-
-
-@pytest.mark.parametrize("family", ["moe", "hybrid", "vlm", "audio"])
-def test_other_families_are_not_ported_yet(family):
-    cfg = dataclasses.replace(get_arch(QWEN).reduced(), family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg, device="cpu")
