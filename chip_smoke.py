@@ -143,9 +143,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    n = 1024 and 4096, ssd chunked at n = 1024 (8 x 24 rows), attention
    flash at n = 2048 (64 rows of head dim 64, bf16) and matmul tiled at
    n = 2816 (M = 8192, K = 1024, bf16) on measured times
-   (``WallClockObjective``): exhaustive / analytical / bayesian / random,
-   the Phi table, the sweep sizes and the runner failures, which must be
-   0;
+   (``WallClockObjective``): exhaustive / analytical / online / bayesian
+   / random, the Phi table, each method's evaluations, the sweep sizes
+   and the runner failures, which must be 0;
 14. the paper's ML-based methodology on the card (``[ml]``): every config of
    ``launch.tune.card_workloads`` (the ``repro_torch.tuning.ml`` ``SUITE``'s
    train and holdout sizes: 2^26 / n problems for scan, tridiag, fft,
@@ -160,7 +160,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    rung, a config measured twice, or a family (scan_add, scan_linrec, pcr,
    fft_stockham, ssd_intra, flash_attention, matmul) its sweeps did not
    launch; the held-out accuracy has no floor;
-15. the ``kernels`` line: per kernel (all twelve) its launches on the main
+15. serving (``[serve]``): qwen1.5-0.5b at full width and depth (bf16
+   weights at the JAX init's scales, f32 cache) on the JAX serving
+   benchmark's multi-tenant trace (``synthetic_trace(default_tenants(),
+   seed=0)`` over 28 of its 40 ticks: 35 requests) through
+   ``ServeEngine`` (8 lanes, 128 positions, chunk 16, admit threshold 4,
+   after ``warmup()``) and ``ReferenceEngine``: greedy tokens and finish reasons of every request
+   equal (a difference fails with the first request, position and top-2
+   logit margin), ``prefill_calls`` at most ceil((len - 1) / 16) summed,
+   ``host_transfers`` at most the engine's steps; tokens/s of both, peak
+   memory, the twelve kernels' launch counts over the engine's run (the
+   decode path reaches none, as in JAX), ten steady-state decode steps
+   under ``torch.profiler``; the engine again with an ``OnlineTuner``
+   attached in traffic (attention at n = 256, batch 8, budget 24, on a
+   temporary DB) and a ``TraceRecorder``: the same tokens, decode-step
+   median and p90 from its step listener, its trace replayed twice
+   through ``launch.tune.online_replay`` to the same fates;
+   mamba2-130m at full width through the engine on the trace's first 16
+   requests (its vocabulary), each request's tokens equal to a
+   one-request ``ReferenceEngine`` run at the engine's 8 lanes;
+16. the ``kernels`` line: per kernel (all twelve) its launches on the main
    paths (by route for ``scan_add``, ``scan_linrec``, ``scan_linrec_prod``,
    ``pcr``, ``fft_stockham`` and the three SSD kernels, with the earlier
    kernel's time beside theirs; by path for the kernels that run on
@@ -675,6 +694,10 @@ def phase_main_path(dev):
     return inputs, runs, counts
 
 
+# the [loop] phase's methods: ml is scored in [ml], on its own suite
+LOOP_METHODS = ("exhaustive", "analytical", "online", "bayesian", "random")
+
+
 def phase_loop(dev):
     """compare_methods on measured times (the paper's Table II)."""
     from repro_torch.core import Workload
@@ -709,8 +732,7 @@ def phase_loop(dev):
                      dtype="bfloat16", variant="tiled")]
     reset_counts()
     t0 = time.perf_counter()
-    report = compare_methods(wls, ("exhaustive", "analytical", "bayesian",
-                                   "random"), objective_factory=factory,
+    report = compare_methods(wls, LOOP_METHODS, objective_factory=factory,
                              seed=0, max_evals=20)
     seconds = time.perf_counter() - t0
     counts = read_counts()
@@ -737,6 +759,15 @@ def phase_loop(dev):
     log("[loop] phi " + json.dumps(
         {op: {name: agg["phi"] for name, agg in per.items()}
          for op, per in report["per_op"].items()}))
+    log("[loop] overall " + json.dumps(
+        {name: {"phi": agg["phi"], "evaluations": agg["total_evaluations"],
+                "optimum_rate": agg["optimum_rate"]}
+         for name, agg in report["overall"].items()}))
+    log("[loop] online " + json.dumps(
+        {row["workload"]: {k: row["methods"]["online"][k]
+                           for k in ("evaluations", "stopped_by",
+                                     "efficiency")}
+         for row in report["workloads"]}))
     return report, counts
 
 
@@ -3886,6 +3917,265 @@ def phase_attention_matmul_numbers(dev, dense_counts, mm, loop_counts, errs,
     return [flash, matmul]
 
 
+# ---------------------------------------------------------------------------
+# Serving (phase 15): the engines and online tuning in traffic
+# ---------------------------------------------------------------------------
+
+# the multi-tenant trace of the JAX package's serving benchmark
+# (benchmarks/bench_serving.py: default_tenants, seed 0) over 28 of its 40
+# ticks: at 40 ticks (53 requests) the phase took 226.5 s on the card,
+# over its 200 s budget, the eager steps being host-bound (about 55 ms)
+SERVE_HORIZON = 28
+SERVE_ENGINE = dict(max_batch=8, max_len=128, prefill_chunk=16,
+                    admit_threshold=4)
+SERVE_MAMBA_REQUESTS = 16
+# the online tuner's workload: attention at batch = max_batch, as
+# launch.serve builds it, but n = 256 rather than max_len: at n = 128 the
+# h100 attention space holds one config and no trial could run (JAX's
+# test_online_tuner_attached_to_engine takes 256 for the same reason)
+SERVE_ONLINE_N = 256
+SERVE_ONLINE_BUDGET = 24
+
+
+def serve_trace(vocab: int):
+    from repro_torch.serve import default_tenants, synthetic_trace
+    return synthetic_trace(default_tenants(), horizon=SERVE_HORIZON,
+                           vocab=vocab, seed=0)
+
+
+def serve_once(engine, trace):
+    """Submit the trace, run it to the end; (requests, seconds)."""
+    import torch
+    for r in trace:
+        engine.submit(r.prompt, max_new_tokens=r.max_new_tokens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = engine.run(max_steps=1_000_000)
+    torch.cuda.synchronize()
+    return done, time.perf_counter() - t0
+
+
+def first_difference(model, got, want, max_len: int):
+    """The first request whose tokens differ between two runs, the
+    position, and the top-2 logit margin there on ``want``'s sequence
+    (teacher-forced at B = 1): the record a token mismatch fails with."""
+    import torch
+    for a, b in zip(got, want):
+        if a.output == b.output and a.finish_reason == b.finish_reason:
+            continue
+        k = next((i for i, (x, y) in enumerate(zip(a.output, b.output))
+                  if x != y), min(len(a.output), len(b.output)))
+        seq = list(a.prompt) + list(b.output[:k])
+        dev = next(model.parameters()).device
+        with torch.inference_mode():
+            cache = model.init_cache(1, max_len, dtype=torch.float32)
+            for t, tok in enumerate(seq):
+                lg, cache = model.decode_step(
+                    torch.tensor([[int(tok)]], device=dev), cache,
+                    torch.tensor([[t]], device=dev))
+        top = torch.topk(lg.reshape(-1).float(), 2)
+        return {"rid": a.rid, "position": k, "engine": a.output,
+                "reference": b.output, "finish": [a.finish_reason,
+                                                  b.finish_reason],
+                "top2": top.indices.tolist(),
+                "top2_margin": float(top.values[0] - top.values[1])}
+    return None
+
+
+def step_stats(durations):
+    import statistics
+    ms = sorted(d * 1e3 for d in durations)
+    return {"steps": len(ms), "median_ms": statistics.median(ms),
+            "p90_ms": ms[min(len(ms) - 1, int(0.9 * len(ms)))],
+            "mean_ms": sum(ms) / len(ms)}
+
+
+def phase_serve(dev):
+    """The serving stack on the card (``[serve]``): qwen1.5-0.5b at full
+    width and depth (bf16 weights at the JAX init's scales, f32 cache)
+    through ``ServeEngine`` and ``ReferenceEngine`` on the serving
+    benchmark's trace (``SERVE_HORIZON`` ticks), greedy tokens and finish reasons equal; the engine's
+    prefill calls against ceil((len - 1) / chunk) summed, its host
+    transfers against its steps; ten steady-state decode steps under
+    torch.profiler; the online tuner attached in traffic, that timed run's
+    decode-step times, its recorded trace replayed twice to the same
+    winner; mamba2-130m at full width against one-request reference runs
+    (8 lanes, as the engine's).  Every check raises."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs.mamba2_130m import CONFIG as MAMBA
+    from repro_torch.configs.qwen15_05b import CONFIG as QWEN
+    from repro_torch.core.space import Workload
+    from repro_torch.launch.tune import online_replay
+    from repro_torch.models.model import Model
+    from repro_torch.serve import ReferenceEngine, ServeEngine, trace_summary
+    from repro_torch.tuning import TunerSession
+    from repro_torch.tuning.online import (OnlineTuner, TraceRecorder,
+                                           attach)
+
+    t_phase = time.perf_counter()
+    out = {}
+    model = Model.init(QWEN, torch.Generator(device=dev).manual_seed(41),
+                       device=dev)
+    trace = serve_trace(QWEN.vocab)
+    chunk = SERVE_ENGINE["prefill_chunk"]
+    bound = sum(math.ceil((len(r.prompt) - 1) / chunk) for r in trace)
+    log(f"[serve] {QWEN.arch}: trace {json.dumps(trace_summary(trace))}, "
+        f"engine {json.dumps(SERVE_ENGINE)}, prefill-call bound {bound}")
+
+    eng = ServeEngine(model, **SERVE_ENGINE)
+    t0 = time.perf_counter()
+    eng.warmup()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    done, eng_s = serve_once(eng, trace)
+    counts = read_counts()
+    eng_peak = torch.cuda.max_memory_allocated()
+    ref = ReferenceEngine(model, max_batch=SERVE_ENGINE["max_batch"],
+                          max_len=SERVE_ENGINE["max_len"])
+    torch.cuda.reset_peak_memory_stats()
+    ref_done, ref_s = serve_once(ref, trace)
+    ref_peak = torch.cuda.max_memory_allocated()
+    tokens = sum(len(r.output) for r in done)
+    ref_tokens = sum(len(r.output) for r in ref_done)
+    out["qwen"] = {
+        "requests": len(done), "tokens": tokens, "warmup_s": warm_s,
+        "engine_s": eng_s, "engine_tokens_per_s": tokens / eng_s,
+        "reference_s": ref_s, "reference_tokens_per_s": ref_tokens / ref_s,
+        "ratio": (tokens / eng_s) / (ref_tokens / ref_s),
+        "prefill_calls": eng.prefill_calls, "prefill_call_bound": bound,
+        "host_transfers": eng.host_transfers, "engine_steps":
+        eng._step_index, "reference_steps": ref._step_index,
+        "engine_peak_gib": eng_peak / 2 ** 30,
+        "reference_peak_gib": ref_peak / 2 ** 30,
+        "kernel_launches": {k: v for k, v in counts.items() if "." not in k},
+        "finish": {r: sum(q.finish_reason == r for q in done)
+                   for r in ("stop", "length")}}
+    log(f"[serve] qwen engines {json.dumps(out['qwen'], sort_keys=True)}")
+    diff = first_difference(model, done, ref_done, SERVE_ENGINE["max_len"])
+    if diff is not None or len(done) != len(trace):
+        raise AssertionError(f"engine and reference disagree: {diff}")
+    if any(not 0 <= t < QWEN.vocab for r in done for t in r.output):
+        raise AssertionError("a token outside the vocabulary")
+    if eng.prefill_calls > bound:
+        raise AssertionError(f"prefill_calls {eng.prefill_calls} > {bound}")
+    if eng.host_transfers > eng._step_index:
+        raise AssertionError(f"host_transfers {eng.host_transfers} > steps "
+                             f"{eng._step_index}")
+
+    # the engine again with the online tuner attached in traffic: a timed
+    # run (the tuner's and a second listener's step times), then the
+    # recorded trace replayed twice
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        wl = Workload(op="attention", n=SERVE_ONLINE_N,
+                      batch=SERVE_ENGINE["max_batch"], variant="flash")
+        session = TunerSession(db_path=os.path.join(tmp, "db.json"))
+        tuner = OnlineTuner(wl, session, budget=SERVE_ONLINE_BUDGET,
+                            journal_dir=os.path.join(tmp, "journals"))
+        path = os.path.join(tmp, "trace.jsonl")
+        recorder = TraceRecorder(path, wl)
+        live = ServeEngine(model, **SERVE_ENGINE)
+        live.warmup()
+        attach(live, tuner, recorder=recorder)
+        durations = []
+        live.add_step_listener(lambda rec: durations.append(rec.duration_s))
+        live_done, live_s = serve_once(live, trace)
+        if [r.output for r in live_done] != [r.output for r in done]:
+            raise AssertionError("the timed run decoded other tokens")
+        out["qwen_steps"] = dict(step_stats(durations), run_s=live_s,
+                                 tokens_per_s=tokens / live_s,
+                                 host_transfers=live.host_transfers)
+        log(f"[serve] qwen timed decode steps "
+            f"{json.dumps(out['qwen_steps'], sort_keys=True)}")
+        s = tuner.summary()
+        ewmas = [t["ewma_s"] for t in s["trials"] if t["ewma_s"]]
+        out["online"] = {
+            "workload": s["workload"], "state": s["state"],
+            "stopped_by": s["stopped_by"], "steps": s["steps"],
+            "measured": s["measured"], "budget": s["budget"],
+            "promotions": s["promotions"], "incumbent": s["incumbent"],
+            "incumbent_ewma_ms": (s["incumbent_ewma_s"] or 0.0) * 1e3,
+            "trials": [{"config": t["config"], "state": t["state"],
+                        "samples": t["samples"],
+                        "ewma_ms": (t["ewma_s"] or 0.0) * 1e3}
+                       for t in s["trials"]],
+            "ewma_spread": (max(ewmas) - min(ewmas)) / min(ewmas)
+            if ewmas else None,
+            "records": recorder.records, "run_s": live_s}
+        log(f"[serve] online tuner in traffic "
+            f"{json.dumps(out['online'], sort_keys=True)}")
+        replays = [online_replay(path, budget=SERVE_ONLINE_BUDGET)[0]
+                   for _ in range(2)]
+        fates = [(r["incumbent"], [(t["config"], t["state"])
+                                   for t in r["trials"]]) for r in replays]
+        log(f"[serve] online-replay x2: winner {replays[0]['incumbent']}, "
+            f"stopped_by {replays[0]['stopped_by']}, promotions "
+            f"{replays[0]['promotions']}; identical "
+            f"{replays[0] == replays[1]}")
+        if fates[0] != fates[1] or not s["steps"]:
+            raise AssertionError(f"the trace replayed to other fates: "
+                                 f"{fates}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ten steady-state decode steps, 8 lanes, under torch.profiler (last:
+    # after a profiled window, the timed runs would not time the same host)
+    steady = ServeEngine(model, **SERVE_ENGINE)
+    for lane in range(SERVE_ENGINE["max_batch"]):
+        steady.submit(trace[lane].prompt[:8], max_new_tokens=100)
+    steady.run(max_steps=2)
+    out["qwen_trace"] = trace_call(lambda: steady.run(max_steps=10),
+                                   "qwen serve, 10 decode steps x 8 lanes")
+
+    del model, eng, ref, steady, live
+    torch.cuda.empty_cache()
+
+    # mamba2-130m: the engine's lanes against one-request reference runs
+    # at the engine's 8 lanes.  Alone in the reference, a request's lane
+    # is never padding, so its state is defined; at 1 lane the card's bf16
+    # products take other kernels (M = 1, not 8) and round otherwise, which
+    # flipped a near-tie (top-2 margin 0.008) in this phase's first run
+    model = Model.init(MAMBA, torch.Generator(device=dev).manual_seed(42),
+                       device=dev)
+    mtrace = serve_trace(MAMBA.vocab)[:SERVE_MAMBA_REQUESTS]
+    eng = ServeEngine(model, **SERVE_ENGINE)
+    eng.warmup()
+    reset_counts()
+    done, eng_s = serve_once(eng, mtrace)
+    mcounts = read_counts()
+    refs, ref_s = [], 0.0
+    for r in mtrace:
+        solo = ReferenceEngine(model, max_batch=SERVE_ENGINE["max_batch"],
+                               max_len=SERVE_ENGINE["max_len"])
+        got, seconds = serve_once(solo, [r])
+        refs.append(got[0])
+        ref_s += seconds
+    tokens = sum(len(r.output) for r in done)
+    out["mamba2"] = {"requests": len(done), "tokens": tokens,
+                     "engine_s": eng_s, "engine_tokens_per_s": tokens / eng_s,
+                     "reference_s": ref_s,
+                     "prefill_calls": eng.prefill_calls,
+                     "host_transfers": eng.host_transfers,
+                     "engine_steps": eng._step_index,
+                     "kernel_launches": {k: v for k, v in mcounts.items()
+                                         if "." not in k}}
+    log(f"[serve] {MAMBA.arch} engine "
+        f"{json.dumps(out['mamba2'], sort_keys=True)}")
+    diff = first_difference(model, done, refs, SERVE_ENGINE["max_len"])
+    if diff is not None:
+        raise AssertionError(f"mamba2 lanes disagree with their "
+                             f"one-request reference runs: {diff}")
+    del model, eng
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[serve] {out['seconds']:.1f} s")
+    return out
+
+
 def add_model_launches(entries, model_runs, model_shapes):
     """The kernels line's model paths: kernel 11 in every arch's forward
     (encoder and cross-attention layers included), kernels 2, 3 and 5 in
@@ -4056,6 +4346,7 @@ def main(argv=None) -> int:
         ml_counts = phase_ml(dev)
         log(f"[ml] {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
+        phase_serve(dev)
         # the SSD kernels' launches in the tuning loop, apart from the
         # main paths', by route
         for entry in entries:

@@ -1,9 +1,9 @@
 """Methodology comparison against the exhaustive optimum (paper Table II).
 
 For every workload the exhaustive sweep supplies the ground-truth optimum;
-each methodology (analytical / ml / bayesian / random) is then scored on
-the SAME cached objective, so every reported time is a time the sweep
-actually measured.  That construction makes the report a bug detector:
+each methodology (analytical / ml / online / bayesian / random) is then
+scored on the SAME cached objective, so every reported time is a time the
+sweep actually measured.  That construction makes the report a bug detector:
 performance efficiency is ``best_time / achieved_time`` and can only
 exceed 1.0 — "a methodology beat exhaustive search" — if the sweep, the
 cache, or a strategy mishandled the objective.  ``check_report`` turns any
@@ -28,8 +28,8 @@ from repro_torch.core.space import Workload, build_space
 from repro_torch.hw.profiles import HardwareProfile
 from repro_torch.tuning.session import get_strategy
 
-# JAX's order; its "online" strategy is not ported yet
-DEFAULT_METHODS = ("exhaustive", "analytical", "ml", "bayesian", "random")
+DEFAULT_METHODS = ("exhaustive", "analytical", "ml", "online", "bayesian",
+                   "random")
 
 # efficiencies this far above 1.0 are fp-noise, beyond it a violation
 EFFICIENCY_EPS = 1e-9

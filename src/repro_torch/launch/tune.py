@@ -43,7 +43,8 @@ takes none).  A
 runner failure (a kernel that does not build or launch) aborts the run
 with a non-zero exit; ``compare-methods`` also exits non-zero when any
 method beats the exhaustive sweep (Phi > 1 is a bug, not a result).
-``--methods`` defaults to exhaustive, analytical, ml, bayesian and random;
+``--methods`` defaults to exhaustive, analytical, ml, online, bayesian and
+random;
 ``--model`` names the artifact ``ml`` reads (``$REPRO_TORCH_ML_MODEL``).
 
 The ML-based methodology (the paper's offline-train / online-predict flow):
@@ -63,6 +64,18 @@ suite at sizes the card holds); ``--device cpu --objective cost`` sweeps
 ``SUITE`` on the cost model of the active profile (``h100`` unless
 ``$REPRO_TORCH_HW_PROFILE`` says otherwise), as the JAX package's
 commands do with theirs.
+
+Online tuning replay (the deployment mode's deterministic test bench):
+
+  PYTHONPATH=src python -m repro_torch.launch.tune online-replay \\
+      --trace artifacts/serve_trace.jsonl [--db tuning_db.json] [--budget 32]
+
+replays a recorded (config, step latency) trace — e.g. from
+``repro_torch.launch.serve --record-trace`` — through the OnlineTuner
+state machine (``online_replay``): same trace + same knobs -> same
+trials, same rollbacks, same winner.  With ``--db`` the promoted winner
+persists exactly as it would in production.  It measures nothing, so it
+takes no ``--device``.
 """
 from __future__ import annotations
 
@@ -660,9 +673,97 @@ def eval_model_main(argv: List[str]) -> int:
     return 1 if failures else 0
 
 
+def online_replay_main(argv: List[str]) -> int:
+    ap = argparse.ArgumentParser(prog="tune online-replay",
+                                 description="Replay a recorded serving "
+                                             "trace through the OnlineTuner")
+    ap.add_argument("--trace", required=True,
+                    help="JSONL trace from launch.serve --record-trace")
+    ap.add_argument("--db", default=None,
+                    help="TuningDB to persist the promoted winner into "
+                         "(default: replay only, nothing stored)")
+    ap.add_argument("--journal-dir", default=None,
+                    help="journal trial EWMAs here (sweep-journal format)")
+    ap.add_argument("--budget", type=int, default=32)
+    ap.add_argument("--guard-band", type=float, default=0.25)
+    ap.add_argument("--min-samples", type=int, default=3)
+    ap.add_argument("--samples-per-trial", type=int, default=8)
+    ap.add_argument("--json", default=None, help="write the summary here")
+    args = ap.parse_args(argv)
+    s, res = online_replay(args.trace, db=args.db,
+                           journal_dir=args.journal_dir, budget=args.budget,
+                           guard_band=args.guard_band,
+                           min_samples=args.min_samples,
+                           samples_per_trial=args.samples_per_trial)
+    for t in s["trials"]:
+        ewma = f"{t['ewma_s']*1e3:.3f}ms" if t["ewma_s"] else "-"
+        print(f"[online-replay]   {t['config']} -> {t['state']} "
+              f"(samples={t['samples']}, ewma={ewma})")
+    print(f"[online-replay] winner {res.best_config} "
+          f"ewma={res.best_time*1e3:.3f}ms"
+          + (f" (persisted to {args.db})" if args.db and s["promotions"]
+             else ""))
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(s, f, indent=1, sort_keys=True)
+        print(f"[online-replay] summary written to {args.json}")
+    return 0
+
+
+def online_replay(trace_path: str, *, db: Optional[str] = None,
+                  journal_dir: Optional[str] = None, budget: int = 32,
+                  guard_band: float = 0.25, min_samples: int = 3,
+                  samples_per_trial: int = 8):
+    """Replay a recorded (config, step latency) trace — e.g. from
+    ``repro_torch.launch.serve --record-trace`` — through the OnlineTuner
+    state machine: same trace + same knobs -> same trials, same
+    rollbacks, same winner.  With ``db`` the promoted winner persists as
+    it would in production.  Returns the tuner's summary and result."""
+    from repro_torch.core.analytical import AnalyticalTuner
+    from repro_torch.tuning.online import (OnlineTuner, ReplayTrace, replay,
+                                           replay_candidates)
+    from repro_torch.tuning.sweep import config_key
+
+    trace = ReplayTrace.load(trace_path)
+    wl = trace.workload.canonical()
+    session = TunerSession(db_path=db) if db else None
+    store = session is not None
+
+    prior = session.resolve_raw(wl) if session is not None \
+        else AnalyticalTuner().suggest(build_space(wl))
+    if config_key(prior) not in trace.times:
+        # the trace never measured the configured prior (e.g. a DB-less
+        # replay of someone else's traffic): start from the config the
+        # traffic actually ran, so the baseline is a real measurement
+        first = next(iter(trace.configs))
+        print(f"[online-replay] prior not in trace; using recorded config "
+              f"{trace.configs[first]} as incumbent")
+        prior = trace.configs[first]
+    # trial only configs the trace can answer for — every recorded config
+    # stays in the queue (expert-ranked, never truncated: the trace's
+    # measured winner may rank poorly analytically and must still run)
+    candidates = replay_candidates(build_space(wl), trace, prior)
+
+    tuner = OnlineTuner(wl, session, prior=prior, candidates=candidates,
+                        budget=budget, guard_band=guard_band,
+                        min_samples=min_samples,
+                        samples_per_trial=samples_per_trial,
+                        journal_dir=journal_dir, store=store,
+                        source=trace.source)
+    res = replay(tuner, trace)
+    s = tuner.summary()
+    print(f"[online-replay] {wl.key}: {trace.steps()} recorded steps, "
+          f"{len(candidates)} candidates")
+    print(f"[online-replay] stopped_by={res.stopped_by} "
+          f"measured={s['measured']}/{s['budget']} "
+          f"promotions={s['promotions']}")
+    return s, res
+
+
 _COMMANDS = {"compare-methods": compare_methods_main,
              "train-model": train_model_main,
-             "eval-model": eval_model_main}
+             "eval-model": eval_model_main,
+             "online-replay": online_replay_main}
 
 
 def main(argv: Optional[List[str]] = None) -> int:

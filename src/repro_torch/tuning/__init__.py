@@ -8,6 +8,9 @@ Offline -> online lifecycle, as in the JAX package:
 
     with overrides(scan={"radix": 4}):        # scoped experiments
         prefix_sum(x)
+
+    tuner = OnlineTuner(wl, session)          # in traffic: trials, rollback
+    attach(engine, tuner)                     # on a repro_torch.serve engine
 """
 from __future__ import annotations
 
@@ -23,6 +26,24 @@ from repro_torch.tuning.session import (TunerSession, default_session,
                                         set_default_session, strategies)
 from repro_torch.tuning.sweep import SweepJournal, SweepResult, run_sweep
 
+# The online-tuning stack (repro_torch.tuning.online) loads on first use,
+# as in the JAX package: PEP 562 keeps `from repro_torch.tuning import
+# OnlineTuner` working while importing this package (as every kernel entry
+# point and the serve engine do) does not import it.
+_ONLINE_EXPORTS = frozenset((
+    "OnlineTuner", "OnlineWallClockObjective", "ReplayTrace", "StepTimer",
+    "TraceRecorder", "aggregate_fleet", "attach", "fleet_prior",
+    "measurements_to_incumbent", "online_search", "promote_fleet_winner",
+    "replay", "replay_candidates", "warm_tuner"))
+
+
+def __getattr__(name: str):
+    if name in _ONLINE_EXPORTS:
+        from repro_torch.tuning import online
+        return getattr(online, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
     "Config", "DEFAULT_DB_PATH", "KernelSpec", "SCHEMA_VERSION",
     "SweepJournal", "SweepResult", "TuneResult", "TunerSession", "TuningDB",
@@ -30,4 +51,5 @@ __all__ = [
     "get_strategy", "kernel_path", "normalizer_for",
     "overrides", "resolve_device", "run_sweep",
     "set_default_session", "strategies", "tuned_kernel",
+    *sorted(_ONLINE_EXPORTS),
 ]

@@ -7,7 +7,7 @@ One object owns everything the paper's deployment story needs:
     the JAX package's energy / edp / memory_cap policies are still to be
     ported),
   * the search strategies (bayesian / exhaustive / random / analytical /
-    ml; the JAX package's online / transfer strategies are still to be
+    ml / online; the JAX package's transfer strategy is still to be
     ported),
   * an in-memory LRU of fully resolved (normalized) configs, so the online
     hot path does not re-run the analytical model or re-fit dicts on every
@@ -86,12 +86,23 @@ def _ml(space, objective, *, seed: int = 0, max_evals: int = 0,
                                    max_evals=max_evals)
 
 
+def _online(space, objective, *, seed: int = 0, max_evals: int = 16,
+            journal_dir=None) -> TuneResult:
+    # lazy import (online pulls in the sweep journal stack). Simulates
+    # in-traffic tuning against the objective: analytical prior, trial /
+    # guard-band / rollback state machine, max_evals as the measurement
+    # budget (see repro_torch.tuning.online).
+    from repro_torch.tuning.online import online_search
+    return online_search(space, objective, seed=seed, budget=max_evals)
+
+
 _STRATEGIES: Dict[str, Strategy] = {
     "bayesian": _bayesian,
     "exhaustive": _exhaustive,
     "random": _random,
     "analytical": _analytical,
     "ml": _ml,
+    "online": _online,
 }
 
 

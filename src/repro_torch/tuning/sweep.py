@@ -15,7 +15,8 @@ replaces the seed's serial per-config Python loop with:
     metric vector (time/energy/peak-VMEM), the JAX package's journal
     format; the port's sweep picks the fastest config (the latency policy,
     the only one it carries).  The JAX package's analytical pruning is not
-    ported: the port's header always records ``"pruned": 0``.
+    ported: a sweep's header records ``"pruned": 0``; the online tuner's
+    journals record the configs it never queued, as in JAX.
 
 ``run_sweep`` is what ``ExhaustiveSearch.tune`` (and therefore
 ``strategy="exhaustive"``) executes; ``repro_torch.tuning.ml.dataset`` consumes
@@ -46,8 +47,11 @@ JOURNAL_VERSION = 3
 CHUNK = 1024
 
 
-def make_header(wl: Workload, objective: Objective, space_size: int) -> Dict:
-    """The version-stamped journal header record (one per journal file)."""
+def make_header(wl: Workload, objective: Objective, space_size: int,
+                pruned: int = 0) -> Dict:
+    """The version-stamped journal header record (one per journal file);
+    ``space_size`` is the FULL valid-space size and ``pruned`` the configs
+    never measured by design (a model-steered subset)."""
     return {"kind": "header", "version": JOURNAL_VERSION,
             "workload": {"key": wl.key, "op": wl.op, "n": wl.n,
                          "batch": wl.batch, "dtype": wl.dtype,
@@ -58,7 +62,7 @@ def make_header(wl: Workload, objective: Objective, space_size: int) -> Dict:
             "profile": getattr(getattr(objective, "spec", None),
                                "name", None),
             "space_size": space_size,
-            "pruned": 0}
+            "pruned": int(pruned)}
 
 
 def append_journal_lines(path: str, lines) -> None:
@@ -273,22 +277,22 @@ class SweepJournal:
             os.unlink(self.path)
 
     def _ensure_header(self, wl: Workload, objective: Objective,
-                       space_size: int) -> None:
+                       space_size: int, pruned: int = 0) -> None:
         if os.path.exists(self.path) and os.path.getsize(self.path):
             if self.read_header() is not None:
                 return
             # non-empty but headerless (e.g. the very first os.write was
             # torn): unusable — quarantine and re-journal from scratch
             self._quarantine()
-        header = make_header(wl, objective, space_size)
+        header = make_header(wl, objective, space_size, pruned)
         self._append_lines([json.dumps(header, sort_keys=True)])
 
     def append(self, wl: Workload, objective: Objective, space_size: int,
-               entries: Sequence[Tuple]) -> None:
+               entries: Sequence[Tuple], pruned: int = 0) -> None:
         """Append completed evaluations: ``(config, time)`` pairs, or
         ``(config, time, metric_vector)`` triples (the vector is written as
         ``"m"`` minus the redundant ``time_s`` mirror)."""
-        self._ensure_header(wl, objective, space_size)
+        self._ensure_header(wl, objective, space_size, pruned)
         self._append_lines(self._entry_line(*entry) for entry in entries)
 
     @staticmethod

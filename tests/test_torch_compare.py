@@ -15,6 +15,7 @@ from repro_torch.core.space import Workload as TWorkload
 from repro_torch.core.space import scan_space
 from repro_torch.evaluation import (check_report, compare_methods,
                                     format_report)
+from repro_torch.evaluation.compare import DEFAULT_METHODS
 from repro_torch.launch import tune as t_tune
 
 j_profiles = importlib.import_module("repro.hw.profiles")
@@ -90,7 +91,7 @@ def test_cli_compare_methods_on_cpu(tmp_path, capsys):
     report = json.loads(out.read_text())
     assert report["runner_failures"] == 0
     assert report["device"]["type"] == "cpu"
-    assert set(report["overall"]) == set(METHODS) | {"ml"}
+    assert set(report["overall"]) == set(DEFAULT_METHODS)
     assert "runner failures: 0" in capsys.readouterr().out
 
 
@@ -135,7 +136,7 @@ def test_cli_compare_methods_fft_on_cpu(tmp_path, capsys):
     assert report["runner_failures"] == 0
     assert [row["workload"] for row in report["workloads"]] == [
         "fft:stockham:n64:b4:float32", "fft:stockham:n128:b4:float32"]
-    assert set(report["overall"]) == set(METHODS) | {"ml"}
+    assert set(report["overall"]) == set(DEFAULT_METHODS)
     assert "runner failures: 0" in capsys.readouterr().out
 
 
@@ -199,7 +200,7 @@ def test_cli_compare_methods_ssd_rglru_on_cpu(tmp_path, capsys, monkeypatch,
     report = json.loads(out.read_text())
     assert report["runner_failures"] == 0
     assert [row["workload"] for row in report["workloads"]] == keys
-    assert set(report["overall"]) == set(METHODS) | {"ml"}
+    assert set(report["overall"]) == set(DEFAULT_METHODS)
     assert "runner failures: 0" in capsys.readouterr().out
 
 

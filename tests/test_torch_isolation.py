@@ -59,7 +59,10 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.kernels.attention.ops, "
             "repro_torch.kernels.matmul.ops, repro_torch.models.model, "
             "repro_torch.configs.qwen15_05b, repro_torch.models.moe, "
-            "repro_torch.models.recurrent\n"
+            "repro_torch.models.recurrent, repro_torch.serve, "
+            "repro_torch.serve.engine, repro_torch.serve.reference, "
+            "repro_torch.serve.trace, repro_torch.tuning.online, "
+            "repro_torch.launch.serve\n"
             "repro_torch.configs.base.all_archs()\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or "
             "m.startswith(('jax.', 'repro.')))\n"

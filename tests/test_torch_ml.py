@@ -473,8 +473,8 @@ def test_compare_methods_ml_row_equals_repro(tiny_bundle_path, monkeypatch,
 
 
 def test_default_methods_take_ml_after_analytical():
-    assert DEFAULT_METHODS == ("exhaustive", "analytical", "ml", "bayesian",
-                               "random")
+    assert DEFAULT_METHODS == ("exhaustive", "analytical", "ml", "online",
+                               "bayesian", "random")
 
 
 # ---------------------------------------------------------------------------
