@@ -179,14 +179,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
    mamba2-130m at full width through the engine on the trace's first 16
    requests (its vocabulary), each request's tokens equal to a
    one-request ``ReferenceEngine`` run at the engine's 8 lanes;
-16. the ``kernels`` line: per kernel (all twelve) its launches on the main
+16. portability (``[portability]``), on phase 13's workloads in a fresh
+   temporary journal directory: ``compare_methods_matrix`` over tpu_v5e,
+   gpu_sm and h100, each on its own cost model, under the latency,
+   energy, edp and memory_cap policies (``check_matrix`` empty); then
+   ``compare_methods`` on the card with phase 13's wall-clock objectives
+   for exhaustive / analytical / transfer / bayesian / random, where
+   ``transfer`` warm-starts from the tpu_v5e and gpu_sm journals (every
+   workload must find one: the foreign histories and their
+   exp(-profile_distance) weights are printed); ``ExhaustiveSearch
+   (prune="analytical")`` at top_k 8, 16 and 64 on the same measurements
+   (k evaluations and ``stopped_by`` "pruned" where the space is larger),
+   and ``prune=`` under the energy policy refused; a ``memory_cap``
+   session (half the latency winner's modeled peak) tuned exhaustively
+   on the h100 cost model and installed as the default session, whose
+   ``prefix_sum`` must launch the capped plan within DTYPE_TOL while the
+   latency session resolves its own winner; and, where the h100 model's
+   energy winner differs from its latency winner, the card's energy
+   counter (NVML ``nvmlDeviceGetTotalEnergyConsumption``, ctypes on the
+   NVML library ``libnvidia-ml.so.1``) around a second of back-to-back calls
+   of each, printed in mJ and ms a call beside the model's (not gated);
+17. the ``kernels`` line: per kernel (all twelve) its launches on the main
    paths (by route for ``scan_add``, ``scan_linrec``, ``scan_linrec_prod``,
    ``pcr``, ``fft_stockham`` and the three SSD kernels, with the earlier
    kernel's time beside theirs; by path for the kernels that run on
    several, kernels 2, 3, 5 and 11 also by model arch; kernels 8–10 also
    by chunk length and with the tuning loop's
    launches by route; every kernel with its launches in the ``[ml]``
-   sweeps, ``launches_ml``), its error
+   sweeps, ``launches_ml``, and in the ``[portability]`` phase,
+   ``launches_portability``), its error
    against the plain version, its time, the plain version's and the
    library call's (null where no one PyTorch call
    computes the function; ``scaled_dot_product_attention`` and
@@ -698,21 +719,28 @@ def phase_main_path(dev):
 LOOP_METHODS = ("exhaustive", "analytical", "online", "bayesian", "random")
 
 
-def phase_loop(dev):
-    """compare_methods on measured times (the paper's Table II)."""
-    from repro_torch.core import Workload
+def loop_factory(dev, made):
+    """The [loop] phase's wall-clock objectives, each appended to ``made``:
+    the suite runner on its own inputs (seed 2), reps 5, warmup 1."""
     from repro_torch.core.objective import WallClockObjective
-    from repro_torch.evaluation import check_report, compare_methods, format_report
-    from repro_torch.launch.tune import (ATTN_HEADS, SSD_HEADS,
-                                         make_suite_runner)
+    from repro_torch.launch.tune import make_suite_runner
 
     runner = make_suite_runner(dev, seed=2)
-    made = []
 
     def factory():
         obj = WallClockObjective(runner, reps=5, warmup=1, device="cuda")
         made.append(obj)
         return obj
+
+    return factory
+
+
+def loop_workloads():
+    """The [loop] phase's workloads: the paper's ops at 2^26 / n problems,
+    ssd at the mamba2-130m prefill's rows, one qwen layer's attention and
+    MLP up-projection in bf16."""
+    from repro_torch.core import Workload
+    from repro_torch.launch.tune import ATTN_HEADS, SSD_HEADS
 
     wls = [Workload(op="scan", n=n, batch=TOTAL_ELEMS // n, variant="ks")
            for n in (1024, 4096)]
@@ -730,9 +758,18 @@ def phase_loop(dev):
                      variant="flash"),
             Workload(op="matmul", n=MATMUL_SHAPE[2], batch=MATMUL_SHAPE[0],
                      dtype="bfloat16", variant="tiled")]
+    return wls
+
+
+def phase_loop(dev):
+    """compare_methods on measured times (the paper's Table II)."""
+    from repro_torch.evaluation import check_report, compare_methods, format_report
+
+    made = []
     reset_counts()
     t0 = time.perf_counter()
-    report = compare_methods(wls, LOOP_METHODS, objective_factory=factory,
+    report = compare_methods(loop_workloads(), LOOP_METHODS,
+                             objective_factory=loop_factory(dev, made),
                              seed=0, max_evals=20)
     seconds = time.perf_counter() - t0
     counts = read_counts()
@@ -4176,6 +4213,323 @@ def phase_serve(dev):
     return out
 
 
+# Portability (phase 16): policies, pruning and cross-device transfer
+PORT_PROFILES = ("tpu_v5e", "gpu_sm", "h100")   # h100 last: it reads the rest
+PORT_POLICIES = ("latency", "energy", "edp", "memory_cap")
+PORT_METHODS = ("exhaustive", "analytical", "transfer", "bayesian", "random")
+PORT_TOP_K = (8, 16, 64)
+# the kernels the phase's measured sweep must launch, on their new routes
+PORT_KERNELS = ("scan_add", "pcr", "fft_stockham", "ssd_intra",
+                "flash_attention", "matmul")
+JOULE_SECONDS = 1.0         # back-to-back calls of each winner per reading
+
+
+def foreign_histories(journal_dir, wl, target):
+    """{source profile: (entries, weight)} of the journals in
+    ``journal_dir`` that ``device_histories`` turns into priors for ``wl``
+    on ``target``: other profiles' sweeps, weighted
+    exp(-profile_distance)."""
+    from repro_torch.core.transfer import _journal_profile, journal_history
+    from repro_torch.tuning.sweep import SweepJournal, _safe
+
+    out = {}
+    prefix = _safe(wl.key) + "__"
+    for name in sorted(os.listdir(journal_dir)):
+        if not (name.startswith(prefix) and name.endswith(".jsonl")):
+            continue
+        path = os.path.join(journal_dir, name)
+        got = journal_history(path, target)
+        if got is not None and got[0].workload.key == wl.key:
+            src = _journal_profile(SweepJournal(path).read_header())
+            out[src] = (len(got[0].configs), got[1])
+    return out
+
+
+def nvml_energy_reader():
+    """The card's total energy counter in mJ, read through NVML's
+    ``nvmlDeviceGetTotalEnergyConsumption`` (ctypes on the NVML library
+    ``libnvidia-ml.so.1``; the port never loads it)."""
+    import ctypes
+    lib = ctypes.CDLL("libnvidia-ml.so.1")
+    if lib.nvmlInit_v2() != 0:
+        raise RuntimeError("nvmlInit_v2 failed")
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    index = int(visible) if visible.strip().isdigit() else 0
+    handle = ctypes.c_void_p()
+    rc = lib.nvmlDeviceGetHandleByIndex_v2(ctypes.c_uint(index),
+                                           ctypes.byref(handle))
+    if rc != 0:
+        raise RuntimeError(f"nvmlDeviceGetHandleByIndex_v2: {rc}")
+    mj = ctypes.c_ulonglong()
+
+    def read():
+        rc = lib.nvmlDeviceGetTotalEnergyConsumption(handle, ctypes.byref(mj))
+        if rc != 0:
+            raise RuntimeError(f"nvmlDeviceGetTotalEnergyConsumption: {rc}")
+        return mj.value
+
+    return read
+
+
+def joules_per_call(fn, read, seconds: float):
+    """(mJ, ms) a call over at least ``seconds`` of back-to-back calls."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    calls, e0, t0 = 0, read(), time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(8):
+            fn()
+        calls += 8
+        torch.cuda.synchronize()
+    dt, e1 = time.perf_counter() - t0, read()
+    return (e1 - e0) / calls, dt * 1e3 / calls
+
+
+def phase_portability(dev, card: str):
+    """The paper's portability methods on the card (``[portability]``), on
+    the [loop] phase's workloads in a fresh temporary journal directory:
+    1. ``compare_methods_matrix`` over ``PORT_PROFILES``, each on its own
+       cost model, under every policy (``check_matrix`` empty); its
+       tpu_v5e and gpu_sm journals are the foreign evidence;
+    2. ``compare_methods`` on the card with the [loop] phase's wall-clock
+       factory and ``PORT_METHODS`` on the same directory: every workload
+       must find a foreign history (else ``transfer`` is a cold Bayesian
+       search), ``check_report`` empty, 0 runner failures;
+    3. ``ExhaustiveSearch(prune="analytical", top_k=k)`` for each k of
+       ``PORT_TOP_K`` on the same measurements (the card sweep's journal):
+       ``stopped_by`` "pruned" and k evaluations where the space holds more
+       than k, the winner against the full sweep's optimum; ``prune=``
+       under ``policy="energy"`` must raise;
+    4. a ``memory_cap`` session (half the latency winner's modeled peak
+       shared memory) tuned exhaustively on the h100 cost model and
+       installed as the default session: ``prefix_sum`` at n = 1024 must
+       launch the capped plan and agree with float64 ``torch.cumsum``,
+       the latency session still resolve its own winner;
+    5. joules: where the h100 model's energy winner differs from its
+       latency winner, NVML's energy counter around ``JOULE_SECONDS`` of
+       back-to-back calls of each, printed beside the model's ratio (not
+       gated).
+    Returns the kernels' launches over the phase."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.core.exhaustive import ExhaustiveSearch
+    from repro_torch.core.objective import (CachedObjective,
+                                            CostModelObjective)
+    from repro_torch.core.space import Workload, build_space
+    from repro_torch.core.transfer import device_histories
+    from repro_torch.evaluation import (check_matrix, check_report,
+                                        compare_methods,
+                                        compare_methods_matrix, format_matrix,
+                                        format_report)
+    from repro_torch.hw.profiles import get_profile
+    from repro_torch.kernels.blocks.driver import capture_launches
+    from repro_torch.kernels.blocks.plan import plan_for
+    from repro_torch.kernels.scan.ops import _plan_workload, prefix_sum
+    from repro_torch.launch.tune import make_suite_runner
+    from repro_torch.tuning import TunerSession, set_default_session
+
+    t_phase = time.perf_counter()
+    h100 = get_profile("h100")
+    wls = [wl.canonical() for wl in loop_workloads()]
+    root = tempfile.mkdtemp(prefix="chip_smoke_portability_")
+    journals = os.path.join(root, "journals")
+    os.makedirs(journals)
+    previous = None
+    try:
+        # 1. the device matrix on the host: every profile on its own model
+        t0 = time.perf_counter()
+        matrix = compare_methods_matrix(wls, profiles=PORT_PROFILES,
+                                        journal_dir=journals,
+                                        policies=PORT_POLICIES)
+        t_matrix = time.perf_counter() - t0
+        log(f"[portability] device matrix: {len(wls)} workloads x "
+            f"{len(matrix['methods'])} methods x {len(PORT_PROFILES)} "
+            f"profiles x {len(PORT_POLICIES)} policies on the cost models "
+            f"in {t_matrix:.1f} s")
+        for line in format_matrix(matrix).splitlines():
+            log(f"[portability] {line}")
+        log("[portability] matrix phi by policy " + json.dumps(
+            {prof: {pol: {m: agg["phi"] for m, agg in per.items()}
+                    for pol, per in rep["per_policy"].items()}
+             for prof, rep in matrix["reports"].items()}))
+        problems = check_matrix(matrix)
+        if problems:
+            raise AssertionError(f"[portability] device matrix: {problems}")
+
+        # 2. measured transfer: the card's times, the foreign journals' priors
+        priors = {wl.key: foreign_histories(journals, wl, h100) for wl in wls}
+        for wl in wls:
+            found = len(device_histories(journals, wl, h100))
+            log(f"[portability] {wl.key}: {found} foreign histories "
+                f"{json.dumps({src: {'entries': n, 'weight': w} for src, (n, w) in priors[wl.key].items()}, sort_keys=True)}")
+            if not found or found != len(priors[wl.key]):
+                raise AssertionError(f"[portability] {wl.key}: "
+                                     f"{found} foreign histories "
+                                     f"({priors[wl.key]}): transfer would "
+                                     f"be a cold Bayesian search")
+        made = []
+        reset_counts()
+        t0 = time.perf_counter()
+        report = compare_methods(wls, PORT_METHODS,
+                                 objective_factory=loop_factory(dev, made),
+                                 seed=0, max_evals=20, journal_dir=journals)
+        t_card = time.perf_counter() - t0
+        failures = sum(o.failures for o in made)
+        for line in format_report(report).splitlines():
+            log(f"[portability] {line}")
+        log("[portability] card " + json.dumps(
+            {name: {"phi": agg["phi"],
+                    "evaluations": agg["total_evaluations"],
+                    "mean_evals_to_optimum": agg["mean_evals_to_optimum"],
+                    "optimum_rate": agg["optimum_rate"]}
+             for name, agg in report["overall"].items()}))
+        for row in report["workloads"]:
+            picks = {m: [row["methods"][m]["evaluations"],
+                         row["methods"][m]["evals_to_optimum"],
+                         row["methods"][m]["slowdown"]]
+                     for m in ("transfer", "bayesian")}
+            log(f"[portability] {row['workload']}: sweep "
+                f"{row['space_size']} configs, optimum "
+                f"{row['best_time_s'] * 1e3:.4f} ms; evaluations, evals to "
+                f"optimum, slowdown {json.dumps(picks)}")
+        log(f"[portability] card compare_methods in {t_card:.1f} s; runner "
+            f"failures: {failures}")
+        problems = check_report(report)
+        if problems or failures:
+            raise AssertionError(f"[portability] compare_methods: "
+                                 f"{problems}, runner failures {failures}")
+
+        # 3. pruning on the same measurements (the card sweep's journal)
+        measured = CachedObjective(loop_factory(dev, made)())
+        optimum = {row["workload"]: row["best_time_s"]
+                   for row in report["workloads"]}
+        for k in PORT_TOP_K:
+            effs, evals = [], 0
+            for wl in wls:
+                space = build_space(wl, h100)
+                size = len(space.enumerate_valid())
+                res = ExhaustiveSearch(journal_dir=journals,
+                                       prune="analytical",
+                                       top_k=k).tune(space, measured)
+                ratio = res.best_time / optimum[wl.key]
+                effs.append(1.0 / ratio)
+                evals += res.evaluations
+                log(f"[portability] prune top_k={k} {wl.key}: "
+                    f"{res.evaluations} of {size} configs, stopped_by "
+                    f"{res.stopped_by}, winner / optimum {ratio:.4f}")
+                want = ("pruned", k) if size > k else ("exhausted", size)
+                if (res.stopped_by, res.evaluations) != want:
+                    raise AssertionError(f"[portability] prune top_k={k} "
+                                         f"{wl.key}: {res.stopped_by}, "
+                                         f"{res.evaluations} evaluations")
+            log(f"[portability] prune top_k={k}: phi "
+                f"{len(effs) / sum(1.0 / e for e in effs):.4f}, "
+                f"{evals} evaluations")
+        if measured.evaluations or failures:
+            raise AssertionError(f"[portability] the pruned sweeps measured "
+                                 f"{measured.evaluations} configs again")
+        try:
+            ExhaustiveSearch(prune="analytical", top_k=8,
+                             policy="energy").tune(build_space(wls[0], h100),
+                                                   CostModelObjective(h100))
+        except ValueError as e:
+            log(f"[portability] prune under energy raises: {e}")
+        else:
+            raise AssertionError("[portability] prune= under policy=energy "
+                                 "did not raise")
+
+        # 4. a memory_cap session reaching the kernel
+        wl = Workload(op="scan", n=1024, batch=TOTAL_ELEMS // 1024,
+                      variant="ks")
+        db = os.path.join(root, "db.json")
+        model = CostModelObjective(h100)
+        space = build_space(wl, h100)
+        latency = TunerSession(db_path=db, spec=h100)
+        lat_cfg = latency.tune(wl, method="exhaustive").best_config
+        cap = model(space, lat_cfg).metrics["peak_vmem_bytes"] / 2
+        capped = TunerSession(db_path=db, spec=h100,
+                              policy=f"memory_cap:{cap:.0f}")
+        res = capped.tune(wl, method="exhaustive")
+        cap_vec = model(space, res.best_config).metrics
+        if res.best_config == lat_cfg or cap_vec["peak_vmem_bytes"] > cap:
+            raise AssertionError(f"[portability] memory_cap winner "
+                                 f"{res.best_config} {cap_vec}")
+        x = torch.randn(wl.batch, wl.n, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(5))
+        previous = set_default_session(capped)
+        before = read_counts()["scan_add"]
+        with capture_launches() as launched:
+            y = prefix_sum(x)
+        torch.cuda.synchronize()
+        cfg = capped.resolve(wl)
+        plan = plan_for(_plan_workload(wl, linrec=False), cfg)
+        if tuple(launched) != plan.launches or \
+                read_counts()["scan_add"] == before:
+            raise AssertionError(f"[portability] memory_cap prefix_sum "
+                                 f"launched {launched}, plan "
+                                 f"{plan.launches}")
+        err = check_close(y, torch.cumsum(x.double(), dim=-1), "float32",
+                          "memory_cap prefix_sum")
+        lat_resolved = latency.resolve(wl)
+        if lat_resolved == cfg or latency.lookup(wl) != lat_cfg:
+            raise AssertionError(f"[portability] the latency session "
+                                 f"resolved {lat_resolved}")
+        log(f"[portability] memory_cap session ({capped.policy.key}): "
+            f"winner {res.best_config} (modeled peak "
+            f"{cap_vec['peak_vmem_bytes']:.0f} B, {cap_vec['time_s'] * 1e3:.4f}"
+            f" ms) against latency's {lat_cfg}; prefix_sum launched "
+            f"{[(l.grid, l.block_shape) for l in launched]}, max abs err vs "
+            f"float64 cumsum {err:.3e}; the latency session resolves "
+            f"{lat_resolved}")
+        set_default_session(previous)
+        previous = None
+        del x, y
+
+        # 5. joules of the energy and latency winners (printed, not gated)
+        differ = []
+        for wl in wls:
+            space = build_space(wl, h100)
+            lat = ExhaustiveSearch().tune(space, CachedObjective(model))
+            en = ExhaustiveSearch(policy="energy").tune(space,
+                                                        CachedObjective(model))
+            if lat.best_config != en.best_config:
+                differ.append((wl, space, lat.best_config, en.best_config))
+        if not differ:
+            log("[portability] joules: the h100 model's energy winner is its "
+                "latency winner on every workload")
+        else:
+            read = nvml_energy_reader()
+            runner = make_suite_runner(dev, seed=2)
+            for wl, space, lat_cfg, en_cfg in differ:
+                got = {}
+                for tag, c in (("latency", lat_cfg), ("energy", en_cfg)):
+                    mj, ms = joules_per_call(runner(wl, c), read,
+                                             JOULE_SECONDS)
+                    vec = model(space, c).metrics
+                    got[tag] = {"config": c, "mJ": mj, "ms": ms,
+                                "model_mJ": vec["energy_j"] * 1e3,
+                                "model_ms": vec["time_s"] * 1e3}
+                log(f"[portability] joules {wl.key} ({card}): "
+                    f"{json.dumps(got, sort_keys=True)}; energy / latency "
+                    f"measured {got['energy']['mJ'] / got['latency']['mJ']:.4f}"
+                    f", modeled {got['energy']['model_mJ'] / got['latency']['model_mJ']:.4f}")
+        torch.cuda.synchronize()
+        counts = read_counts()
+    finally:
+        if previous is not None:
+            set_default_session(previous)
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[portability] launches {counts}")
+    require_launched(counts, PORT_KERNELS, "the [portability] phase")
+    require_new_routes(counts, "the [portability] phase")
+    log(f"[portability] {time.perf_counter() - t_phase:.1f} s (matrix "
+        f"{t_matrix:.1f}, card compare {t_card:.1f}) on {card}")
+    return counts
+
+
 def add_model_launches(entries, model_runs, model_shapes):
     """The kernels line's model paths: kernel 11 in every arch's forward
     (encoder and cross-attention layers included), kernels 2, 3 and 5 in
@@ -4347,6 +4701,8 @@ def main(argv=None) -> int:
         log(f"[ml] {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
         phase_serve(dev)
+        torch.cuda.empty_cache()
+        port_counts = phase_portability(dev, card)
         # the SSD kernels' launches in the tuning loop, apart from the
         # main paths', by route
         for entry in entries:
@@ -4367,6 +4723,14 @@ def main(argv=None) -> int:
             if name in ROUTES:
                 entry["launches_ml_by_route"] = {
                     r: ml_counts[f"{name}.{r}"] for r in ROUTES[name]}
+        # and in the [portability] phase (its measured sweep, the
+        # memory_cap session's prefix_sum, the joule readings)
+        for entry in entries:
+            name = entry["name"]
+            entry["launches_portability"] = port_counts[name]
+            if name in ROUTES:
+                entry["launches_portability_by_route"] = {
+                    r: port_counts[f"{name}.{r}"] for r in ROUTES[name]}
         log(json.dumps({"kernels": entries}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all (build "
         f"{build_s:.1f} s)")

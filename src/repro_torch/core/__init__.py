@@ -5,6 +5,9 @@ Public API:
   AnalyticalTuner            — model-driven, zero-evaluation (paper IV-A)
   BayesianTuner              — BO with GP surrogate + EI (paper IV-B)
   ExhaustiveSearch, RandomSearch
+  TransferBayesianTuner      — BO warm-started across sizes and devices
+  Policy, PolicyObjective    — what "better" means (latency / energy / edp /
+                               memory_cap)
   phi, efficiency            — portability metric (paper VI)
 """
 from repro_torch.core.analytical import AnalyticalTuner
@@ -14,13 +17,16 @@ from repro_torch.core.metrics import efficiency, phi, phi_from_times
 from repro_torch.core.objective import (CachedObjective, CostModelObjective,
                                         Measurement, Objective, PENALTY_TIME,
                                         RunnerError, WallClockObjective)
+from repro_torch.core.policy import Policy, PolicyObjective, get_policy
 from repro_torch.core.space import (Config, ParamSpec, SearchSpace, Workload,
                                     build_space)
+from repro_torch.core.transfer import TransferBayesianTuner
 
 __all__ = [
     "AnalyticalTuner", "BayesianTuner", "TuneResult", "ExhaustiveSearch",
     "RandomSearch", "efficiency", "phi", "phi_from_times", "CachedObjective",
     "Measurement", "Objective", "PENALTY_TIME", "CostModelObjective",
     "RunnerError", "WallClockObjective", "Config", "ParamSpec", "SearchSpace",
-    "Workload", "build_space",
+    "Workload", "build_space", "Policy", "PolicyObjective", "get_policy",
+    "TransferBayesianTuner",
 ]

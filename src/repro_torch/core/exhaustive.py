@@ -17,13 +17,27 @@ class ExhaustiveSearch:
     Runs on the ``repro_torch.tuning.sweep`` engine: candidates are evaluated in
     vectorized batches through ``Objective.batch_eval``; with
     ``journal_dir`` each chunk checkpoints to a per-(workload, objective)
-    JSONL journal so interrupted sweeps resume instead of restarting.
+    JSONL journal so interrupted sweeps resume instead of restarting, and
+    ``prune="analytical"`` measures only the ``top_k`` model-ranked
+    candidates (``stopped_by`` then truthfully reports ``"pruned"`` —
+    a pruned sweep no longer guarantees the optimum).
+
+    ``policy`` picks the winner from the sweep's Pareto front instead of
+    the fastest config (see ``repro_torch.core.policy``); the journal stays
+    keyed by the RAW objective, so one sweep's measurements serve every
+    policy.
     """
 
     name = "exhaustive"
 
-    def __init__(self, journal_dir: Optional[str] = None):
+    def __init__(self, journal_dir: Optional[str] = None,
+                 prune: Optional[str] = None, top_k: Optional[int] = None,
+                 chunk: int = 1024, policy=None):
         self.journal_dir = journal_dir
+        self.prune = prune
+        self.top_k = top_k
+        self.chunk = chunk
+        self.policy = policy
 
     def tune(self, space: SearchSpace, objective: Objective) -> TuneResult:
         # deferred import: repro_torch.tuning.session imports this module
@@ -33,7 +47,9 @@ class ExhaustiveSearch:
         if self.journal_dir:
             journal = SweepJournal.for_workload(self.journal_dir,
                                                 space.workload, objective)
-        result = run_sweep(space, objective, journal=journal)
+        result = run_sweep(space, objective, journal=journal,
+                           prune=self.prune, top_k=self.top_k,
+                           chunk=self.chunk, policy=self.policy)
         return result.as_tune_result()
 
 

@@ -218,6 +218,35 @@ for _p in (TPU_V5E, GPU_SM, CPU_INTERPRET, H100):
 
 
 # ---------------------------------------------------------------------------
+# Profile distance (cross-device transfer weighting)
+# ---------------------------------------------------------------------------
+
+# rate/geometry fields that shape a kernel's operating point; latencies are
+# included because pass-heavy configs trade differently on launch-expensive
+# devices
+_DISTANCE_FIELDS = (
+    "peak_vpu_flops", "peak_f32_flops", "hbm_bandwidth", "vmem_budget",
+    "lane_count", "sublane_count", "mxu_dim", "kernel_launch_s",
+    "pass_sync_s", "dma_half_bytes",
+)
+
+
+def profile_distance(a: HardwareProfile, b: HardwareProfile) -> float:
+    """Mean |log2 ratio| over the rate/geometry fields; 0.0 iff identical.
+
+    The transfer-seeding weight is ``exp(-distance)``: a device twice as
+    fast in every dimension is "one octave away" and its journal evidence
+    is discounted accordingly — close devices transfer almost fully,
+    wildly different ones barely at all.
+    """
+    total = 0.0
+    for field in _DISTANCE_FIELDS:
+        va, vb = float(getattr(a, field)), float(getattr(b, field))
+        total += abs(math.log2(max(va, 1e-30) / max(vb, 1e-30)))
+    return total / len(_DISTANCE_FIELDS)
+
+
+# ---------------------------------------------------------------------------
 # Machine-model response curves
 # ---------------------------------------------------------------------------
 # Scalar and vectorized forms mirror each other element-for-element so

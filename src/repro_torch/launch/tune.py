@@ -44,8 +44,27 @@ runner failure (a kernel that does not build or launch) aborts the run
 with a non-zero exit; ``compare-methods`` also exits non-zero when any
 method beats the exhaustive sweep (Phi > 1 is a bug, not a result).
 ``--methods`` defaults to exhaustive, analytical, ml, online, bayesian and
-random;
+random (``transfer`` is registered too);
 ``--model`` names the artifact ``ml`` reads (``$REPRO_TORCH_ML_MODEL``).
+``--policy energy|edp|memory_cap[:bytes]`` tunes (and stores) under that
+policy; ``compare-methods --policies latency,energy,edp,memory_cap``
+scores every method per policy on the sweep's metric vectors, and any
+(method, policy) Phi > 1 fails.
+
+Cross-device transfer, two commands: the device matrix scores each profile
+on its own cost model on the host and journals every sweep, then the card
+measures, and its ``transfer`` row warm-starts from the other profiles'
+journals (weighted by ``exp(-profile_distance)``):
+
+  PYTHONPATH=src python -m repro_torch.launch.tune compare-methods \
+      --device-matrix --objective cost --profiles tpu_v5e,gpu_sm \
+      --op scan --sizes 1024,4096 --journal-dir artifacts/transfer
+  PYTHONPATH=src python -m repro_torch.launch.tune compare-methods \
+      --methods analytical,bayesian,transfer --journal-dir artifacts/transfer \
+      --op scan --sizes 1024,4096
+
+``--device-matrix`` needs ``--objective cost`` (one card measures one
+device) and refuses otherwise.
 
 The ML-based methodology (the paper's offline-train / online-predict flow):
 
@@ -484,6 +503,21 @@ def compare_methods_main(argv: List[str]) -> int:
     ap.add_argument("--ops", default=None,
                     help="comma list of the suite's ops for --split "
                          "(default: all)")
+    ap.add_argument("--policies", default="latency",
+                    help="comma list of tuning policies to score per method "
+                         "(latency, energy, edp, memory_cap[:bytes]); any "
+                         "(method, policy) Phi > 1 fails")
+    ap.add_argument("--device-matrix", action="store_true",
+                    help="run the comparison once per hardware profile, each "
+                         "on its own cost model (--objective cost), and gate "
+                         "every (device, method) cell on Phi <= 1; the "
+                         "methods default to analytical, bayesian, transfer "
+                         "unless --methods is given")
+    ap.add_argument("--profiles", default=None,
+                    help="comma list of hardware profiles for --device-matrix "
+                         "(default: tpu_v5e,gpu_sm,cpu_interpret; order "
+                         "matters — earlier devices' journals seed "
+                         "strategy='transfer' on later ones)")
     args = ap.parse_args(argv)
 
     from repro_torch.evaluation import (check_report, compare_methods,
@@ -491,6 +525,15 @@ def compare_methods_main(argv: List[str]) -> int:
 
     if args.model:
         os.environ["REPRO_TORCH_ML_MODEL"] = os.path.abspath(args.model)
+    policies = tuple(p for p in args.policies.split(",") if p)
+    if args.device_matrix:
+        if args.objective != "cost":
+            ap.error("--device-matrix scores every profile on its own cost "
+                     "model: pass --objective cost (a card measures one "
+                     "device; compare-methods --methods ...,transfer "
+                     "--journal-dir D on the card reads the matrix's "
+                     "journals)")
+        return _device_matrix(args, argv, policies)
     device = resolve_device(args.device)
     try:
         workloads = _suite(args, args.split) if args.split \
@@ -503,7 +546,7 @@ def compare_methods_main(argv: List[str]) -> int:
         workloads, methods,
         objective_factory=_objective_factory(args, device, made),
         seed=args.seed, max_evals=args.max_evals,
-        journal_dir=args.journal_dir)
+        journal_dir=args.journal_dir, policies=policies)
     failures = sum(getattr(o, "failures", 0) for o in made)
     report["device"] = {"type": device.type, "objective": args.objective,
                         "name": torch.cuda.get_device_name(device)
@@ -523,6 +566,45 @@ def compare_methods_main(argv: List[str]) -> int:
     for p in problems:
         print(f"[compare-methods] FAIL: {p}", file=sys.stderr)
     return 1 if problems or failures else 0
+
+
+def _device_matrix(args, argv: List[str], policies) -> int:
+    """``compare-methods --device-matrix``: ``compare_methods_matrix`` over
+    ``--profiles``, each on its own cost model, journals shared in
+    ``--journal-dir`` (a temporary directory by default) so
+    ``strategy="transfer"`` on later profiles warm-starts from earlier
+    ones."""
+    import tempfile
+
+    from repro_torch.evaluation import (check_matrix, compare_methods_matrix,
+                                        format_matrix)
+    from repro_torch.evaluation.compare import (DEFAULT_MATRIX_METHODS,
+                                                DEFAULT_MATRIX_PROFILES)
+
+    explicit_methods = any(a == "--methods" or a.startswith("--methods=")
+                           for a in argv)
+    methods = tuple(m for m in args.methods.split(",") if m) \
+        if explicit_methods else DEFAULT_MATRIX_METHODS
+    profiles = tuple(p for p in args.profiles.split(",") if p) \
+        if args.profiles else DEFAULT_MATRIX_PROFILES
+    workloads = _suite(args, args.split) if args.split else _workloads(args)
+    journal_dir = args.journal_dir or tempfile.mkdtemp(
+        prefix="repro_torch_matrix_journals_")
+    print(f"[compare-methods] device matrix: {len(workloads)} workloads x "
+          f"{len(methods)} methodologies x {len(profiles)} profiles, "
+          f"journals in {journal_dir}", flush=True)
+    matrix = compare_methods_matrix(
+        workloads, methods, profiles, seed=args.seed,
+        max_evals=args.max_evals, journal_dir=journal_dir, policies=policies)
+    print(format_matrix(matrix))
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(matrix, f, indent=1, sort_keys=True)
+        print(f"[compare-methods] matrix report written to {args.json}")
+    failures = check_matrix(matrix)
+    for failure in failures:
+        print(f"[compare-methods] FAIL: {failure}", file=sys.stderr)
+    return 1 if failures else 0
 
 
 # ---------------------------------------------------------------------------
@@ -776,19 +858,26 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--method", default="bayesian",
                     choices=list(strategies()))
     ap.add_argument("--max-evals", type=int, default=64)
+    ap.add_argument("--policy", default="latency",
+                    help="tuning policy: latency (default), energy, edp, or "
+                         "memory_cap[:bytes]; the winner is stored under it")
     ap.add_argument("--db", default=None,
                     help="path to the tuning DB (default: the session DB)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     workloads = _workloads(args)
-    session = TunerSession(db_path=args.db)
+    session = TunerSession(db_path=args.db, policy=args.policy)
     factory = _objective_factory(args, device, [])
     for wl in workloads:
         res = session.tune(wl, method=args.method, objective=factory(),
                            seed=args.seed, max_evals=args.max_evals)
-        print(f"[tune] {wl.key}: {res.best_config} "
-              f"t={res.best_time * 1e6:.1f}us evals={res.evaluations}")
+        if session.policy.name == "latency":
+            score = f"t={res.best_time * 1e6:.1f}us"
+        else:   # best_time is the policy scalar, not seconds
+            score = f"{session.policy.key}={res.best_time:.6g}"
+        print(f"[tune] {wl.key}: {res.best_config} {score} "
+              f"evals={res.evaluations}")
     return 0
 
 

@@ -6,6 +6,9 @@ Offline -> online lifecycle, as in the JAX package:
     session.tune(wl, method="bayesian")       # offline: populate the DB
     cfg = session.resolve(wl)                 # online: cached, normalized
 
+    TunerSession(policy="energy")             # resolve/tune under a policy
+    session.tune(wl, method="transfer")       # warm start from other devices
+
     with overrides(scan={"radix": 4}):        # scoped experiments
         prefix_sum(x)
 
@@ -15,6 +18,9 @@ Offline -> online lifecycle, as in the JAX package:
 from __future__ import annotations
 
 from repro_torch.core.bayesian import TuneResult
+from repro_torch.core.policy import (Policy, PolicyObjective, get_policy,
+                                     pareto_front, policies,
+                                     policy_scalar_cols)
 from repro_torch.core.space import Config, Workload, build_space
 from repro_torch.tuning.db import DEFAULT_DB_PATH, SCHEMA_VERSION, TuningDB
 from repro_torch.tuning.dispatch import kernel_path, resolve_device
@@ -24,7 +30,9 @@ from repro_torch.tuning.registry import (KernelSpec, normalizer_for,
 from repro_torch.tuning.session import (TunerSession, default_session,
                                         get_strategy,
                                         set_default_session, strategies)
-from repro_torch.tuning.sweep import SweepJournal, SweepResult, run_sweep
+from repro_torch.tuning.sweep import (SweepJournal, SweepResult, config_key,
+                                      journal_path, prune_candidates,
+                                      run_sweep)
 
 # The online-tuning stack (repro_torch.tuning.online) loads on first use,
 # as in the JAX package: PEP 562 keeps `from repro_torch.tuning import
@@ -45,11 +53,13 @@ def __getattr__(name: str):
 
 
 __all__ = [
-    "Config", "DEFAULT_DB_PATH", "KernelSpec", "SCHEMA_VERSION",
-    "SweepJournal", "SweepResult", "TuneResult", "TunerSession", "TuningDB",
-    "Workload", "active_overrides", "build_space", "default_session",
-    "get_strategy", "kernel_path", "normalizer_for",
-    "overrides", "resolve_device", "run_sweep",
+    "Config", "DEFAULT_DB_PATH", "KernelSpec", "Policy", "PolicyObjective",
+    "SCHEMA_VERSION", "SweepJournal", "SweepResult", "TuneResult",
+    "TunerSession", "TuningDB", "Workload", "active_overrides",
+    "build_space", "config_key", "default_session", "get_policy",
+    "get_strategy", "journal_path", "kernel_path", "normalizer_for",
+    "overrides", "pareto_front", "policies", "policy_scalar_cols",
+    "prune_candidates", "resolve_device", "run_sweep",
     "set_default_session", "strategies", "tuned_kernel",
     *sorted(_ONLINE_EXPORTS),
 ]

@@ -5,7 +5,7 @@ keys, same migrations, so the port reads a file the JAX package wrote and
 resolves the identical config for the same workload and profile.
 
 Schema 4 stamps every entry with its metric vector and the policy it was
-tuned under (the port tunes and resolves latency winners only):
+tuned under:
 
     {"schema": 4,
      "entries": {"<platform>|<workload-key>": {"config": {...},
@@ -19,11 +19,11 @@ tuned under (the port tunes and resolves latency winners only):
 The platform prefix in the key namespaces devices; the per-entry
 ``profile`` field makes the device explicit and lets ``lookup`` refuse an
 entry whose profile disagrees with the session's (a config tuned for one
-device must never silently resolve under another — see docs/hardware.md).
-The JAX package keys its non-latency winners under
-``<platform>|policy=<key>|<workload-key>``; the port keeps such entries
-across load/flush but never looks them up, and ``lookup`` refuses any
-entry not stamped ``latency``.
+device must never silently resolve under another).
+Non-latency winners key under ``<platform>|policy=<key>|<workload-key>``
+— latency keys are unchanged from schema 3, so every existing entry keeps
+resolving, and an energy-tuned config never answers a latency lookup (or
+vice versa).  ``lookup`` double-checks the per-entry ``policy`` stamp.
 
 Legacy files migrate transparently: schema-1 files were a flat
 ``{key: entry}`` mapping; schema-2 entries lack the ``profile`` field and
@@ -48,8 +48,8 @@ from typing import Dict, Mapping, Optional
 
 SCHEMA_VERSION = 4
 
-# the policy every entry the port writes or resolves is stamped with
-LATENCY = "latency"
+# the only policy that existed before schema 4; also the keyless default
+DEFAULT_POLICY = "latency"
 
 # every entry written before the profile field existed was tuned against
 # the v5e machine model
@@ -60,17 +60,21 @@ DEFAULT_DB_PATH = os.environ.get(
     os.path.join(os.path.dirname(__file__), "..", "..", "..", "artifacts",
                  "tuning_db_torch.json"))
 
-# the latency entry key, the JAX package's (reshaping it without bumping
-# the schema orphans every stored winner)
-KEY_FORMAT = "{platform}|{workload_key}"
+# the entry-key shapes, as format templates: latency keys keep the schema-3
+# shape so pre-policy entries resolve; non-latency winners carry the policy
+# segment.  Reshaping a key without bumping the schema orphans every stored
+# winner.
+KEY_FORMATS = ("{platform}|{workload_key}",
+               "{platform}|policy={policy}|{workload_key}")
 
 
 def make_entry(cfg: Dict, time_s: float, method: str, evaluations: int,
-               profile: str, metrics: Mapping[str, float]) -> Dict:
+               profile: str, policy: str,
+               metrics: Mapping[str, float]) -> Dict:
     """One schema-4 DB entry."""
     return {"config": dict(cfg), "time_s": time_s, "method": method,
             "evaluations": evaluations, "profile": profile,
-            "policy": LATENCY, "metrics": dict(metrics)}
+            "policy": policy, "metrics": dict(metrics)}
 
 
 def _migrate_entry(key: str, entry: Dict) -> Dict:
@@ -85,7 +89,7 @@ def _migrate_entry(key: str, entry: Dict) -> Dict:
     if "profile" not in out:
         out["profile"] = key.split("|", 1)[0] if "|" in key else LEGACY_PROFILE
     if "policy" not in out:
-        out["policy"] = LATENCY
+        out["policy"] = DEFAULT_POLICY
     if not isinstance(out.get("metrics"), dict):
         out["metrics"] = {"time_s": out.get("time_s")}
     return out
@@ -154,13 +158,19 @@ class TuningDB:
 
     # -- access --------------------------------------------------------------
 
-    def _key(self, wl) -> str:
-        return KEY_FORMAT.format(platform=self.platform, workload_key=wl.key)
+    def _key(self, wl, policy: Optional[str] = None) -> str:
+        pol = policy or DEFAULT_POLICY
+        if pol == DEFAULT_POLICY:
+            return KEY_FORMATS[0].format(platform=self.platform,
+                                         workload_key=wl.key)
+        return KEY_FORMATS[1].format(platform=self.platform, policy=pol,
+                                     workload_key=wl.key)
 
-    def lookup(self, wl) -> Optional[Dict]:
+    def lookup(self, wl, policy: Optional[str] = None) -> Optional[Dict]:
+        pol = policy or DEFAULT_POLICY
         with self._lock:
             self._load()
-            entry = self._data.get(self._key(wl))
+            entry = self._data.get(self._key(wl, pol))
             if not entry:
                 return None
             # defense in depth on top of the key prefix: an entry stamped
@@ -169,19 +179,21 @@ class TuningDB:
             # and same for the policy stamp
             if entry.get("profile", self.platform) != self.platform:
                 return None
-            if entry.get("policy", LATENCY) != LATENCY:
+            if entry.get("policy", DEFAULT_POLICY) != pol:
                 return None
             return dict(entry["config"])
 
     def store(self, wl, cfg: Dict, time_s: float, method: str,
               evaluations: int = 0, *,
-              metrics: Optional[Mapping[str, float]] = None) -> None:
+              metrics: Optional[Mapping[str, float]] = None,
+              policy: Optional[str] = None) -> None:
+        pol = policy or DEFAULT_POLICY
         vec = {k: float(v) for k, v in (metrics or {}).items()}
         vec.setdefault("time_s", float(time_s))
         with self._lock:
             self._load()
-            self._data[self._key(wl)] = make_entry(
-                cfg, time_s, method, evaluations, self.platform, vec)
+            self._data[self._key(wl, pol)] = make_entry(
+                cfg, time_s, method, evaluations, self.platform, pol, vec)
             self._flush_locked()
 
     def entries(self) -> Dict[str, Dict]:

@@ -18,8 +18,8 @@ forest exists or tree disagreement is high.
 The port's own copy of ``repro.tuning.ml``: features, labels, splits, trees
 and choices are the same numpy arithmetic, so both packages compute
 identical arrays, and an artifact saved by either loads in the other.  The
-artifact path comes from ``$REPRO_TORCH_ML_MODEL``.  Labels are times (the
-latency policy, the only one the port carries).
+artifact path comes from ``$REPRO_TORCH_ML_MODEL``.  Labels are times, or
+a policy's scalars (``policy=``, see ``repro_torch.core.policy``).
 """
 from repro_torch.tuning.ml.dataset import (Dataset, build_dataset, dataset_from_db,
                                            dataset_from_journal,

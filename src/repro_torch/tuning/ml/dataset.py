@@ -19,10 +19,8 @@ Splits follow the paper's generalization axis: train on problem sizes
 {N_train}, evaluate on *unseen* sizes — never a random row split, which
 would leak every size into training.
 
-The PyTorch port's own copy of ``repro.tuning.ml.dataset``.  The port
-carries the latency policy only: every ``policy`` argument takes ``None``
-or ``"latency"`` (time labels) and raises ``ValueError`` for any other
-until ``core/policy.py`` is ported.
+The PyTorch port's own copy of ``repro.tuning.ml.dataset``: the same
+journals give the same rows and labels, under every policy.
 """
 from __future__ import annotations
 
@@ -164,14 +162,6 @@ class _Builder:
 # Sources
 # ---------------------------------------------------------------------------
 
-def _check_policy(policy: Optional[str]) -> None:
-    """Time labels only: the latency policy is the one the port carries."""
-    if policy not in (None, "latency"):
-        raise ValueError(f"policy {policy!r}: the port labels groups with "
-                         f"times only (the latency policy); "
-                         f"repro_torch.core.policy is not ported yet")
-
-
 def sweep_workload(wl: Workload, objective: Optional[Objective] = None,
                    journal_dir: Optional[str] = None,
                    policy: Optional[str] = None
@@ -185,10 +175,13 @@ def sweep_workload(wl: Workload, objective: Optional[Objective] = None,
     sweep engine; with ``journal_dir`` the sweep checkpoints to (and
     resumes from) the per-(workload, objective) journal.
 
-    ``policy`` is ``None`` or ``"latency"``: time labels (any other
-    policy raises until ``core/policy.py`` is ported).
+    ``policy`` makes the labels metric-aware: instead of raw seconds the
+    group is labeled with that policy's scalars over the sweep's metric
+    vectors (see ``repro_torch.core.policy``), so a forest can learn the
+    energy/EDP ranking from the same sweeps.  The journal stays keyed by
+    the raw objective — one sweep feeds every policy's dataset.  Default
+    ``None`` keeps the historical time labels bit-for-bit.
     """
-    _check_policy(policy)
     objective = objective or CostModelObjective()
     wl = wl.canonical()
     space = build_space(wl)
@@ -197,6 +190,11 @@ def sweep_workload(wl: Workload, objective: Optional[Objective] = None,
     res = run_sweep(space, objective, journal=journal)
     cfgs = [c for c, _ in res.history]
     times = np.array([t for _, t in res.history])
+    if policy is not None:
+        from repro_torch.core.policy import get_policy, policy_scalar_cols
+        pol = get_policy(policy, getattr(space, "spec", None))
+        if pol.name != "latency" and res.metrics is not None:
+            times = policy_scalar_cols(pol, res.metrics)
     X = featurize_batch(space, cfgs)
     return cfgs, X, times
 
@@ -212,10 +210,10 @@ def build_dataset(workloads: Iterable[Workload],
     sweep results, so callers (e.g. ``tune.py train-model --db``) can
     persist each exhaustive winner without sweeping a second time.
     ``journal_dir`` checkpoints every sweep (see ``repro_torch.tuning.sweep``),
-    making a long dataset build resumable.  ``policy``: see
-    :func:`sweep_workload`.
+    making a long dataset build resumable.  ``policy`` labels every group
+    with that policy's scalars instead of raw seconds (see
+    :func:`sweep_workload`).
     """
-    _check_policy(policy)
     objective = objective or CostModelObjective()
     b = _Builder()
     for wl in workloads:
@@ -234,7 +232,9 @@ def dataset_from_journal(path: str,
                          policy: Optional[str] = None) -> Dataset:
     """One journal file -> one labeled group (no re-evaluation).
 
-    ``policy``: see :func:`sweep_workload`.
+    ``policy`` labels the group with that policy's scalars over the
+    journal's metric vectors (version-3 journals record them; pre-vector
+    entries fall back to their time — see ``repro_torch.core.policy``).
 
     The journal header carries the workload; every completed entry whose
     config is still valid in the current space becomes a training row.
@@ -249,7 +249,6 @@ def dataset_from_journal(path: str,
     "this IS the group optimum" (same exclusion the DB path applies to
     ``exhaustive-pruned`` records).
     """
-    _check_policy(policy)
     b = _Builder()
     journal = SweepJournal(path)
     header = journal.read_header()
@@ -278,6 +277,17 @@ def dataset_from_journal(path: str,
     all_cfgs = space.enumerate_valid()
     index = {config_key(c): i for i, c in enumerate(all_cfgs)}
     labels = [t for _, t in raw_entries]
+    if policy is not None:
+        from repro_torch.core.policy import get_policy, policy_scalar_cols
+        pol = get_policy(policy, getattr(space, "spec", None))
+        if pol.name != "latency":
+            # metric_entries dedups exactly like entries, so the vectors
+            # are positionally parallel to raw_entries
+            vecs = [v for _, v in journal.metric_entries()]
+            axes = sorted({k for v in vecs for k in v})
+            cols = {a: np.array([v.get(a, np.nan) for v in vecs])
+                    for a in axes}
+            labels = list(policy_scalar_cols(pol, cols))
     rows, times = [], []
     for j, (cfg, _) in enumerate(raw_entries):
         i = index.get(config_key(cfg))
@@ -298,11 +308,11 @@ def dataset_from_journal_dir(journal_dir: str,
     journals — a directory that accumulated sweeps under several
     objectives (different noise, different cost models) would otherwise
     contribute duplicate groups of one workload with inconsistent times.
-    ``policy``: see :func:`sweep_workload`.
+    ``policy`` forwards to :func:`dataset_from_journal` (metric-aware
+    labels).
     """
     import glob
     import os
-    _check_policy(policy)
     signature = objective.signature() if objective is not None else None
     parts = [dataset_from_journal(p, signature=signature, policy=policy)
              for p in sorted(glob.glob(os.path.join(journal_dir, "*.jsonl")))]

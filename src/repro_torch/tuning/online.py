@@ -19,7 +19,7 @@ steps instead of a dedicated sweep.  This module is the online half:
     enough samples to be believed.  The guard band generalizes to a
     **power envelope** (``power_envelope=``): a candidate whose
     *model-predicted* average draw (``energy_j / time_s`` from the cost
-    model's metric vector) exceeds the
+    model's metric vector — see :mod:`repro_torch.core.policy`) exceeds the
     incumbent's modeled draw times the envelope is vetoed before it ever
     serves a production step.  Off by default; latency behavior is
     unchanged when disabled.
@@ -45,9 +45,8 @@ how the convergence/rollback behavior is tested without a live engine.
 
 The PyTorch port's own copy of ``repro.tuning.online``: the state machine
 is the same Python over floats, so the same sequence of ``observe`` calls
-gives the same trials, states, promotions and ``stopped_by``.  The
-port has no ``core/policy.py`` yet: ``online_search(policy=...)`` takes
-``None`` or ``"latency"`` and raises ``NotImplementedError`` for the rest.
+gives the same trials, states, promotions and ``stopped_by``, under
+every policy.
 """
 from __future__ import annotations
 
@@ -671,18 +670,20 @@ def online_search(space: SearchSpace, objective: Objective, *, seed: int = 0,
     same numbers as everyone else).  The prior is the analytical
     suggestion — the paper's zero-evaluation cold start.
 
-    ``policy``: JAX scalarizes the objective's metric vector by a
-    :mod:`repro.core.policy` policy before the EWMA sees it; the port has
-    the latency policy alone (``None`` or ``"latency"``), and any other
-    raises until ``core/policy.py`` is ported (``ROADMAP.md`` §1 item 8).
-    ``power_envelope`` forwards to :class:`OnlineTuner`.
+    ``policy`` scalarizes the objective's metric vector before the EWMA
+    sees it (so e.g. ``policy="energy"`` makes trials compete on modeled
+    joules); the session passes an already-wrapped
+    :class:`~repro_torch.core.policy.PolicyObjective`, so this parameter is
+    for direct callers.  ``power_envelope`` forwards to :class:`OnlineTuner`.
     """
     del seed    # the trial queue is analytically ranked: deterministic
     wl = space.workload
-    if policy not in (None, "latency"):
-        raise NotImplementedError(
-            f"policy={policy!r}: the port tunes latency alone until "
-            f"core/policy.py is ported (ROADMAP.md §1 item 8)")
+    if policy is not None:
+        from repro_torch.core.policy import PolicyObjective, get_policy
+        pol = get_policy(policy)
+        if pol.name != "latency" and not isinstance(objective,
+                                                    PolicyObjective):
+            objective = PolicyObjective(objective, pol)
     if prior is None:
         prior = AnalyticalTuner().suggest(space)
     if top_k is None:

@@ -11,12 +11,20 @@ replaces the seed's serial per-config Python loop with:
   * **a resumable journal** — one JSONL file per (workload, objective)
     with atomic line appends, so a long wall-clock sweep survives
     interruption and a re-run only evaluates what is missing;
-  * **metric-vector journaling** — entries record the objective's full
-    metric vector (time/energy/peak-VMEM), the JAX package's journal
-    format; the port's sweep picks the fastest config (the latency policy,
-    the only one it carries).  The JAX package's analytical pruning is not
-    ported: a sweep's header records ``"pruned": 0``; the online tuner's
-    journals record the configs it never queued, as in JAX.
+  * **metric-vector journaling + Pareto fronts** — entries record the full
+    metric vector (time/energy/peak-VMEM), the sweep maintains the
+    non-dominated set per (workload, objective), and a :class:`Policy`
+    picks the winner from the front — one sweep serves every policy;
+  * **analytical-dominance pruning** — ``prune="analytical"`` keeps the
+    top-k candidates ranked by the zero-evaluation expert model (the
+    model-steered pruning lever of Schoonhoven et al.), recording how many
+    candidates were dropped.  Pruning is latency-ranked, so combining it
+    with a non-latency policy raises rather than silently searching the
+    wrong subset.
+
+The PyTorch port's own copy of ``repro.tuning.sweep``: journals, headers,
+pruned sets and Pareto fronts are the JAX package's, so a journal written
+by either package resumes in the other.
 
 ``run_sweep`` is what ``ExhaustiveSearch.tune`` (and therefore
 ``strategy="exhaustive"``) executes; ``repro_torch.tuning.ml.dataset`` consumes
@@ -28,12 +36,14 @@ import dataclasses
 import json
 import os
 import re
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from repro_torch.core.bayesian import TuneResult
 from repro_torch.core.objective import METRIC_TIME, Objective
+from repro_torch.core.policy import (Policy, get_policy, pareto_front,
+                                     policy_scalar_cols)
 from repro_torch.core.space import Config, SearchSpace, Workload
 
 # v3 adds the per-entry metric vector ("m": {metric: value}); v2 added the
@@ -43,15 +53,18 @@ from repro_torch.core.space import Config, SearchSpace, Workload
 # embedded in every cost-model signature.
 JOURNAL_VERSION = 3
 
-# configs per batch_eval call; each batch is journaled before the next
-CHUNK = 1024
+# default kept-set size for prune="analytical"; expensive objectives can
+# pass an explicit top_k
+DEFAULT_TOP_K = 64
 
 
 def make_header(wl: Workload, objective: Objective, space_size: int,
                 pruned: int = 0) -> Dict:
     """The version-stamped journal header record (one per journal file);
     ``space_size`` is the FULL valid-space size and ``pruned`` the configs
-    never measured by design (a model-steered subset)."""
+    never measured by design (a model-steered subset), so journal
+    consumers (dataset export) can tell "complete enumeration" from
+    "model-steered subset"."""
     return {"kind": "header", "version": JOURNAL_VERSION,
             "workload": {"key": wl.key, "op": wl.op, "n": wl.n,
                          "batch": wl.batch, "dtype": wl.dtype,
@@ -309,6 +322,27 @@ class SweepJournal:
 
 
 # ---------------------------------------------------------------------------
+# Pruning
+# ---------------------------------------------------------------------------
+
+def prune_candidates(space: SearchSpace, cands: List[Config],
+                     top_k: int) -> Tuple[List[Config], int]:
+    """Keep the ``top_k`` analytically-ranked candidates, enumeration order.
+
+    The expert model ranks for free (no objective evaluations); measuring
+    only its favourites is the Prajapati-style "rank before you measure"
+    lever for objectives where every evaluation is minutes of wall clock.
+    """
+    if top_k >= len(cands):
+        return cands, 0
+    from repro_torch.core.analytical import score
+    order = sorted(range(len(cands)),
+                   key=lambda i: score(space, cands[i]).key(), reverse=True)
+    kept_idx = sorted(order[:top_k])          # preserve enumeration order
+    return [cands[i] for i in kept_idx], len(cands) - top_k
+
+
+# ---------------------------------------------------------------------------
 # The sweep
 # ---------------------------------------------------------------------------
 
@@ -318,68 +352,140 @@ class SweepResult:
     best_time: float                     # winner's measured seconds
     evaluations: int                     # fresh objective evaluations
     resumed: int                         # configs answered by the journal
-    total: int                           # candidates swept
+    pruned: int                          # candidates dropped before measuring
+    total: int                           # candidates actually swept
     history: List[Tuple[Config, float]]  # enumeration order, penalty-clamped
-    stopped_by: str                      # "exhausted"
+    stopped_by: str                      # "exhausted" | "pruned"
     journal: Optional[str] = None        # journal path, when journaled
+    metrics: Optional[Dict[str, np.ndarray]] = None  # columns over history
+    pareto: Tuple = ()                   # non-dominated (config, vector)s
+    policy: Optional[str] = None         # policy key the winner was picked by
+    best_scalar: Optional[float] = None  # winner's policy scalar
 
     def as_tune_result(self) -> TuneResult:
+        # under a policy, the quantity the search minimized (and therefore
+        # reports as best/history values) is the policy scalar
+        if self.policy is not None and self.metrics is not None:
+            pol = get_policy(self.policy)
+            scal = policy_scalar_cols(pol, self.metrics)
+            history = list(zip((c for c, _ in self.history), scal.tolist()))
+            return TuneResult(self.best_config, float(self.best_scalar),
+                              self.evaluations + self.resumed, history,
+                              self.stopped_by)
         return TuneResult(self.best_config, self.best_time,
                           self.evaluations + self.resumed, self.history,
                           self.stopped_by)
 
 
 def run_sweep(space: SearchSpace, objective: Objective, *,
-              journal: Optional[SweepJournal] = None) -> SweepResult:
-    """Evaluate the valid space; resume from ``journal``.
+              journal: Optional[SweepJournal] = None,
+              prune: Optional[str] = None, top_k: Optional[int] = None,
+              chunk: int = 1024,
+              policy: Union[str, Policy, None] = None) -> SweepResult:
+    """Evaluate the (optionally pruned) valid space; resume from ``journal``.
 
-    Evaluation happens in ``CHUNK``-sized batches through
+    Evaluation happens in ``chunk``-sized batches through
     ``objective.batch_eval_metrics``; each completed chunk is journaled
     (full metric vectors) before the next starts, so an interrupted sweep
     re-run skips everything already measured and still returns the
-    identical winner: the fastest config.
+    identical winner.  The result carries the Pareto front over the
+    objective's metric axes; ``policy`` picks the winner from it (default
+    ``latency`` — identical behavior and numbers as the scalar-era sweep).
+
+    Pruning is ranked by the latency-shaped analytical model, so it
+    composes only with policies declared ``prune_safe`` — any other
+    combination raises instead of optimizing the wrong subset.
     """
     wl = space.workload
+    pol = None
+    if policy is not None:
+        pol = get_policy(policy, getattr(objective, "spec", None))
+        if pol.name == "latency":
+            pol = None
+    if prune is not None and pol is not None and not pol.prune_safe:
+        raise ValueError(
+            f"prune={prune!r} ranks candidates by latency and cannot vouch "
+            f"for policy {pol.key!r}; sweep unpruned and pick from the "
+            f"Pareto front instead")
     cands = space.enumerate_valid()
     if not cands:
         raise ValueError(f"empty search space for {wl.key}")
+    full_size = len(cands)
+
+    pruned = 0
+    if prune is not None:
+        if prune != "analytical":
+            raise ValueError(f"unknown prune mode {prune!r}; "
+                             f"supported: 'analytical'")
+        if top_k is not None and top_k < 1:
+            raise ValueError(f"top_k must be >= 1, got {top_k}")
+        cands, pruned = prune_candidates(
+            space, cands, top_k if top_k is not None else DEFAULT_TOP_K)
 
     names = objective.metric_names()
-    times = np.full(len(cands), np.nan)
+    cols = {n: np.full(len(cands), np.nan) for n in names}
+    times = cols[METRIC_TIME]
     resumed = 0
     if journal is not None:
-        done = journal.load(wl, objective)
+        done = journal.load_metrics(wl, objective)
         pending: List[int] = []
         for i, cand in enumerate(cands):
-            t = done.get(config_key(cand)) if done else None
-            if t is None:
+            vec = done.get(config_key(cand)) if done else None
+            if vec is None:
                 pending.append(i)
             else:
-                times[i] = t
+                # axes a pre-vector journal did not record stay NaN; the
+                # policy scalarization falls back to time for those rows
+                for n in names:
+                    if n in vec:
+                        cols[n][i] = vec[n]
                 resumed += 1
     else:
         pending = list(range(len(cands)))
 
-    for lo in range(0, len(pending), CHUNK):
-        idx = pending[lo: lo + CHUNK]
+    chunk = max(int(chunk), 1)
+    for lo in range(0, len(pending), chunk):
+        idx = pending[lo: lo + chunk]
         mcols = objective.batch_eval_metrics(space, [cands[i] for i in idx],
                                              assume_valid=True)
-        times[idx] = mcols[METRIC_TIME]
+        for n in names:
+            cols[n][idx] = mcols[n]
         if journal is not None:
             journal.append(
-                wl, objective, len(cands),
+                wl, objective, full_size,
                 [(cands[i], float(mcols[METRIC_TIME][j]),
                   {n: float(mcols[n][j]) for n in names})
-                 for j, i in enumerate(idx)])
+                 for j, i in enumerate(idx)],
+                pruned=pruned)
 
-    best_i = int(np.argmin(times))
+    if pol is not None:
+        scal = policy_scalar_cols(pol, cols)
+        best_i = int(np.argmin(scal))
+        best_scalar = float(scal[best_i])
+    else:
+        best_i = int(np.argmin(times))
+        best_scalar = None
     return SweepResult(
         best_config=cands[best_i],
         best_time=float(times[best_i]),
         evaluations=len(pending),
         resumed=resumed,
+        pruned=pruned,
         total=len(cands),
         history=list(zip(cands, times.tolist())),
-        stopped_by="exhausted",
+        stopped_by="pruned" if pruned else "exhausted",
         journal=journal.path if journal is not None else None,
+        metrics=cols,
+        pareto=_sweep_front(cols, cands, names),
+        policy=pol.key if pol is not None else None,
+        best_scalar=best_scalar,
     )
+
+
+def _sweep_front(cols: Dict[str, np.ndarray], cands: List[Config],
+                 names: Sequence[str]) -> Tuple:
+    """Pareto front over the swept columns; rows with unrecorded axes
+    (pre-vector journal resumes) count as worst-possible on those axes."""
+    filled = {n: np.nan_to_num(cols[n], nan=np.inf) for n in names}
+    filled[METRIC_TIME] = cols[METRIC_TIME]
+    return pareto_front(filled, cands, names)

@@ -118,9 +118,11 @@ def test_port_resumes_a_repro_journal(tmp_path, keep):
 
 
 def test_port_keeps_repro_non_latency_winners(tmp_path):
-    """The port tunes and resolves latency winners only: an energy winner
-    that repro stored never answers the port's lookup, and survives the
-    port's next store so repro still resolves it."""
+    """Kept name, new check: an energy winner repro stored resolves in the
+    port under the energy policy (a lookup it refused until the port had
+    policies), never answers a latency lookup, and survives the port's
+    own energy and latency stores, which repro then resolves; both
+    packages tuning the same workload under energy store the same entry."""
     path = str(tmp_path / "policies.json")
     jsession = JSession(db_path=path, spec=j_profiles.get_profile("gpu_sm"))
     jwl = JWorkload(op="scan", n=1024, batch=32, variant="ks")
@@ -130,10 +132,24 @@ def test_port_keeps_repro_non_latency_winners(tmp_path):
     tsession = TSession(db_path=path, spec=t_profiles.get_profile("gpu_sm"))
     twl = TWorkload(op="scan", n=1024, batch=32, variant="ks")
     assert tsession.lookup(twl) is None
+    assert tsession.lookup(twl, policy="energy") == energy_cfg
+    assert TSession(db_path=path, spec=t_profiles.get_profile("gpu_sm"),
+                    policy="energy").resolve_raw(twl) == energy_cfg
     tsession.tune(twl, method="random", max_evals=6, seed=1)
+    tsession.tune(twl, method="random", max_evals=6, seed=3, policy="edp")
     again = JSession(db_path=path, spec=j_profiles.get_profile("gpu_sm"))
     assert again.lookup(jwl, policy="energy") == energy_cfg
     assert again.lookup(jwl) == tsession.lookup(twl)
+    assert again.lookup(jwl, policy="edp") == \
+        tsession.lookup(twl, policy="edp")
+    # the same tune under energy in each package: the same entry
+    jpath, tpath = str(tmp_path / "j.json"), str(tmp_path / "t.json")
+    JSession(db_path=jpath, spec=j_profiles.get_profile("gpu_sm")).tune(
+        jwl, method="random", max_evals=6, seed=2, policy="energy")
+    TSession(db_path=tpath, spec=t_profiles.get_profile("gpu_sm")).tune(
+        twl, method="random", max_evals=6, seed=2, policy="energy")
+    with open(jpath) as jf, open(tpath) as tf:
+        assert json.load(tf) == json.load(jf)
 
 
 FFT_TUNED = [("fft", 1024, 64), ("large_fft", 2 ** 16, 16)]

@@ -38,6 +38,7 @@ tml = importlib.import_module("repro_torch.tuning.ml")
 j_dataset = importlib.import_module("repro.tuning.ml.dataset")
 t_dataset = importlib.import_module("repro_torch.tuning.ml.dataset")
 t_forest = importlib.import_module("repro_torch.tuning.ml.forest")
+t_sweep = importlib.import_module("repro_torch.tuning.sweep")
 j_evaluate = importlib.import_module("repro.tuning.ml.evaluate")
 t_evaluate = importlib.import_module("repro_torch.tuning.ml.evaluate")
 j_profiles = importlib.import_module("repro.hw.profiles")
@@ -263,8 +264,8 @@ def _hand_journal(path, wl, obj, space, entries, pruned):
 def test_pruned_journal_rule_equals_repro(tmp_path, pruned, part, rows):
     """A pruned sweep's partial journal is skipped by both packages (its
     winner is unguaranteed); once the space is complete, or when the
-    sweep was never pruned, it loads.  The port's sweeps write pruned 0,
-    so the header here is written by hand."""
+    sweep was never pruned, it loads.  The header here is written by hand
+    (a pruned sweep of the port's own: the next test)."""
     _, twl = _pair("fft", "stockham", 256)
     with _profile("tpu_v5e"):
         space = t_build_space(twl)
@@ -292,19 +293,66 @@ def test_journal_of_another_objective_is_filtered_out(tmp_path):
                 str(tmp_path)).keys) == 2
 
 
+def test_port_pruned_sweep_journal_loads_once_complete(tmp_path):
+    """A journal left partway through a sweep the port pruned (its header
+    records the dropped configs) is skipped by both packages' readers;
+    the full sweep resumed into it completes the space, and then both
+    load it, equal to a never-pruned sweep's rows."""
+    _, twl = _pair("fft", "stockham", 256)
+    with _profile("tpu_v5e"):
+        space, cost = t_build_space(twl), TCost()
+        journal = t_sweep.SweepJournal.for_workload(str(tmp_path), twl, cost)
+        res = t_sweep.run_sweep(space, cost, journal=journal,
+                                prune="analytical", top_k=8)
+        assert res.stopped_by == "pruned" and res.pruned > 0
+        assert journal.read_header()["pruned"] == res.pruned
+        for ml_pkg in (tml, jml):
+            assert len(ml_pkg.dataset_from_journal(journal.path)) == 0
+            assert len(ml_pkg.dataset_from_journal_dir(str(tmp_path))) == 0
+        full = t_sweep.run_sweep(space, cost, journal=journal)
+        assert (full.evaluations, full.resumed) == (res.pruned, 8)
+        tds = tml.dataset_from_journal(journal.path)
+        jds = jml.dataset_from_journal(journal.path)
+        _same_dataset(jds, tds)
+        assert len(tds) == len(space.enumerate_valid())
+        # the pruned part's rows come first: the same rows, journal order
+        direct = tml.build_dataset([twl], cost)
+        assert np.array_equal(np.sort(tds.y), np.sort(direct.y))
+        assert sorted(map(tuple, tds.X)) == sorted(map(tuple, direct.X))
+
+
 @pytest.mark.parametrize("fn", ["sweep_workload", "build_dataset",
                                 "dataset_from_journal",
                                 "dataset_from_journal_dir"])
 def test_policies_other_than_latency_raise(tmp_path, fn):
-    """The port labels with times only until core/policy.py is ported: a
-    policy is never dropped silently."""
-    _, twl = _pair("fft", "stockham", 256)
-    arg = {"sweep_workload": twl, "build_dataset": [twl],
-           "dataset_from_journal": str(tmp_path / "none.jsonl"),
-           "dataset_from_journal_dir": str(tmp_path)}[fn]
-    with pytest.raises(ValueError, match="core.policy is not ported"):
-        getattr(tml, fn)(arg, policy="energy")
-    getattr(tml, fn)(arg, policy="latency")
+    """Kept name, new check: each dataset source labels its groups with a
+    non-latency policy's scalars (energy) exactly as repro's does, and not
+    with times (it raised until ``core/policy.py`` was ported)."""
+    jwl, twl = _pair("fft", "stockham", 256)
+    with _profile("tpu_v5e"):
+        if fn in ("dataset_from_journal", "dataset_from_journal_dir"):
+            t_sweep.run_sweep(t_build_space(twl), TCost(),
+                              journal=t_sweep.SweepJournal.for_workload(
+                                  str(tmp_path), twl, TCost()))
+        path = str(next(tmp_path.glob("*.jsonl"), tmp_path / "none.jsonl"))
+        args = {"sweep_workload": (jwl, twl), "build_dataset": ([jwl], [twl]),
+                "dataset_from_journal": (path, path),
+                "dataset_from_journal_dir": (str(tmp_path), str(tmp_path))}
+        jarg, targ = args[fn]
+        kw = {"objective": TCost()} if fn in ("sweep_workload",
+                                              "build_dataset") else {}
+        jkw = {"objective": JCost()} if kw else {}
+        got = getattr(tml, fn)(targ, policy="energy", **kw)
+        want = getattr(jml, fn)(jarg, policy="energy", **jkw)
+        times = getattr(tml, fn)(targ, policy="latency", **kw)
+    if fn == "sweep_workload":
+        assert got[0] == want[0]
+        assert np.array_equal(got[1], want[1])
+        assert np.array_equal(got[2], want[2])
+        assert not np.array_equal(got[2], times[2])
+    else:
+        _same_dataset(want, got)
+        assert not np.array_equal(got.y, times.y)
 
 
 # ---------------------------------------------------------------------------

@@ -11,8 +11,8 @@ functions and ``warm_tuner`` over journals of either package;
 cost model under tpu_v5e, gpu_sm and cpu_interpret; the ``online-replay``
 CLI's summary.  Then the counterparts of ``tests/test_online.py`` on the
 port (its default profile, h100), the ``online-replay`` and
-``launch.serve --device cpu --reduced`` CLIs end to end, and the
-policies the port does not have yet.
+``launch.serve --device cpu --reduced`` CLIs end to end, and
+``online_search`` under each policy against repro's.
 """
 import importlib
 import json
@@ -589,15 +589,31 @@ def test_online_in_compare_report():
     assert row["stopped_by"] in ("budget", "exhausted")
 
 
-def test_non_latency_policy_raises():
-    space = build_space(Workload(op="tridiag", n=128, batch=2**13,
-                                 variant="pcr"))
+def test_non_latency_policy_raises(pin):
+    """Kept name, new check: ``online_search(policy=)`` scalarizes the
+    metric vector through ``PolicyObjective``, as JAX's does — the same
+    trials, winner, scalar and ``stopped_by`` as repro's under every
+    policy (it raised until ``core/policy.py`` was ported)."""
+    pin("gpu_sm")
+    kw = dict(op="tridiag", n=128, batch=2**13, variant="pcr")
+    jwl, twl = _pair(kw)
+    space, jspace = build_space(twl), j_build_space(jwl)
     obj = CachedObjective(CostModelObjective())
     assert online_search(space, obj, budget=4, policy="latency") \
         .best_config == online_search(space, obj, budget=4).best_config
-    for policy in ("energy", "edp", "memory_cap"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            online_search(space, obj, budget=4, policy=policy)
+    winners = set()
+    for policy in ("energy", "edp", "memory_cap", "memory_cap:16384"):
+        tres = online_search(space, CachedObjective(CostModelObjective()),
+                             budget=12, policy=policy)
+        jres = j_online.online_search(jspace, JCached(JCost()), budget=12,
+                                      policy=policy)
+        assert (tres.best_config, tres.best_time, tres.evaluations,
+                tres.stopped_by) == (jres.best_config, jres.best_time,
+                                     jres.evaluations, jres.stopped_by)
+        assert tres.history == jres.history
+        winners.add(tres.best_time)
+    # the scalars are policy scalars (joules, joule-seconds), not one time
+    assert len(winners) > 1
 
 
 # ---------------------------------------------------------------------------
