@@ -199,7 +199,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    counter (NVML ``nvmlDeviceGetTotalEnergyConsumption``, ctypes on the
    NVML library ``libnvidia-ml.so.1``) around a second of back-to-back calls
    of each, printed in mJ and ms a call beside the model's (not gated);
-17. the ``kernels`` line: per kernel (all twelve) its launches on the main
+17. training (``[train]``): ``run_training`` on qwen1.5-0.5b at full width
+   and depth (24 layers, bf16 parameters, remat "full", the plain-op
+   attention: neither package has a backward for the flash kernel) for 20
+   steps of AdamW on the synthetic corpus, 8 x 512 tokens a step: the
+   losses finite and the mean of the last three below the first three's;
+   the median step, tokens/s and peak memory; one step under
+   ``torch.profiler`` (top five kernels, idle share); three steps each of
+   Adafactor, two micro steps, int8 error feedback and remat "none" beside
+   it; a restart at full width (a checkpoint every 4 steps, a failure
+   injected at step 6: the second run resumes at 4 and ends at 8, the bf16
+   params it restored bit-equal to those the first run saved); one reduced
+   f32 train step on the card against the CPU (loss and grad norm at
+   DTYPE_TOL); the packing's prefix sum on the card (``scan_add``
+   launched, offsets bit-equal to the plain version's); and the gradient
+   guard: a backward through each of the twelve kernels, and a train step
+   of qwen with ``use_pallas`` and of mamba2-130m at full width, must
+   raise the guard's error naming a kernel, with no gradient left behind;
+18. the ``kernels`` line: per kernel (all twelve) its launches on the main
    paths (by route for ``scan_add``, ``scan_linrec``, ``scan_linrec_prod``,
    ``pcr``, ``fft_stockham`` and the three SSD kernels, with the earlier
    kernel's time beside theirs; by path for the kernels that run on
@@ -207,7 +224,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    by chunk length and with the tuning loop's
    launches by route; every kernel with its launches in the ``[ml]``
    sweeps, ``launches_ml``, and in the ``[portability]`` phase,
-   ``launches_portability``), its error
+   ``launches_portability``, and on the train path, ``launches_train``),
+   its error
    against the plain version, its time, the plain version's and the
    library call's (null where no one PyTorch call
    computes the function; ``scaled_dot_product_attention`` and
@@ -4530,6 +4548,403 @@ def phase_portability(dev, card: str):
     return counts
 
 
+# Training (phase 17): qwen1.5-0.5b at full width through the port's loop
+TRAIN_STEPS = 20
+TRAIN_BATCH, TRAIN_SEQ = 8, 512        # global batch x sequence: 4096 tokens
+TRAIN_VARIANT_STEPS = 3
+TRAIN_VARIANTS = (("adafactor", {"optimizer": "adafactor"}),
+                  ("micro_steps=2", {"micro_steps": 2}),
+                  ("int8_ef", {"grad_compression": "int8_ef"}),
+                  ("remat=none", {}))
+TRAIN_RESTART = (8, 4, 6)     # steps, checkpoint every, injected failure at
+TRAIN_GUARD_TOKENS = (1, 256)  # the guard's train steps: batch x length
+TRAIN_SEED = 51
+
+
+def train_config():
+    """qwen1.5-0.5b as the registry holds it: 24 layers, d 1024, vocab
+    151936, bf16 parameters, remat "full", use_pallas off (the plain-op
+    attention: neither package has a backward for the flash kernel)."""
+    from repro_torch.configs.qwen15_05b import CONFIG
+    return CONFIG
+
+
+def train_run(dev, model, hp, steps: int, loop_kw=None, injector=None,
+              seed: int = TRAIN_SEED):
+    """``run_training`` for ``steps`` steps on a fresh Batcher: (result,
+    peak GiB, median step ms)."""
+    import statistics
+
+    import torch
+    from repro_torch.data.pipeline import Batcher, DataConfig
+    from repro_torch.train.loop import LoopConfig, run_training
+
+    cfg = model.cfg
+    data = Batcher(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                              global_batch=TRAIN_BATCH, seed=seed))
+    loop = LoopConfig(total_steps=steps, log_every=1, seed=seed,
+                      **(loop_kw or {}))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = run_training(model, hp, loop, data, injector=injector,
+                       log=lambda _: None)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = [h["step_time_s"] * 1e3 for h in res["history"]]
+    return res, peak, (statistics.median(ms) if ms else None)
+
+
+def train_guard_checks(dev):
+    """A backward through each of the twelve kernels, on small CUDA inputs
+    that require grad, must raise the gradient guard's error naming the
+    kernel before any gradient reaches an input; so must a qwen train step
+    with use_pallas (the flash kernel) and a full-width mamba2-130m one
+    (the SSD chain).  Returns the kernels that raised, and for each train
+    step the kernel its error named and the launches of its forward."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.mamba2_130m import CONFIG as MAMBA
+    from repro_torch.kernels.attention.ops import attention
+    from repro_torch.kernels.blocks.driver import apply_add, apply_linrec
+    from repro_torch.kernels.blocks.plan import stage_radices
+    from repro_torch.kernels.fft.kernel import fft_stockham
+    from repro_torch.kernels.matmul.ops import matmul
+    from repro_torch.kernels.scan.kernel import (scan_add, scan_linrec,
+                                                 scan_linrec_prod)
+    from repro_torch.kernels.ssd.kernel import (ssd_apply_entry, ssd_intra,
+                                                ssd_state_apply)
+    from repro_torch.kernels.tridiag.kernel import pcr
+    from repro_torch.models.model import Model
+    from repro_torch.train.step import (TrainHParams, init_train_state,
+                                        make_train_step)
+
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED + 1)
+
+    def leaf(t):
+        return t.detach().requires_grad_()
+
+    x = leaf(torch.randn(4, 1024, generator=gen, device=dev))
+    a = leaf(torch.rand(4, 1024, generator=gen, device=dev) * 0.149 + 0.85)
+    y96 = leaf(torch.randn(96, 100, generator=gen, device=dev))
+    p96 = leaf(torch.rand(96, 100, generator=gen, device=dev))
+    e96 = leaf(torch.randn(96, 1, generator=gen, device=dev))
+    planes = [leaf(t) for t in laplacian_system(gen, dev, 4, 256)]
+    z = leaf(torch.randn(4, 1024, generator=gen, device=dev,
+                         dtype=torch.complex64))
+    sx, sa, sb, sc = (leaf(t) for t in ssd_inputs(
+        gen, dev, 4, 2, 1024, 16, 8, torch.float32, False))
+    with torch.no_grad():
+        y_intra, a_chunk, state = ssd_intra(sx, sa, sb, sc, chunk=64)
+    y_intra, a_chunk, state = (leaf(t) for t in (y_intra, a_chunk, state))
+    qkv = [leaf(torch.randn(4, 1024, 64, generator=gen, device=dev)
+                .to(torch.bfloat16)) for _ in range(3)]
+    ma = leaf(torch.randn(1024, 1024, generator=gen, device=dev)
+              .to(torch.bfloat16))
+    mb = leaf(torch.randn(1024, 2816, generator=gen, device=dev)
+              .to(torch.bfloat16))
+    radix4 = stage_radices(1024, 4)
+    calls = {
+        "scan_add": (lambda: scan_add(x, rows_per_program=4, tile_n=1024,
+                                      stages=radix4, unroll=2), [x]),
+        "scan_linrec": (lambda: scan_linrec(a, x, rows_per_program=4,
+                                            tile_n=1024, stages=radix4),
+                        [a, x]),
+        "scan_linrec_prod": (lambda: scan_linrec_prod(
+            a, x, rows_per_program=4, stages=radix4)[1], [a, x]),
+        "apply_add": (lambda: apply_add(y96, e96, rows=3), [y96, e96]),
+        "apply_linrec": (lambda: apply_linrec(y96, p96, e96, rows=3),
+                         [y96, p96, e96]),
+        "pcr": (lambda: pcr(*planes, rows_per_program=4, unroll=1), planes),
+        "fft_stockham": (lambda: torch.view_as_real(fft_stockham(
+            z, rows_per_program=4, stages=radix4)), [z]),
+        "ssd_intra": (lambda: ssd_intra(sx, sa, sb, sc, chunk=64)[2],
+                      [sx, sa, sb, sc]),
+        "ssd_state_apply": (lambda: ssd_state_apply(
+            y_intra, sa, sc, a_chunk, state, chunk=64),
+            [y_intra, a_chunk, state]),
+        "ssd_apply_entry": (lambda: ssd_apply_entry(
+            y_intra, sa, sc, state, chunk=64), [y_intra, state]),
+        "flash_attention": (lambda: attention(*qkv), qkv),
+        "matmul": (lambda: matmul(ma, mb), [ma, mb]),
+    }
+    wrappers = counted_wrappers()
+    named = {"kernels": []}
+    for name, (call, inputs) in calls.items():
+        before = wrappers[name].launches
+        out = call()
+        if wrappers[name].launches == before:
+            raise AssertionError(f"guard check: {name} was not launched")
+        if not out.requires_grad:
+            raise AssertionError(f"{name}'s output is not tied to its "
+                                 f"inputs: a backward would drop it")
+        try:
+            out.float().sum().backward()
+        except RuntimeError as e:
+            kname = "matmul_tiled" if name == "matmul" else name
+            if f"CUDA kernel {kname}:" not in str(e):
+                raise AssertionError(f"{name}: another error: {e}")
+            named["kernels"].append(name)
+        else:
+            raise AssertionError(f"a backward through {name} did not raise")
+        if any(t.grad is not None for t in inputs):
+            raise AssertionError(f"{name}: a partial gradient reached an "
+                                 f"input")
+
+    def step_raises(cfg, what, want):
+        model = Model(cfg, device=dev)
+        hp = TrainHParams()
+        state = init_train_state(model, hp,
+                                 torch.Generator(device=dev).manual_seed(3))
+        b, l = TRAIN_GUARD_TOKENS
+        tokens = torch.randint(0, cfg.vocab, (b, l + 1), generator=gen,
+                               device=dev)
+        batch = {"tokens": tokens[:, :-1], "targets": tokens[:, 1:],
+                 "mask": torch.ones(b, l, device=dev)}
+        reset_counts()
+        try:
+            make_train_step(model, hp)(state, batch)
+        except RuntimeError as e:
+            msg = str(e)
+            hit = [k for k in want if f"CUDA kernel {k}:" in msg]
+            if not hit:
+                raise AssertionError(f"{what}: another error: {msg}")
+            launched = {k: v for k, v in read_counts().items()
+                        if "." not in k and v}
+            if any(p.grad is not None for p in model.parameters()):
+                raise AssertionError(f"{what}: partial gradients were left "
+                                     f"on the parameters")
+            named[what] = {"named": hit[0], "launched": launched}
+        else:
+            raise AssertionError(f"{what}: a train step through the kernels "
+                                 f"did not raise")
+        del model, state
+        torch.cuda.empty_cache()
+
+    step_raises(dataclasses.replace(train_config(), use_pallas=True),
+                "qwen1.5-0.5b use_pallas", ("flash_attention",))
+    step_raises(MAMBA, "mamba2-130m", ("ssd_intra", "ssd_state_apply",
+                                       "ssd_apply_entry", "scan_linrec"))
+    return named
+
+
+def phase_train(dev):
+    """Training on the card (``[train]``): ``run_training`` on
+    qwen1.5-0.5b at full width and depth for TRAIN_STEPS steps (AdamW,
+    warmup 2, Batcher 8 x 512), losses finite and the mean of the last
+    three below the first three's, the median step, tokens/s and peak
+    memory, one step under torch.profiler; three steps each of Adafactor,
+    two micro steps, int8 error feedback and remat "none" beside it; a
+    restart at full width (a checkpoint every 4 steps, a failure injected
+    at step 6: the second run resumes at 4 and ends at 8, the restored bf16
+    params bit-equal to the saved ones); one reduced f32 train step on the
+    card against the CPU (loss and grad norm at DTYPE_TOL); the packing's
+    input scan on the card (``scan_add`` launched, offsets bit-equal to the
+    plain version's); the gradient guard (``train_guard_checks``).
+    Returns the train path's launch counts."""
+    import dataclasses
+    import math as _math
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import (Batcher, DataConfig,
+                                           SyntheticCorpus, pack_documents)
+    from repro_torch.models.model import Model, build_model
+    from repro_torch.optim.tree import flatten_with_path, tree_map
+    from repro_torch.train import loop as train_loop
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.fault import FaultInjector
+    from repro_torch.train.step import (TrainHParams, init_train_state,
+                                        make_train_step)
+
+    t_phase = time.perf_counter()
+    cfg = train_config()
+    if cfg.remat != "full" or cfg.use_pallas:
+        raise AssertionError(f"{cfg.arch}: remat {cfg.remat!r}, use_pallas "
+                             f"{cfg.use_pallas}: not the JAX defaults")
+    hp = TrainHParams(peak_lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    tokens_step = TRAIN_BATCH * TRAIN_SEQ
+    out = {}
+
+    # the main run
+    model = build_model(cfg, device=dev)
+    reset_counts()
+    res, peak, med = train_run(dev, model, hp, TRAIN_STEPS)
+    counts = read_counts()
+    losses = [h["loss"] for h in res["history"]]
+    first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    out["main"] = {"arch": cfg.arch, "steps": len(losses),
+                   "tokens_per_step": tokens_step, "median_step_ms": med,
+                   "tokens_per_s": tokens_step / (med / 1e3),
+                   "peak_gib": peak, "first3": first, "last3": last,
+                   "losses": losses,
+                   "grad_norms": [h["grad_norm"] for h in res["history"]],
+                   "step_ms": [h["step_time_s"] * 1e3
+                               for h in res["history"]]}
+    log(f"[train] {cfg.arch} {json.dumps(out['main'], sort_keys=True)}")
+    if len(losses) != TRAIN_STEPS \
+            or not all(_math.isfinite(v) for v in losses) \
+            or not last < first:
+        raise AssertionError(f"[train] the loss did not fall: first three "
+                             f"{first}, last three {last}: {losses}")
+
+    # one step under the profiler (two steps: a warm-up, then the window)
+    step = make_train_step(model, hp)
+    box = [res["state"]]
+    data = iter(Batcher(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                   global_batch=TRAIN_BATCH,
+                                   seed=TRAIN_SEED)))
+
+    def one_step():
+        box[0], metrics = step(box[0], next(data))
+        float(metrics["loss"])
+
+    out["trace"] = trace_call(one_step, f"{cfg.arch} train step")
+    del res, box, step
+    torch.cuda.empty_cache()
+
+    # the variants, three steps each (weights redrawn from the seed); the
+    # model without remat is built last
+    out["variants"] = {}
+    for name, kw in TRAIN_VARIANTS:
+        if name == "remat=none":
+            del model
+            torch.cuda.empty_cache()
+            model = build_model(dataclasses.replace(cfg, remat="none"),
+                                device=dev)
+        res, peak, med = train_run(dev, model, dataclasses.replace(hp, **kw),
+                                   TRAIN_VARIANT_STEPS)
+        vlosses = [h["loss"] for h in res["history"]]
+        out["variants"][name] = {"median_step_ms": med, "peak_gib": peak,
+                                 "losses": vlosses}
+        if not all(_math.isfinite(v) for v in vlosses):
+            raise AssertionError(f"[train] {name}: losses {vlosses}")
+        del res
+        torch.cuda.empty_cache()
+    log(f"[train] variants ({TRAIN_VARIANT_STEPS} steps each) beside the "
+        f"main run's {out['main']['median_step_ms']:.1f} ms / "
+        f"{out['main']['peak_gib']:.2f} GiB: "
+        f"{json.dumps(out['variants'], sort_keys=True)}")
+    del model
+    torch.cuda.empty_cache()
+
+    # the restart at full width: what the first run saved at step 4 and
+    # what the second restored, read on the manager itself
+    steps, every, fail_at = TRAIN_RESTART
+    saved, restored = {}, {}
+
+    class Recording(CheckpointManager):
+        def save(self, step, state):
+            if step not in saved:
+                saved[step] = {k: v.detach().cpu().clone() for k, v
+                               in flatten_with_path(state["params"])}
+            super().save(step, state)
+
+        def restore(self, step, like, **kw):
+            got = super().restore(step, like, **kw)
+            restored[step] = {k: v.detach().cpu() for k, v
+                              in flatten_with_path(got["params"])}
+            return got
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    real = train_loop.CheckpointManager
+    train_loop.CheckpointManager = Recording
+    try:
+        loop_kw = dict(checkpoint_dir=tmp, checkpoint_every=every,
+                       keep_last=1)
+        injector = FaultInjector((fail_at,))
+        t0 = time.perf_counter()
+        try:
+            train_run(dev, build_model(cfg, device=dev), hp, steps, loop_kw,
+                      injector)
+        except RuntimeError as e:
+            if "injected node failure" not in str(e):
+                raise
+        else:
+            raise AssertionError("[train] the injected failure did not fire")
+        first_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res, peak, med = train_run(dev, build_model(cfg, device=dev), hp,
+                                   steps, loop_kw, injector)
+        second_s = time.perf_counter() - t0
+        latest = CheckpointManager(tmp).latest_step()
+    finally:
+        train_loop.CheckpointManager = real
+        shutil.rmtree(tmp, ignore_errors=True)
+    resumed = res["resumed_from"]
+    unequal = {k: int((v.view(torch.int16) != restored[every][k]
+                       .view(torch.int16)).sum())
+               for k, v in saved[every].items()} \
+        if every in saved and every in restored else None
+    out["restart"] = {"steps": steps, "checkpoint_every": every,
+                      "failed_at": fail_at, "resumed_from": resumed,
+                      "last_step": res["history"][-1]["step"],
+                      "latest_checkpoint": latest,
+                      "first_run_s": first_s, "second_run_s": second_s,
+                      "second_median_step_ms": med,
+                      "param_leaves": len(saved.get(every, {})),
+                      "params_not_bit_equal": unequal}
+    log(f"[train] restart {json.dumps(out['restart'], sort_keys=True)}")
+    if resumed != every or res["history"][-1]["step"] != steps - 1 \
+            or latest != steps or unequal is None or any(unequal.values()) \
+            or any(v.dtype != torch.bfloat16
+                   for v in saved[every].values()):
+        raise AssertionError(f"[train] the restart failed: "
+                             f"{out['restart']}")
+    del res
+    torch.cuda.empty_cache()
+
+    # one reduced f32 step on the card against the CPU
+    rcfg = cfg.reduced()
+    rhp = TrainHParams(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+    cpu_model = Model.init(rcfg, torch.Generator().manual_seed(TRAIN_SEED),
+                           device="cpu")
+    cpu_state = init_train_state(cpu_model, rhp)
+    card_state = tree_map(lambda t: t.to(dev), cpu_state)
+    batch = next(Batcher(DataConfig(vocab=rcfg.vocab, seq_len=64,
+                                    global_batch=4, seed=TRAIN_SEED)))
+    _, m_cpu = make_train_step(cpu_model, rhp)(cpu_state, batch)
+    _, m_card = make_train_step(Model(rcfg, device=dev), rhp)(card_state,
+                                                              batch)
+    out["card_vs_cpu"] = {k: {"card": float(m_card[k]),
+                              "cpu": float(m_cpu[k]),
+                              "err": check_close(m_card[k].cpu(), m_cpu[k],
+                                                 "float32",
+                                                 f"reduced train step {k}, "
+                                                 f"card against CPU")}
+                          for k in ("loss", "grad_norm")}
+    log(f"[train] reduced f32 step, card against CPU (DTYPE_TOL): "
+        f"{json.dumps(out['card_vs_cpu'], sort_keys=True)}")
+
+    # the packing's prefix sum on the card: kernel 1
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=TRAIN_SEED)
+    reset_counts()
+    got = pack_documents(SyntheticCorpus(dcfg).documents(), TRAIN_SEQ,
+                         TRAIN_BATCH, use_kernel_scan=True, device=dev)
+    scan_counts = read_counts()
+    want = pack_documents(SyntheticCorpus(dcfg).documents(), TRAIN_SEQ,
+                          TRAIN_BATCH)
+    same = all(np.array_equal(g, w) and g.dtype == w.dtype
+               for g, w in zip(got, want))
+    out["input_scan"] = {"documents": int(got[2].shape[0]),
+                         "scan_add": scan_counts["scan_add"],
+                         "bit_equal": same}
+    log(f"[train] input scan {json.dumps(out['input_scan'])}")
+    if not same or scan_counts["scan_add"] == 0:
+        raise AssertionError(f"[train] the input scan: {out['input_scan']}")
+    counts = {k: counts[k] + scan_counts[k] for k in counts}
+
+    out["guard"] = train_guard_checks(dev)
+    log(f"[train] gradient guard: {json.dumps(out['guard'], sort_keys=True)}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[train] {out['seconds']:.1f} s")
+    return counts
+
+
 def add_model_launches(entries, model_runs, model_shapes):
     """The kernels line's model paths: kernel 11 in every arch's forward
     (encoder and cross-attention layers included), kernels 2, 3 and 5 in
@@ -4703,6 +5118,9 @@ def main(argv=None) -> int:
         phase_serve(dev)
         torch.cuda.empty_cache()
         port_counts = phase_portability(dev, card)
+        torch.cuda.empty_cache()
+        train_counts = phase_train(dev)
+        torch.cuda.empty_cache()
         # the SSD kernels' launches in the tuning loop, apart from the
         # main paths', by route
         for entry in entries:
@@ -4731,6 +5149,18 @@ def main(argv=None) -> int:
             if name in ROUTES:
                 entry["launches_portability_by_route"] = {
                     r: port_counts[f"{name}.{r}"] for r in ROUTES[name]}
+        # and on the train path (the packing's input scan: kernel 1)
+        for entry in entries:
+            name = entry["name"]
+            n = train_counts[name]
+            entry["launches_train"] = n
+            if n:
+                entry.setdefault("launches_by_path",
+                                 {"main": entry["launches"]})["train"] = n
+                entry["launches"] += n
+                for route in ROUTES.get(name, ()):
+                    entry["launches_by_route"][route] += \
+                        train_counts[f"{name}.{route}"]
         log(json.dumps({"kernels": entries}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all (build "
         f"{build_s:.1f} s)")

@@ -35,7 +35,7 @@ import torch
 
 from repro_torch.core.space import (CUDA_SMEM_LIMIT, FLASH_HEAD_DIMS,
                                     flash_smem_bytes, flash_wgmma_geometry)
-from repro_torch.tuning.dispatch import kernel_path
+from repro_torch.tuning.dispatch import kernel_path, no_backward
 
 # dtype codes of the C interface
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -194,7 +194,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_q: int,
                 DTYPE_CODES[q.dtype], BH, lq, lk, d, block_q, block_k,
                 int(causal), win, scale, stream)
     check(code, f"flash_attention launch ({route})")
-    return o
+    return no_backward("flash_attention", o, q, k, v)
 
 
 def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

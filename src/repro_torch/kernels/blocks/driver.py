@@ -37,7 +37,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.space import Workload
 from repro_torch.kernels.blocks.plan import Launch, StagePlan
-from repro_torch.tuning.dispatch import kernel_path
+from repro_torch.tuning.dispatch import kernel_path, no_backward
 
 _TRACE = threading.local()
 
@@ -170,7 +170,7 @@ def apply_add(y: torch.Tensor, entry: torch.Tensor, *, rows: int,
                                    y.shape[0], y.shape[1], rows, stream)
     check(code, "apply_add launch")
     apply_add.launches += 1
-    return out
+    return no_backward("apply_add", out, y, entry)
 
 
 # launches of the CUDA kernel (plain-version calls are not counted)
@@ -248,7 +248,7 @@ def apply_linrec(h: torch.Tensor, prod: torch.Tensor, entry: torch.Tensor, *,
                                       h.shape[1], rows, stream)
     check(code, "apply_linrec launch")
     apply_linrec.launches += 1
-    return out
+    return no_backward("apply_linrec", out, h, prod, entry)
 
 
 # launches of the CUDA kernel (plain-version calls are not counted)

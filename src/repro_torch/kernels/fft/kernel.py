@@ -38,7 +38,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels.blocks import primitives as prim
-from repro_torch.tuning.dispatch import kernel_path
+from repro_torch.tuning.dispatch import kernel_path, no_backward
 
 # shared memory one thread block may use on Hopper (227 KB)
 SMEM_LIMIT = 232448
@@ -148,7 +148,7 @@ def _launch(x: torch.Tensor, rows: int, stages: Tuple[int, ...],
         code = entry(x.data_ptr(), y.data_ptr(), batch, n, rows, radix,
                      len(stages), unroll, int(inverse), stream)
     check(code, f"fft launch ({route})")
-    return y
+    return no_backward("fft_stockham", y, x)
 
 
 def fft_generic(x: torch.Tensor, *, rows_per_program: int,

@@ -32,7 +32,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.tuning.dispatch import kernel_path
+from repro_torch.tuning.dispatch import kernel_path, no_backward
 
 # dtype codes of the C interface
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -134,7 +134,7 @@ def _launch(a: torch.Tensor, b: torch.Tensor, block_m: int, block_n: int,
                                     DTYPE_CODES[a.dtype], m, n, k, block_m,
                                     block_n, block_k, stream)
     check(code, f"matmul launch ({route})")
-    return c
+    return no_backward("matmul_tiled", c, a, b)
 
 
 def matmul_simt(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 256,
@@ -172,7 +172,7 @@ def wgmma_probe(a: torch.Tensor, b: torch.Tensor, *, b_mn_major: bool,
             a.data_ptr(), b.data_ptr(), c.data_ptr(), n, int(b_mn_major),
             k_steps, stream)
     check(code, "wgmma probe")
-    return c
+    return no_backward("wgmma_probe", c, a, b)
 
 
 def matmul_tiled(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 256,

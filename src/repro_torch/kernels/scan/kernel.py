@@ -42,7 +42,7 @@ import torch
 
 from repro_torch.kernels.blocks import primitives as prim
 from repro_torch.kernels.blocks.plan import stage_strides
-from repro_torch.tuning.dispatch import kernel_path
+from repro_torch.tuning.dispatch import kernel_path, no_backward
 
 # dtype codes of the C interface
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -206,7 +206,7 @@ def _launch(x: torch.Tensor, rows: int, tile_n: int,
         code = entry(x.data_ptr(), y.data_ptr(), DTYPE_CODES[x.dtype], batch,
                      n, rows, piece, fan_in, len(stages), unroll, stream)
     check(code, f"scan_add launch ({route})")
-    return y
+    return no_backward("scan_add", y, x)
 
 
 def scan_add_block(x: torch.Tensor, *, rows_per_program: int, tile_n: int,
@@ -364,7 +364,8 @@ def _launch_linrec(a: torch.Tensor, b: torch.Tensor, rows: int, tile_n: int,
             0 if products else 1,
             scratch.data_ptr() if scratch is not None else None, stream)
     check(code, f"scan_linrec launch ({route})")
-    return h, p
+    return no_backward("scan_linrec_prod" if products else "scan_linrec",
+                       (h, p), a, b)
 
 
 def scan_linrec(a: torch.Tensor, b: torch.Tensor, *, rows_per_program: int,

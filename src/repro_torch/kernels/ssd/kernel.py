@@ -47,7 +47,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.scan.kernel import DTYPE_CODES, count_launch
-from repro_torch.tuning.dispatch import kernel_path
+from repro_torch.tuning.dispatch import kernel_path, no_backward
 
 # the apply kernels keep a block's (S, 32) slice of the carry or entry in
 # shared memory beside their staging tiles, within a block's 227 KB
@@ -218,7 +218,11 @@ def ssd_intra_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     for k in range(S):
         cb = _fma(cf[..., :, None, k], bf[..., None, :, k], cb)
     mask = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=x.device))
-    ratio = torch.exp(la[..., :, None] - la[..., None, :])
+    # the mask inside the exp too, as the JAX kernel applies it: a masked
+    # positive difference overflows to inf, whose zero-weighted gradient
+    # is NaN; the selected scores are the same either way
+    ratio = torch.exp(torch.where(mask, la[..., :, None] - la[..., None, :],
+                                  -1e30))
     score = torch.where(mask, cb * ratio, torch.zeros_like(cb))
     y = torch.zeros(BH, nc, Q, P, dtype=torch.float32, device=x.device)
     for s in range(Q):
@@ -266,7 +270,7 @@ def _launch_intra(x, a, b, c, chunk, route=None):
                 *ptrs, la.data_ptr(), DTYPE_CODES[x.dtype], BH, L, P, S, G,
                 chunk, stream)
     check(code, f"ssd_intra launch ({route})")
-    return y, a_chunk, state
+    return no_backward("ssd_intra", (y, a_chunk, state), x, a, b, c)
 
 
 def ssd_intra(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -390,7 +394,7 @@ def _launch_apply(what, y_intra, a, c, chunk, a_chunk, state, fused,
                 *ptrs, DTYPE_CODES[y_intra.dtype], BH, L, P, S, G, chunk,
                 int(fused), stream)
     check(code, f"{what} launch ({route})")
-    return out
+    return no_backward(what, out, y_intra, a, c, a_chunk, state)
 
 
 def ssd_state_apply(y_intra: torch.Tensor, a: torch.Tensor, c: torch.Tensor,

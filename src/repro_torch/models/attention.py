@@ -28,6 +28,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.attention.ops import attention as attention_op
@@ -111,7 +112,8 @@ def _attention_4d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool, window: Optional[int],
                   compute_dtype: torch.dtype) -> torch.Tensor:
     """Plain-op attention keeping the (B, L, H, D) layout; long sequences
-    run over q-chunks so only a (chunk, Lk) score block is live."""
+    run over q-chunks so only a (chunk, Lk) score block is live, each
+    chunk recomputed in the backward."""
     bq, lq, h, d = q.shape
     lk = k.shape[1]
     base_offset = lk - lq
@@ -119,10 +121,18 @@ def _attention_4d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return _attention_core(q, k, v, causal=causal, window=window,
                                compute_dtype=compute_dtype,
                                q_offset=base_offset)
+
+    def run(qb, i):
+        return _attention_core(qb, k, v, causal=causal, window=window,
+                               compute_dtype=compute_dtype,
+                               q_offset=i + base_offset)
+
+    # each chunk is recomputed in the backward, as the JAX function's
+    # jax.checkpoint does (whatever cfg.remat says)
+    remat = torch.is_grad_enabled()
     return torch.cat([
-        _attention_core(q[:, i:i + _Q_CHUNK], k, v, causal=causal,
-                        window=window, compute_dtype=compute_dtype,
-                        q_offset=i + base_offset)
+        checkpoint(run, q[:, i:i + _Q_CHUNK], i, use_reentrant=False)
+        if remat else run(q[:, i:i + _Q_CHUNK], i)
         for i in range(0, lq, _Q_CHUNK)], dim=1)
 
 

@@ -3,8 +3,7 @@
 The PyTorch port of ``repro.models.model`` for every family of its
 registry.  The JAX package scans its layer stack over parameter groups
 (``lax.scan``, remat); here the groups are an ``nn.ModuleList`` walked in
-order (PyTorch runs eagerly, and the port trains nothing yet).  A group is
-the architecture's repeating pattern:
+order.  A group is the architecture's repeating pattern:
 
   * dense, moe, audio: one transformer block (``StdBlock``; moe blocks
     route their MLP through ``models.moe``, audio keeps an encoder stack
@@ -25,6 +24,12 @@ stubs, as in JAX: ``forward`` and ``decode_step`` take precomputed
 frame or patch embeddings as ``memory``.  A model lives on the card unless
 the caller passes ``device="cpu"`` (the plain versions of the kernels, as
 the tests run them).
+
+``cfg.remat == "full"`` recomputes activations in the backward exactly
+where the JAX model calls ``jax.checkpoint``: each group of the forward,
+each layer inside a hybrid or vlm group, each encoder block (and, in
+``models.attention``, each q-chunk of the plain-op attention).  Only a
+forward under grad mode recomputes; serving is unchanged.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -64,6 +70,14 @@ def _norm(cfg: ModelConfig, dtype: torch.dtype, device) -> nn.Parameter:
 
 def _zero(x: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, recomputed in the backward under ``remat="full"``
+    (``jax.checkpoint``'s place in the JAX model)."""
+    if cfg.remat == "full" and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 class StdBlock(nn.Module):
@@ -184,11 +198,18 @@ class HybridGroup(nn.Module):
         for i, blk in enumerate(self.blocks):
             sub = None if cache is None else cache[i]
             if isinstance(blk, RecLayer):
-                x, nc = blk(x, cfg, cache=sub, compute_dtype=compute_dtype)
-            else:
-                x, nc, _ = blk(x, cfg, positions=positions, cache=sub,
-                               window=cfg.attn_window,
+                def run(xx, blk=blk, sub=sub):
+                    return blk(xx, cfg, cache=sub,
                                compute_dtype=compute_dtype)
+            else:
+                def run(xx, blk=blk, sub=sub):
+                    xx, nc, _ = blk(xx, cfg, positions=positions, cache=sub,
+                                    window=cfg.attn_window,
+                                    compute_dtype=compute_dtype)
+                    return xx, nc
+            # per-layer remat: without it the whole group's forward stays
+            # live during the group's backward replay
+            x, nc = _remat(cfg, run, x) if cache is None else run(x)
             new_caches.append(nc)
         return x, (new_caches if cache is not None else None), _zero(x)
 
@@ -211,9 +232,11 @@ class VLMGroup(nn.Module):
                 window=None, memory=None, compute_dtype=None):
         new_caches = []
         for i, blk in enumerate(self.blocks):
-            x, nc, _ = blk(x, cfg, positions=positions,
-                           cache=None if cache is None else cache[i],
-                           memory=memory, compute_dtype=compute_dtype)
+            def run(xx, blk=blk, sub=None if cache is None else cache[i]):
+                return blk(xx, cfg, positions=positions, cache=sub,
+                           memory=memory, compute_dtype=compute_dtype)[:2]
+            # per-layer remat inside the group (see HybridGroup)
+            x, nc = _remat(cfg, run, x) if cache is None else run(x)
             new_caches.append(nc)
         return x, (new_caches if cache is not None else None), _zero(x)
 
@@ -265,14 +288,20 @@ class Model(nn.Module):
         over sqrt(width), zero biases and norm scales, and the blocks' own
         deterministic parameters (the SSD block's, the RG-LRU's
         ``lambda``)."""
-        model = cls(cfg, dtype=dtype, device=device)
+        return cls(cfg, dtype=dtype, device=device).reset(generator)
+
+    def reset(self, generator: torch.Generator) -> "Model":
+        """Draw every weight anew from ``generator`` (on the model's
+        device), as :meth:`init` does; returns the model."""
         with torch.no_grad():
-            model.embed.reset(generator)
-            for blk in model.blocks:
+            for p in self.parameters():
+                p.zero_()
+            self.embed.reset(generator)
+            for blk in self.blocks:
                 blk.reset(generator)
-            for blk in getattr(model, "enc_blocks", ()):
+            for blk in getattr(self, "enc_blocks", ()):
                 blk.reset(generator)
-        return model
+        return self
 
     def _cd(self) -> torch.dtype:
         return _dtype(self.cfg.compute_dtype)
@@ -305,7 +334,9 @@ class Model(nn.Module):
         b, t = x.shape[:2]
         positions = torch.arange(t, device=x.device)[None].expand(b, t)
         for blk in self.enc_blocks:
-            x, _, _ = blk(x, cfg, positions=positions, compute_dtype=cd)
+            def run(h, blk=blk):
+                return blk(h, cfg, positions=positions, compute_dtype=cd)[0]
+            x = _remat(cfg, run, x)
         return L.rms_norm(x, self.enc_norm, cfg.norm_eps)
 
     def forward(self, tokens: torch.Tensor,
@@ -320,8 +351,12 @@ class Model(nn.Module):
         memory = self._memory(memory)
         aux = _zero(x)
         for blk in self.blocks:
-            x, _, a = blk(x, cfg, positions=positions, window=cfg.attn_window,
-                          memory=memory, compute_dtype=cd)
+            def run(h, blk=blk):
+                y, _, a = blk(h, cfg, positions=positions,
+                              window=cfg.attn_window, memory=memory,
+                              compute_dtype=cd)
+                return y, a
+            x, a = _remat(cfg, run, x)
             aux = aux + a
         return self._logits(x), aux / max(self.n_groups, 1)
 

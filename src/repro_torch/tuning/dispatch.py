@@ -11,8 +11,17 @@ reference.  Here the tensor's device decides, and nothing else:
   * any other device raises.
 
 There is no switch that sends a CUDA tensor to the plain version.
+
+A CUDA kernel's output is a fresh tensor that the kernel fills through
+ctypes, so autograd would see no path from it to the kernel's inputs and a
+backward would silently leave the kernel out.  Every launch site returns
+through :func:`no_backward`, which ties the outputs to the inputs with a
+function whose backward raises: neither this package nor the JAX package
+(reverse mode through ``pallas_call``) has a backward for any kernel.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -38,3 +47,43 @@ def resolve_device(name: str = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {name!r}: use 'cuda' or 'cpu'")
     return dev
+
+
+class _NoBackward(torch.autograd.Function):
+    """The identity on a kernel's outputs, tied to its inputs; its backward
+    raises."""
+
+    @staticmethod
+    def forward(ctx, name: str, n_out: int, *tensors):
+        ctx.name = name
+        outs = tensors[:n_out]
+        return outs[0] if n_out == 1 else outs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError(
+            f"no backward for the CUDA kernel {ctx.name}: neither this "
+            f"package nor the JAX package has a backward for it (reverse "
+            f"mode through pallas_call raises there too); train through "
+            f"the plain-op path (use_pallas=False) or on the CPU")
+
+
+def no_backward(name: str, outputs, *inputs: Optional[torch.Tensor]):
+    """Return kernel ``name``'s ``outputs`` (a tensor, or a tuple that may
+    hold None) unchanged.  When grad mode is on and an input requires grad,
+    each output comes back tied to the inputs through a function whose
+    backward raises, so a backward through the kernel fails loudly instead
+    of dropping the kernel's share of the gradient."""
+    if not torch.is_grad_enabled() or not any(
+            t is not None and t.requires_grad for t in inputs):
+        return outputs
+    single = isinstance(outputs, torch.Tensor)
+    outs = (outputs,) if single else tuple(outputs)
+    live = [i for i, t in enumerate(outs) if t is not None]
+    ins = [t for t in inputs if t is not None and t.requires_grad]
+    tied = _NoBackward.apply(name, len(live), *(outs[i] for i in live), *ins)
+    tied = (tied,) if len(live) == 1 else tied
+    merged = list(outs)
+    for i, t in zip(live, tied):
+        merged[i] = t
+    return merged[0] if single else tuple(merged)

@@ -946,3 +946,40 @@ def test_dense_model_on_the_card(cuda, dtype):
     _close(got, want, dtype)
     rel = float((lg[:, 0] - got[:, 8]).abs().max() / got[:, 8].abs().max())
     assert rel < 2e-2, rel
+
+
+@pytest.mark.parametrize("name", ["scan_add", "scan_linrec", "pcr",
+                                  "fft_stockham"])
+def test_a_backward_through_a_kernel_raises(cuda, name):
+    """The gradient guard: the kernel's output is tied to its inputs, and a
+    backward through it raises naming the kernel, before any gradient
+    reaches an input; without grad mode the output is left alone."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(4, 1024, generator=gen, device=cuda)
+    a = torch.rand(4, 1024, generator=gen, device=cuda) * 0.1 + 0.85
+    radix4 = stage_radices(1024, 4)
+    if name == "scan_add":
+        inputs = [x]
+        call = lambda x: scan_add(x, rows_per_program=4, tile_n=1024,  # noqa: E731
+                                  stages=radix4)
+    elif name == "scan_linrec":
+        inputs = [a, x]
+        call = lambda a, x: scan_linrec(a, x, rows_per_program=4,  # noqa: E731
+                                        tile_n=1024, stages=radix4)
+    elif name == "pcr":
+        inputs = [t.to(cuda) for t in random_system(
+            torch.Generator().manual_seed(1), 4, 256)]
+        call = lambda *planes: pcr(*planes, rows_per_program=4)  # noqa: E731
+    else:
+        inputs = [torch.randn(4, 1024, generator=gen, device=cuda,
+                              dtype=torch.complex64)]
+        call = lambda z: torch.view_as_real(fft_stockham(  # noqa: E731
+            z, rows_per_program=4, stages=radix4))
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    out = call(*leaves)
+    assert out.requires_grad
+    with pytest.raises(RuntimeError, match=f"CUDA kernel {name}:"):
+        out.sum().backward()
+    assert all(t.grad is None for t in leaves)
+    with torch.no_grad():
+        assert not call(*leaves).requires_grad

@@ -25,7 +25,8 @@ def _port_files():
 
 
 def _forbidden(module: str) -> bool:
-    return module in ("jax", "repro") or module.startswith(("jax.", "repro."))
+    return module in ("jax", "repro", "ml_dtypes") \
+        or module.startswith(("jax.", "repro.", "ml_dtypes."))
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -62,10 +63,15 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.models.recurrent, repro_torch.serve, "
             "repro_torch.serve.engine, repro_torch.serve.reference, "
             "repro_torch.serve.trace, repro_torch.tuning.online, "
-            "repro_torch.launch.serve\n"
+            "repro_torch.launch.serve, repro_torch.optim, "
+            "repro_torch.optim.compression, repro_torch.train.step, "
+            "repro_torch.train.loop, repro_torch.train.checkpoint, "
+            "repro_torch.train.fault, repro_torch.data.pipeline, "
+            "repro_torch.launch.train\n"
             "repro_torch.configs.base.all_archs()\n"
-            "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or "
-            "m.startswith(('jax.', 'repro.')))\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'repro', "
+            "'ml_dtypes') or m.startswith(('jax.', 'repro.', "
+            "'ml_dtypes.')))\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
