@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch port (``src/repro_torch``) on one NVIDIA H100.
 
     python3 chip_smoke.py            # the whole check, one card
-    python3 chip_smoke.py --quick    # build + kernel checks only
+    python3 chip_smoke.py --quick    # build, kernel checks, 9a and 9b only
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -96,6 +96,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (1024, 2816), f32 at DTYPE_TOL, bf16 within one bf16 ulp plus
    MATMUL_BF16_ATOL; per path the max error and the elements that are not
    bit-equal;
+9a. static analysis (``[analysis]``): the port's ``run_lint()`` — the AST
+   lint over ``src/repro_torch``, the contract fingerprints against
+   ``tests/fixtures/analysis_fingerprints_torch.json`` and the plan /
+   space invariants over every op x profile — in the card's process, its
+   seconds printed; its findings must be exactly the seven h100
+   ``invariant.no-feasible-config`` findings (ANALYSIS_FINDINGS), none
+   baselined;
+9b. the differential table (``[differential]``): every registered entry
+   point must have a row of ``repro_torch.evaluation.differential``
+   (the JAX package's ``tests/conftest.py`` table, whose odd and prime
+   shapes the other phases never pick, and one bf16 matmul at a prime
+   N); each (entry, dtype, shape) through the public entry point on CUDA
+   tensors with config=None, resolved under h100, held against the same
+   entry point on CPU tensors given the configs the card's call
+   resolved, at DTYPE_TOL x the row's scale, fused rows also fuse 1
+   against fuse 0 on the card; each case launching kernels (as many as
+   its launch list where ``capture_launches`` records one; none for the three
+   solvers that reach no kernel in either package), the bf16 matmuls on
+   the "ragged" route; per entry its configs, max error and launches by
+   route, and the kernels the table reaches;
 10. the dense path: qwen1.5-0.5b's ``Model`` at full width (24 layers,
    bf16, random weights at the JAX init's scales, ``use_pallas``):
    ``forward`` on 4 x 2048 tokens with one flash launch per layer, all on
@@ -223,8 +243,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    several, kernels 2, 3, 5 and 11 also by model arch; kernels 8–10 also
    by chunk length and with the tuning loop's
    launches by route; every kernel with its launches in the ``[ml]``
-   sweeps, ``launches_ml``, and in the ``[portability]`` phase,
-   ``launches_portability``, and on the train path, ``launches_train``),
+   sweeps, ``launches_ml``, in the ``[portability]`` phase,
+   ``launches_portability``, in the differential table,
+   ``launches_differential``, and on the train path, ``launches_train``),
    its error
    against the plain version, its time, the plain version's and the
    library call's (null where no one PyTorch call
@@ -633,11 +654,14 @@ def counted_wrappers():
 
 
 # kernels with one launch counter per route besides their total: bf16 runs
-# the tensor-core kernel (wgmma), f32 the CUDA-core one (simt); the prefix
+# the tensor-core kernel (wgmma), f32 the CUDA-core one (simt), and a bf16
+# matmul whose shape the tensor-core kernel does not take the CUDA-core one
+# too (ragged); the prefix
 # sum, the linear recurrence, PCR and the FFT pick theirs by the plan
 # (scan_route, linrec_route, pcr_route, fft_route), the SSD phases by the
 # shapes (ssd_intra_route, ssd_state_apply_route, ssd_apply_entry_route)
-ROUTES = {"flash_attention": ("wgmma", "simt"), "matmul": ("wgmma", "simt"),
+ROUTES = {"flash_attention": ("wgmma", "simt"),
+          "matmul": ("wgmma", "ragged", "simt"),
           "scan_add": ("warp", "block"), "scan_linrec": ("warp", "block"),
           "scan_linrec_prod": ("warp", "block"), "pcr": ("warp", "block"),
           "fft_stockham": ("pow2", "generic"),
@@ -2988,6 +3012,136 @@ def phase_matmul_kernels(dev, quick: bool):
     return max(entry["max_abs_err"] for entry in stats.values())
 
 
+# ---------------------------------------------------------------------------
+# Static analysis and the differential table (phases 9a, 9b)
+# ---------------------------------------------------------------------------
+
+# the port's lint: exactly these findings, by key — the seven h100 spaces
+# whose every valid config's modeled footprint exceeds h100's vmem_budget
+# (2^17); reported, not fixed (a new budget changes which configs h100
+# picks, which is a measured change)
+ANALYSIS_FINDINGS = tuple(
+    f"invariant.no-feasible-config:h100/{where}:4b04410eb452"
+    for where in ("attention:flash:n512:b64:float32",
+                  "attention:flash:n1024:b64:float32",
+                  "attention:flash:n2048:b64:float32",
+                  "attention:flash:n4096:b64:float32",
+                  "matmul:default:n512:b1024:float32",
+                  "matmul:default:n1024:b1024:float32",
+                  "matmul:default:n2048:b1024:float32"))
+# the table's rows that reach no kernel in either package: the cr, lf
+# (below LF_MULTIPASS_MIN) and wm solvers are torch in the port and jnp in
+# the JAX package; each must launch none
+NO_KERNEL_ROWS = ("solve_cr", "solve_lf", "solve_wm")
+
+
+def phase_analysis():
+    """The port's ``run_lint()`` (AST lint, contract fingerprints, the
+    invariant sweep over every op x profile) in the card's process: its
+    findings must be exactly ANALYSIS_FINDINGS, none baselined.  Returns
+    its seconds."""
+    from repro_torch.analysis import (apply_baseline, default_fixture_path,
+                                      load_baseline, run_lint)
+    t0 = time.perf_counter()
+    findings = run_lint()
+    seconds = time.perf_counter() - t0
+    baseline = os.path.join(os.path.dirname(default_fixture_path()),
+                            "analysis_baseline_torch.json")
+    fresh, quiet = apply_baseline(findings, load_baseline(baseline))
+    keys = sorted(f.key() for f in fresh)
+    if quiet or keys != sorted(ANALYSIS_FINDINGS):
+        raise AssertionError(
+            f"[analysis] findings {keys} (baselined {len(quiet)}) != the "
+            f"seven h100 no-feasible-config findings")
+    log(f"[analysis] run_lint: {len(fresh)} findings, 0 baselined, in "
+        f"{seconds:.2f} s: "
+        + "; ".join(f.render() for f in fresh))
+    return seconds
+
+
+def phase_differential(dev):
+    """The port's differential table (``repro_torch.evaluation.differential``,
+    the JAX table's rows and one bf16 matmul at a prime N) on the card:
+    every registered entry point must have a row; every (entry, dtype,
+    shape) runs through the public entry point on CUDA tensors with
+    config=None, resolved under h100, and is held against the same entry
+    point on CPU tensors given the configs the card's call resolved, at
+    DTYPE_TOL x the row's scale.  Each case must launch kernels (none for
+    NO_KERNEL_ROWS), as many as its launch list where ``capture_launches``
+    records one; the bf16 matmuls on the "ragged" route.  Returns the
+    launches by kernel and route."""
+    import torch
+    from repro_torch.evaluation import differential as diff
+    from repro_torch.kernels.blocks.driver import capture_launches
+
+    missing = diff.missing_rows()
+    if missing:
+        raise AssertionError(f"[differential] registered entry points "
+                             f"without a row: {missing}")
+    cpu = torch.device("cpu")
+    names = list(counted_wrappers())
+    total = dict.fromkeys(read_counts(), 0)
+    report = {}
+    t0 = time.perf_counter()
+    for entry, dtype, batch, n in diff.cases():
+        row = diff.TABLE[entry]
+        inputs = row.make(batch, n)
+        what = f"[differential] {entry} {dtype} b{batch} n{n}"
+        torch.cuda.synchronize()
+        before = read_counts()
+        with capture_launches() as launched:
+            got, cfgs = diff.run_case(entry, diff.tensors(inputs, dtype, dev))
+        torch.cuda.synchronize()
+        after = read_counts()
+        delta = {k: after[k] - before[k] for k in after}
+        want, _ = diff.run_case(entry, diff.tensors(inputs, dtype, cpu), cfgs)
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{what}: card {tuple(got.shape)} "
+                                 f"{got.dtype}, CPU {tuple(want.shape)} "
+                                 f"{want.dtype}")
+        ok, err = diff.close(got, want, dtype, row.scale)
+        if not ok:
+            raise AssertionError(f"{what}: card against CPU outside "
+                                 f"{dtype} x {row.scale} (max err "
+                                 f"{err:.3e}), configs {cfgs}")
+        if entry.endswith("_fused"):   # fuse 1 against fuse 0, on the card
+            ok, fused_err = diff.close(got[0], got[1], dtype, row.scale)
+            if not ok:
+                raise AssertionError(f"{what}: fused against unfused "
+                                     f"{fused_err:.3e}")
+        kernels = sum(delta[name] for name in names)
+        if entry in NO_KERNEL_ROWS:
+            if kernels:
+                raise AssertionError(f"{what}: launched {kernels} kernels, "
+                                     f"expected none")
+        elif kernels == 0 or (launched and kernels != len(launched)):
+            raise AssertionError(f"{what}: {kernels} kernel launches, "
+                                 f"launch list {len(launched)}")
+        if entry.startswith("matmul") and dtype == "bfloat16" \
+                and delta["matmul.ragged"] != 1:
+            raise AssertionError(f"{what}: not on the ragged route: {delta}")
+        for key, k in delta.items():
+            total[key] += k
+        rec = report.setdefault(entry, {"cases": 0, "max_err": 0.0,
+                                        "configs": [], "launches": {}})
+        rec["cases"] += 1
+        rec["max_err"] = max(rec["max_err"], err)
+        rec["configs"].append([f"{dtype} b{batch} n{n}", cfgs])
+        for key, k in delta.items():
+            if k:
+                rec["launches"][key] = rec["launches"].get(key, 0) + k
+    seconds = time.perf_counter() - t0
+    for entry in sorted(report):
+        log(f"[differential] {entry}: {json.dumps(report[entry])}")
+    reached = sorted(name for name in names if total[name])
+    log(f"[differential] {sum(r['cases'] for r in report.values())} cases "
+        f"of {len(report)} rows within tolerance in {seconds:.1f} s; "
+        f"kernels reached: {reached}; not reached: "
+        f"{sorted(set(names) - set(reached))}; launches "
+        f"{json.dumps({k: v for k, v in total.items() if v})}")
+    return total
+
+
 def phase_dense_path(dev):
     """qwen1.5-0.5b at full width (24 layers, d_model 1024, 16 heads of 64,
     d_ff 2816, vocab 151936, QKV bias, bf16), random weights at the JAX
@@ -4978,7 +5132,8 @@ def add_model_launches(entries, model_runs, model_shapes):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
-                    help="build and check the kernels only")
+                    help="build, check the kernels, run [analysis] and "
+                         "[differential] only")
     ap.add_argument("--cusparse", metavar="CASES",
                     help=argparse.SUPPRESS)   # the cuSPARSE phase's child
     args = ap.parse_args(argv)
@@ -5013,6 +5168,10 @@ def main(argv=None) -> int:
     kernel_errs = {"flash": phase_attention_kernels(dev, args.quick),
                    "matmul": phase_matmul_kernels(dev, args.quick)}
     log(f"[kernels] {time.perf_counter() - t0:.1f} s")
+    phase_analysis()
+    t0 = time.perf_counter()
+    diff_counts = phase_differential(dev)
+    log(f"[differential] {time.perf_counter() - t0:.1f} s")
     if not args.quick:
         from repro_torch.hw.profiles import get_profile
         bandwidth = get_profile("h100").hbm_bandwidth
@@ -5149,6 +5308,14 @@ def main(argv=None) -> int:
             if name in ROUTES:
                 entry["launches_portability_by_route"] = {
                     r: port_counts[f"{name}.{r}"] for r in ROUTES[name]}
+        # and in the differential table's cases (phase 9b), apart from the
+        # main paths', by route where it has routes
+        for entry in entries:
+            name = entry["name"]
+            entry["launches_differential"] = diff_counts[name]
+            if name in ROUTES:
+                entry["launches_differential_by_route"] = {
+                    r: diff_counts[f"{name}.{r}"] for r in ROUTES[name]}
         # and on the train path (the packing's input scan: kernel 1)
         for entry in entries:
             name = entry["name"]

@@ -65,6 +65,16 @@ METRIC_PENALTIES: Dict[str, float] = {
     METRIC_PEAK_VMEM: float(2**40),
 }
 
+# bump when the serialized Measurement layout changes
+MEASUREMENT_VERSION = 1
+
+# the serialized layout ``Measurement.to_dict`` emits, fingerprinted by
+# ``repro_torch.analysis`` against MEASUREMENT_VERSION: journals, DB entries
+# and traces all persist this dict, so reshaping it without a version bump
+# silently corrupts every consumer's migration path
+MEASUREMENT_FIELDS = ("version", "time_s", "valid", "metrics", "meta")
+
+
 def metric_penalty(name: str) -> float:
     """The penalty clamp for one metric (PENALTY_TIME for unknown names)."""
     return METRIC_PENALTIES.get(name, PENALTY_TIME)
@@ -103,6 +113,22 @@ class Measurement:
     def peak_vmem_bytes(self) -> Optional[float]:
         """Peak on-chip working set; None for time-only objectives."""
         return self.metrics.get(METRIC_PEAK_VMEM)
+
+    # -- versioned serialization (journals, DB entries, traces) -------------
+
+    def to_dict(self) -> Dict:
+        return {"version": MEASUREMENT_VERSION, "time_s": self.time_s,
+                "valid": self.valid, "metrics": dict(self.metrics),
+                "meta": dict(self.meta)}
+
+    @classmethod
+    def from_dict(cls, d: Mapping) -> "Measurement":
+        """Inverse of ``to_dict``; version-0 dicts (no ``metrics``) load as
+        time-only vectors."""
+        metrics = dict(d.get("metrics") or {})
+        time_s = float(d.get("time_s", metrics.get(METRIC_TIME, PENALTY_TIME)))
+        return cls(time_s, bool(d.get("valid", True)),
+                   meta=dict(d.get("meta") or {}), metrics=metrics)
 
 
 class Objective:

@@ -39,14 +39,17 @@
 // footprint is fixed (kSmemBytes, 129 KB), whatever the blocks, so the
 // h100 matmul space admits every config.  It takes block_k a multiple of
 // 16 (a k-block is whole k16 steps) and N a multiple of 8 (TMA's 16-byte
-// row pitch).
+// row pitch); the wrapper (kernels/matmul/kernel.py matmul_route) sends
+// every other bf16 shape to the CUDA-core kernel below, before launch.
 //
 // The f32 kernel (TF32 would lose f32's accuracy, so it stays off the
 // tensor cores) walks the block in 64 x 64 sub-tiles (each thread a 4 x 4
 // register micro-tile), staging a 32-deep slab of a (K-major, rows padded
 // by one float) and of b in shared memory per step: 16.5 KB whatever the
-// blocks.  It also takes bf16 (converted to f32 on load), which only the
-// tests' record of the earlier design calls.
+// blocks.  It also takes bf16 (converted to f32 on load): the "ragged"
+// route, for bf16 shapes the tensor-core kernel does not take (K or N off
+// TMA's 16-byte pitch, block_k not whole k16 steps), and the record of the
+// earlier design beside the tensor-core kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -1,28 +1,39 @@
 """The tiled matmul kernel's wrapper.
 
 ``matmul_tiled`` replaces ``repro.kernels.matmul.kernel.matmul_pallas``.
-Which code runs is fixed by the tensor, never by a failure:
+Which code runs is fixed by the tensor and its shape before the launch,
+never by a failure (:func:`matmul_route`):
 
   * a CUDA bf16 tensor: the tensor-core kernel (``csrc/matmul.cu``
-    ``repro_matmul_wgmma``: wgmma, TMA, an mbarrier ring);
+    ``repro_matmul_wgmma``: wgmma, TMA, an mbarrier ring), route "wgmma";
+  * a CUDA bf16 tensor whose shape that kernel does not take — block_k not
+    a multiple of 16 (a k-block is whole k16 steps; with it K, and so A's
+    row pitch, need not be a multiple of 16 bytes, which TMA requires), N
+    not a multiple of 8 (B's row pitch), or a base address off TMA's 16
+    bytes: the CUDA-core kernel (``repro_matmul``, which takes bf16 and
+    any shape), route "ragged".  The JAX package's ``matmul`` answers
+    these shapes (the differential table's (33, 65) @ (65, 96), K prime),
+    so the port answers them on a hand-written kernel too;
   * a CUDA f32 tensor: the CUDA-core kernel (``repro_matmul``), since TF32
-    on the tensor cores would break f32's DTYPE_TOL;
+    on the tensor cores would break f32's DTYPE_TOL, route "simt";
   * a CPU tensor: its plain version (``matmul_plain``), the same function
     in plain PyTorch and in the kernels' order: per (block_m, block_n)
     output block, the K / block_k partial products one after another, each
     added to an f32 accumulator.
 
 Any other device raises; nothing falls back.  Each route counts its
-launches (``matmul_tiled.launches_wgmma``, ``.launches_simt``), and both
-count into ``.launches``.  No library product runs on the card: the plain
-version is the CPU path and the card's yardstick.
+launches (``matmul_tiled.launches_wgmma``, ``.launches_ragged``,
+``.launches_simt``), and all count into ``.launches``.  No library
+product runs on the card: the plain version is the CPU path and the
+card's yardstick.
 
 Layout: row-major a (M, K) and b (K, N), f32 or bf16; the product is in
 a's type.  Knobs, all consumed: ``block_m`` and ``block_n`` (the output
 block a CUDA block owns; the grid is N / block_n x M / block_m) and
 ``block_k`` (the k-block whose partial product is added at once).  The
-bf16 kernel takes block_k a multiple of 16 and N a multiple of 8
-(:func:`wgmma_plan`).
+bf16 tensor-core kernel takes block_k a multiple of 16 and N a multiple of
+8 (:func:`wgmma_plan`); the CUDA-core kernel takes any blocks that divide
+the dimensions.
 
 Bound on the card: operations (2 M N K).
 """
@@ -42,6 +53,7 @@ ROUTES = {torch.bfloat16: "wgmma", torch.float32: "simt"}
 WGMMA_TILE = (128, 128)   # the bf16 kernel's tile: rows, columns
 WGMMA_STAGE_K = 64        # k depth of one TMA stage
 WGMMA_STEP_K = 16         # k depth of one wgmma
+TMA_ALIGN = 16            # bytes: TMA's base-address and row-pitch unit
 
 
 def _check_args(a: torch.Tensor, b: torch.Tensor, block_m: int,
@@ -83,6 +95,20 @@ def wgmma_plan(m: int, n: int, k: int, block_m: int, block_n: int,
             "k_blocks": list(zip(starts, starts[1:] + [k]))}
 
 
+def matmul_route(a: torch.Tensor, b: torch.Tensor, block_k: int) -> str:
+    """The kernel a CUDA launch of ``a @ b`` at this ``block_k`` runs,
+    decided from the type and shapes before the launch: "simt" for f32;
+    for bf16 "wgmma" where the tensor-core kernel takes the shape
+    (:func:`wgmma_plan`'s block_k and N rules, both base addresses on
+    TMA's 16 bytes), else "ragged" (the CUDA-core kernel on bf16)."""
+    route = ROUTES[a.dtype]
+    if route == "wgmma" and (block_k % WGMMA_STEP_K or b.shape[1] % 8
+                             or a.data_ptr() % TMA_ALIGN
+                             or b.data_ptr() % TMA_ALIGN):
+        return "ragged"
+    return route
+
+
 def matmul_plain(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 256,
                  block_n: int = 256, block_k: int = 256) -> torch.Tensor:
     """The kernel's function in plain PyTorch: f32 partial products per
@@ -101,8 +127,9 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 256,
 
 def _launch(a: torch.Tensor, b: torch.Tensor, block_m: int, block_n: int,
             block_k: int, route: Optional[str] = None) -> torch.Tensor:
-    """Launch one kernel: ``route`` "wgmma" (bf16 only) or "simt"; by
-    default the route of a's type (:data:`ROUTES`)."""
+    """Launch one kernel: ``route`` "wgmma" (bf16 only), "ragged" (the
+    CUDA-core kernel, bf16 only) or "simt"; by default the route
+    :func:`matmul_route` picks."""
     from repro_torch.kernels.build import check, load_library
 
     _check_args(a, b, block_m, block_n, block_k)
@@ -115,11 +142,11 @@ def _launch(a: torch.Tensor, b: torch.Tensor, block_m: int, block_n: int,
     if m // block_m > 65535:
         raise ValueError(f"M / block_m = {m // block_m} exceeds the grid's "
                          f"65535 blocks")
-    route = route or ROUTES[a.dtype]
+    route = route or matmul_route(a, b, block_k)
+    if route in ("wgmma", "ragged") and a.dtype != torch.bfloat16:
+        raise TypeError(f"the {route} matmul route takes bfloat16, got "
+                        f"{a.dtype}")
     if route == "wgmma":
-        if a.dtype != torch.bfloat16:
-            raise TypeError(f"the tensor-core matmul takes bfloat16, got "
-                            f"{a.dtype}")
         wgmma_plan(m, n, k, block_m, block_n, block_k)
     lib = load_library()
     c = torch.empty(m, n, dtype=a.dtype, device=a.device)
@@ -178,19 +205,20 @@ def wgmma_probe(a: torch.Tensor, b: torch.Tensor, *, b_mn_major: bool,
 def matmul_tiled(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 256,
                  block_n: int = 256, block_k: int = 256) -> torch.Tensor:
     """(M, K) @ (K, N) with an f32 accumulator, in a's type: bf16 on the
-    card through the tensor-core kernel, f32 through the CUDA-core one, a
-    CPU tensor through the plain version (fixed by type and device)."""
+    card through the tensor-core kernel (or the CUDA-core one, for shapes
+    the tensor-core kernel does not take), f32 through the CUDA-core one,
+    a CPU tensor through the plain version (fixed by type, shape and
+    device: :func:`matmul_route`)."""
     if not kernel_path(a):
         return matmul_plain(a, b, block_m=block_m, block_n=block_n,
                             block_k=block_k)
     (m, k), n = a.shape, b.shape[1]
-    c = _launch(a.contiguous(), b.contiguous(), min(block_m, m),
-                min(block_n, n), min(block_k, k))
+    a, b, block_k = a.contiguous(), b.contiguous(), min(block_k, k)
+    route = matmul_route(a, b, block_k)
+    c = _launch(a, b, min(block_m, m), min(block_n, n), block_k, route)
     matmul_tiled.launches += 1
-    if ROUTES[a.dtype] == "wgmma":
-        matmul_tiled.launches_wgmma += 1
-    else:
-        matmul_tiled.launches_simt += 1
+    setattr(matmul_tiled, f"launches_{route}",
+            getattr(matmul_tiled, f"launches_{route}") + 1)
     return c
 
 
@@ -198,4 +226,5 @@ def matmul_tiled(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 256,
 # and by route
 matmul_tiled.launches = 0
 matmul_tiled.launches_wgmma = 0
+matmul_tiled.launches_ragged = 0
 matmul_tiled.launches_simt = 0

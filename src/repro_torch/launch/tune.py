@@ -6,6 +6,13 @@ Tune one workload per size and persist the winner in a TuningDB:
 
   PYTHONPATH=src python -m repro_torch.launch.tune --op scan --variant ks \\
       --sizes 1024,4096 --method bayesian --db artifacts/tuning_db_torch.json
+  PYTHONPATH=src python -m repro_torch.launch.tune --paper-suite \\
+      --method analytical --db artifacts/tuning_db_torch.json
+
+``--paper-suite`` tunes every workload of ``configs/paper_ops.PREFIX_OPS``
+(2^26 / n problems each) on the active profile's cost model with 2% noise,
+as the JAX package's ``tune_suite`` does; it measures nothing, so it
+ignores ``--device``, ``--op`` and ``--sizes``.
 
 Score every methodology against the exhaustive optimum (paper Table II):
 
@@ -95,6 +102,20 @@ state machine (``online_replay``): same trace + same knobs -> same
 trials, same rollbacks, same winner.  With ``--db`` the promoted winner
 persists exactly as it would in production.  It measures nothing, so it
 takes no ``--device``.
+
+Static analysis (zero-execution):
+
+  PYTHONPATH=src python -m repro_torch.launch.tune lint [--json REPORT] \\
+      [--baseline tests/fixtures/analysis_baseline_torch.json] \\
+      [--no-invariants] [--root src/repro_torch]
+
+runs the full :mod:`repro_torch.analysis` pass — the repo-convention AST
+lint over ``src/repro_torch``, the contract fingerprints against
+``tests/fixtures/analysis_fingerprints_torch.json``, and the plan / space
+invariants for every op x profile of the port — and exits 1 while any
+finding is not suppressed by the baseline.  ``--write-fingerprints``
+refreshes the pinned contract fixture after a deliberate, version-bumped
+schema change.
 """
 from __future__ import annotations
 
@@ -107,13 +128,13 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
-from repro_torch.configs.paper_ops import TOTAL_ELEMS
+from repro_torch.configs.paper_ops import PREFIX_OPS, TOTAL_ELEMS
 from repro_torch.core import CostModelObjective, WallClockObjective, Workload
 from repro_torch.core.objective import METRIC_TIME, CachedObjective, Objective
 from repro_torch.core.space import Config, build_space
 from repro_torch.evaluation.compare import DEFAULT_METHODS
-from repro_torch.tuning import (SweepJournal, TunerSession, resolve_device,
-                                run_sweep, strategies)
+from repro_torch.tuning import (SweepJournal, TunerSession, default_session,
+                                resolve_device, run_sweep, strategies)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -842,10 +863,81 @@ def online_replay(trace_path: str, *, db: Optional[str] = None,
     return s, res
 
 
+def lint_main(argv: List[str]) -> int:
+    from repro_torch.analysis import (apply_baseline, default_fixture_path,
+                                      load_baseline, report_dict, run_lint,
+                                      write_fingerprints)
+    ap = argparse.ArgumentParser(
+        prog="tune lint",
+        description="zero-execution static analysis of the port: AST "
+                    "conventions, contract fingerprints, plan/space "
+                    "invariants")
+    ap.add_argument("--json", default=None,
+                    help="write the full machine-readable report here")
+    ap.add_argument("--baseline", default=None,
+                    help="suppression file (default: "
+                         "tests/fixtures/analysis_baseline_torch.json when "
+                         "present)")
+    ap.add_argument("--write-fingerprints", action="store_true",
+                    help="refresh the pinned contract fixture from the "
+                         "live tree (after a deliberate, version-bumped "
+                         "schema change)")
+    ap.add_argument("--no-invariants", action="store_true",
+                    help="skip the op x profile semantic sweep (fast "
+                         "pre-commit mode)")
+    ap.add_argument("--root", default=None,
+                    help="package root to AST-lint (default: the "
+                         "installed repro_torch package)")
+    args = ap.parse_args(argv)
+
+    fixture = default_fixture_path()
+    if args.write_fingerprints:
+        write_fingerprints(fixture)
+        print(f"[lint] fingerprints written to {fixture}")
+
+    findings = run_lint(pkg_root=args.root, fingerprint_path=fixture,
+                        invariants=not args.no_invariants)
+    baseline = args.baseline
+    if baseline is None:
+        cand = os.path.join(os.path.dirname(fixture),
+                            "analysis_baseline_torch.json")
+        baseline = cand if os.path.exists(cand) else None
+    fresh, suppressed = apply_baseline(findings, load_baseline(baseline))
+    for f in fresh:
+        print(f.render())
+    if args.json:
+        with open(args.json, "w") as fh:
+            json.dump(report_dict(fresh, suppressed), fh, indent=1,
+                      sort_keys=True)
+        print(f"[lint] report written to {args.json}")
+    print(f"[lint] {len(fresh)} finding(s), {len(suppressed)} baselined")
+    return 1 if fresh else 0
+
+
+def tune_suite(method: str, noise: float = 0.02, verbose: bool = True,
+               session: Optional[TunerSession] = None, seed: int = 0) -> None:
+    """Tune every workload of the paper's suite (``PREFIX_OPS``, 2^26 / n
+    problems each) on the active profile's cost model, as the JAX
+    package's ``tune_suite`` does, persisting each winner."""
+    session = session or default_session()
+    for op, spec in PREFIX_OPS.items():
+        for variant in spec["variants"]:
+            for n in spec["sizes"]:
+                wl = Workload(op=op, n=n, batch=max(TOTAL_ELEMS // n, 1),
+                              variant=variant)
+                res = session.tune(wl, method=method, seed=seed,
+                                   objective=CostModelObjective(noise=noise))
+                if verbose:
+                    print(f"[tune] {wl.key}: {res.best_config} "
+                          f"t={res.best_time*1e6:.1f}us "
+                          f"evals={res.evaluations}", flush=True)
+
+
 _COMMANDS = {"compare-methods": compare_methods_main,
              "train-model": train_model_main,
              "eval-model": eval_model_main,
-             "online-replay": online_replay_main}
+             "online-replay": online_replay_main,
+             "lint": lint_main}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -863,11 +955,17 @@ def main(argv: Optional[List[str]] = None) -> int:
                          "memory_cap[:bytes]; the winner is stored under it")
     ap.add_argument("--db", default=None,
                     help="path to the tuning DB (default: the session DB)")
+    ap.add_argument("--paper-suite", action="store_true",
+                    help="tune every PREFIX_OPS workload on the cost model "
+                         "(no --device, --op or --sizes)")
     args = ap.parse_args(argv)
 
+    session = TunerSession(db_path=args.db, policy=args.policy)
+    if args.paper_suite:
+        tune_suite(args.method, session=session, seed=args.seed)
+        return 0
     device = resolve_device(args.device)
     workloads = _workloads(args)
-    session = TunerSession(db_path=args.db, policy=args.policy)
     factory = _objective_factory(args, device, [])
     for wl in workloads:
         res = session.tune(wl, method=args.method, objective=factory(),

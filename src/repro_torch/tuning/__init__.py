@@ -14,21 +14,33 @@ Offline -> online lifecycle, as in the JAX package:
 
     tuner = OnlineTuner(wl, session)          # in traffic: trials, rollback
     attach(engine, tuner)                     # on a repro_torch.serve engine
+
+Kernel families declare themselves once via ``@tuned_kernel`` (search
+space, kernel wrapper, reference impl, config normalizer); the session is
+the only component that turns a Workload into launch kwargs.
+
+Module-level ``resolve``/``tune``/``suggest`` delegate to the process-wide
+default session.
 """
 from __future__ import annotations
+
+from typing import Mapping, Optional
 
 from repro_torch.core.bayesian import TuneResult
 from repro_torch.core.policy import (Policy, PolicyObjective, get_policy,
                                      pareto_front, policies,
                                      policy_scalar_cols)
-from repro_torch.core.space import Config, Workload, build_space
+from repro_torch.core.space import (Config, Workload, build_space, fit_block,
+                                    normalize_config)
 from repro_torch.tuning.db import DEFAULT_DB_PATH, SCHEMA_VERSION, TuningDB
 from repro_torch.tuning.dispatch import kernel_path, resolve_device
-from repro_torch.tuning.overrides import active_overrides, overrides
-from repro_torch.tuning.registry import (KernelSpec, normalizer_for,
+from repro_torch.tuning.overrides import (active_overrides, overrides,
+                                          overrides_active)
+from repro_torch.tuning.registry import (KernelSpec, get_kernel,
+                                         normalizer_for, registered_kernels,
                                          tuned_kernel)
 from repro_torch.tuning.session import (TunerSession, default_session,
-                                        get_strategy,
+                                        get_strategy, register_strategy,
                                         set_default_session, strategies)
 from repro_torch.tuning.sweep import (SweepJournal, SweepResult, config_key,
                                       journal_path, prune_candidates,
@@ -52,14 +64,32 @@ def __getattr__(name: str):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
+def resolve(wl: Workload, *, config: Optional[Mapping[str, int]] = None,
+            dims: Optional[Mapping[str, int]] = None) -> Config:
+    """Resolve a launch-ready config through the default session."""
+    return default_session().resolve(wl, config=config, dims=dims)
+
+
+def tune(wl: Workload, method: str = "bayesian", **kw) -> TuneResult:
+    """Offline-tune through the default session (persists the winner)."""
+    return default_session().tune(wl, method=method, **kw)
+
+
+def suggest(wl: Workload) -> Config:
+    """Zero-evaluation analytical suggestion via the default session."""
+    return default_session().suggest(wl)
+
+
 __all__ = [
     "Config", "DEFAULT_DB_PATH", "KernelSpec", "Policy", "PolicyObjective",
     "SCHEMA_VERSION", "SweepJournal", "SweepResult", "TuneResult",
     "TunerSession", "TuningDB", "Workload", "active_overrides",
-    "build_space", "config_key", "default_session", "get_policy",
-    "get_strategy", "journal_path", "kernel_path", "normalizer_for",
-    "overrides", "pareto_front", "policies", "policy_scalar_cols",
-    "prune_candidates", "resolve_device", "run_sweep",
-    "set_default_session", "strategies", "tuned_kernel",
+    "build_space", "config_key", "default_session", "fit_block",
+    "get_kernel", "get_policy", "get_strategy", "journal_path",
+    "kernel_path", "normalize_config", "normalizer_for", "overrides",
+    "overrides_active", "pareto_front", "policies", "policy_scalar_cols",
+    "prune_candidates", "register_strategy", "registered_kernels",
+    "resolve", "resolve_device", "run_sweep", "set_default_session",
+    "strategies", "suggest", "tune", "tuned_kernel",
     *sorted(_ONLINE_EXPORTS),
 ]

@@ -62,16 +62,22 @@ DEFAULT_DB_PATH = os.environ.get(
 
 # the entry-key shapes, as format templates: latency keys keep the schema-3
 # shape so pre-policy entries resolve; non-latency winners carry the policy
-# segment.  Reshaping a key without bumping the schema orphans every stored
-# winner.
+# segment.  ``repro_torch.analysis`` fingerprints these against
+# SCHEMA_VERSION — reshaping a key without bumping the schema orphans every
+# stored winner.
 KEY_FORMATS = ("{platform}|{workload_key}",
                "{platform}|policy={policy}|{workload_key}")
+
+# per-entry field layout (same contract, same fingerprint)
+ENTRY_FIELDS = ("config", "time_s", "method", "evaluations", "profile",
+                "policy", "metrics")
 
 
 def make_entry(cfg: Dict, time_s: float, method: str, evaluations: int,
                profile: str, policy: str,
                metrics: Mapping[str, float]) -> Dict:
-    """One schema-4 DB entry."""
+    """One schema-4 DB entry; the single construction site for
+    ``ENTRY_FIELDS``."""
     return {"config": dict(cfg), "time_s": time_s, "method": method,
             "evaluations": evaluations, "profile": profile,
             "policy": policy, "metrics": dict(metrics)}

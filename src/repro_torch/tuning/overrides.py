@@ -9,7 +9,7 @@ exit (including on exceptions). The stack is thread-local, so concurrent
 request threads cannot see each other's experiments.
 
 Keys are op names (``scan``, ``tridiag``, ``fft``, ``large_fft``, ``ssd``,
-``rglru``); values are partial config dicts merged on top of whatever the
+``rglru``, ``attention``, ``matmul``); values are partial config dicts merged on top of whatever the
 session resolves (DB hit, analytical suggestion, or an explicit
 ``config=`` argument).
 
@@ -60,3 +60,7 @@ def active_overrides(op: str) -> Optional[Dict[str, int]]:
         if fragment:
             merged.update(fragment)
     return merged or None
+
+
+def overrides_active() -> bool:
+    return bool(getattr(_LOCAL, "stack", None))

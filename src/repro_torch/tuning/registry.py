@@ -14,7 +14,8 @@ attached as ``fn.kernel_spec`` and recorded so that
   * ``TunerSession.resolve`` finds the op's normalizer (the single
     config-resolution pipeline — no per-ops.py ``_norm_cfg`` copies),
   * the op's space builder is registered with ``repro_torch.core.space`` so
-    ``build_space`` works for it.
+    ``build_space`` works for it,
+  * tooling can enumerate every tuned entry point (``registered_kernels``).
 """
 from __future__ import annotations
 
@@ -44,6 +45,9 @@ class KernelSpec:
     variants: Tuple[str, ...] = ()
 
 
+# entry-point name -> spec (an op may expose several entry points, e.g.
+# scan -> prefix_sum + linear_recurrence)
+_KERNELS: Dict[str, KernelSpec] = {}
 # op name -> spec used for config resolution (normalizer / space)
 _BY_OP: Dict[str, KernelSpec] = {}
 
@@ -60,6 +64,10 @@ def tuned_kernel(op: str, *, space: Optional[SpaceBuilder] = None,
                           kernel=kernel, reference=reference,
                           normalize=normalize or normalize_config,
                           variants=tuple(variants))
+        # one function may serve several ops (fft drives both "fft" and
+        # "large_fft"); qualify the key on collision instead of overwriting
+        key = fn.__name__ if fn.__name__ not in _KERNELS else f"{op}:{fn.__name__}"
+        _KERNELS[key] = spec
         _BY_OP.setdefault(op, spec)
         if normalize is not None:
             _BY_OP[op] = spec
@@ -98,7 +106,33 @@ def _ensure_registered(op: str) -> None:
             pass
 
 
+def get_kernel(name: str) -> KernelSpec:
+    """Spec by entry-point name (or op name as a fallback)."""
+    if name in _KERNELS:
+        return _KERNELS[name]
+    _ensure_registered(name)
+    if name in _BY_OP:
+        return _BY_OP[name]
+    raise KeyError(f"no tuned kernel registered under {name!r}")
+
+
 def normalizer_for(op: str) -> Normalizer:
     _ensure_registered(op)
     spec = _BY_OP.get(op)
     return spec.normalize if spec is not None else normalize_config
+
+
+def registered_kernels() -> Dict[str, KernelSpec]:
+    return dict(_KERNELS)
+
+
+def known_ops() -> Tuple[str, ...]:
+    """Every op name the registry can resolve (imported or lazily known).
+
+    The ML training suite (``repro_torch.tuning.ml.dataset.SUITE``) must
+    cover exactly this set — a test enforces it, so registering a new
+    ``@tuned_kernel`` op forces the author to declare its train/holdout
+    sizes rather than silently shipping a kernel the predictor never
+    learns.
+    """
+    return tuple(sorted(set(_OP_MODULES) | set(_BY_OP)))

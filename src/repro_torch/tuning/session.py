@@ -128,6 +128,10 @@ _STRATEGIES: Dict[str, Strategy] = {
 }
 
 
+def register_strategy(name: str, strategy: Strategy) -> None:
+    _STRATEGIES[name] = strategy
+
+
 def get_strategy(name: str) -> Strategy:
     try:
         return _STRATEGIES[name]

@@ -57,10 +57,22 @@ JOURNAL_VERSION = 3
 # pass an explicit top_k
 DEFAULT_TOP_K = 64
 
+# the journal header contract, flattened (nested workload fields appear as
+# "workload.<field>").  ``repro_torch.analysis`` fingerprints this list
+# against JOURNAL_VERSION: changing the header layout without bumping the
+# version silently orphans every journal on disk, so the lint gate catches
+# it.
+HEADER_FIELDS = ("kind", "version", "workload.key", "workload.op",
+                 "workload.n", "workload.batch", "workload.dtype",
+                 "workload.variant", "objective", "profile", "space_size",
+                 "pruned")
+
 
 def make_header(wl: Workload, objective: Objective, space_size: int,
                 pruned: int = 0) -> Dict:
-    """The version-stamped journal header record (one per journal file);
+    """The version-stamped journal header record (one per journal file).
+
+    The single construction site for the ``HEADER_FIELDS`` contract;
     ``space_size`` is the FULL valid-space size and ``pruned`` the configs
     never measured by design (a model-steered subset), so journal
     consumers (dataset export) can tell "complete enumeration" from

@@ -873,6 +873,33 @@ def test_matmul_wgmma_folds_k_blocks_inside_a_stage(cuda, m, k, n, bm, bn,
     _matmul_bf16_close(got, matmul_plain(a, b, **kw))
 
 
+@pytest.mark.parametrize("m,k,n,bm,bn,bk", [
+    (33, 65, 96, 33, 96, 65), (55, 65, 128, 55, 128, 65),
+    (33, 65, 97, 33, 97, 65), (64, 64, 64, 64, 64, 8)])
+def test_matmul_ragged_route_takes_what_wgmma_does_not(cuda, m, k, n, bm, bn,
+                                                       bk):
+    """bf16 at K = 65 (a k-block not whole k16 steps, A's row pitch off
+    TMA's 16 bytes), at a prime N and at block_k 8: the CUDA-core kernel,
+    chosen before the launch and counted on the "ragged" route."""
+    from repro_torch.kernels.matmul.kernel import (matmul_plain, matmul_route,
+                                                   matmul_tiled)
+    gen = torch.Generator(device=cuda).manual_seed(m + n)
+    a = torch.randn(m, k, generator=gen, device=cuda).to(torch.bfloat16)
+    b = torch.randn(k, n, generator=gen, device=cuda).to(torch.bfloat16)
+    kw = dict(block_m=bm, block_n=bn, block_k=bk)
+    assert matmul_route(a, b, bk) == "ragged"
+    before = (matmul_tiled.launches, matmul_tiled.launches_ragged,
+              matmul_tiled.launches_wgmma, matmul_tiled.launches_simt)
+    got = matmul_tiled(a, b, **kw)
+    torch.cuda.synchronize()
+    assert (matmul_tiled.launches, matmul_tiled.launches_ragged,
+            matmul_tiled.launches_wgmma, matmul_tiled.launches_simt) \
+        == (before[0] + 1, before[1] + 1, before[2], before[3])
+    want = matmul_plain(a, b, **kw)
+    _close(got, want, "bfloat16")
+    _matmul_bf16_close(got, want)
+
+
 def test_matmul_simt_record_takes_bf16(cuda):
     from repro_torch.kernels.matmul.kernel import (matmul_plain, matmul_simt,
                                                    matmul_tiled)

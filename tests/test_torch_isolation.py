@@ -67,7 +67,9 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.optim.compression, repro_torch.train.step, "
             "repro_torch.train.loop, repro_torch.train.checkpoint, "
             "repro_torch.train.fault, repro_torch.data.pipeline, "
-            "repro_torch.launch.train\n"
+            "repro_torch.launch.train, repro_torch.analysis, "
+            "repro_torch.evaluation.differential\n"
+            "repro_torch.analysis.run_lint(invariants=False)\n"
             "repro_torch.configs.base.all_archs()\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'repro', "
             "'ml_dtypes') or m.startswith(('jax.', 'repro.', "
