@@ -236,7 +236,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    guard: a backward through each of the twelve kernels, and a train step
    of qwen with ``use_pallas`` and of mamba2-130m at full width, must
    raise the guard's error naming a kernel, with no gradient left behind;
-18. the ``kernels`` line: per kernel (all twelve) its launches on the main
+18. the dry-run (``[dryrun]``): ``launch.roofline.analyze_cell`` on the
+   card machine's host for qwen1.5-0.5b ``train_4k`` and mamba2-130m
+   ``prefill_32k`` on the (16, 16) production mesh over a fake world of
+   256 ranks, under the ``h100`` profile (status ok, finite positive
+   terms, all-gathers and reduce-scatters counted in the train cell);
+   then the dry-run held to the card: qwen1.5-0.5b at full width and
+   depth (bf16) prefilling 8 x 2048 tokens, placed on ``make_host_mesh()``
+   (the (1, 1) mesh of this card) on fake tensors, against the same
+   prefill run for real: the predicted argument bytes equal the
+   parameters' and tokens' bytes on the card, and the predicted dot FLOPs
+   equal ``FlopCounterMode``'s count of the plain run, exactly; the flash
+   run (``use_pallas``: kernel 11, its launches counted) within 2e-2 of
+   max |logits| of the plain run's last-position logits; printed without
+   a gate, the predicted against the measured peak memory and each run's
+   median time against the roofline bound;
+19. the ``kernels`` line: per kernel (all twelve) its launches on the main
    paths (by route for ``scan_add``, ``scan_linrec``, ``scan_linrec_prod``,
    ``pcr``, ``fft_stockham`` and the three SSD kernels, with the earlier
    kernel's time beside theirs; by path for the kernels that run on
@@ -5099,6 +5114,241 @@ def phase_train(dev):
     return counts
 
 
+DRYRUN_CELLS = (("qwen1.5-0.5b", "train_4k"), ("mamba2-130m", "prefill_32k"))
+DRYRUN_BATCH, DRYRUN_LEN = 8, 2048     # the prefill held to the card
+DRYRUN_REPS = 3
+DECODE_STEPS = 20
+
+
+def _gib(n) -> str:
+    return f"{n / 2**30:.3f} GiB"
+
+
+def dryrun_production_cells():
+    """(a) The production cells on this host: the (16, 16) mesh over a
+    fake world of 256 ranks, nothing on the card."""
+    import math as _math
+
+    from repro_torch.launch.roofline import analyze_cell
+
+    hbm = 80 * 2 ** 30
+    for arch, shape in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        rec = analyze_cell(arch, shape, profile="h100")
+        secs = time.perf_counter() - t0
+        if rec["status"] != "ok":
+            raise AssertionError(f"[dryrun] {arch}|{shape}: {rec}")
+        pd, terms, coll = rec["per_device"], rec["roofline"], \
+            rec["collectives"]
+        log(f"[dryrun] {arch}|{shape}|16x16 (h100): per device argument "
+            f"{_gib(pd['argument_bytes'])}, temp {_gib(pd['temp_bytes'])}, "
+            f"peak {_gib(pd['peak_bytes'])} of {_gib(hbm)}; flops "
+            f"{rec['flops']:.4e}, bytes {rec['bytes_accessed']:.4e}; "
+            f"collectives {coll['count_by_kind']} wire bytes "
+            f"{ {k: round(v) for k, v in coll['per_kind'].items()} }; "
+            f"terms {terms}, dominant {rec['dominant']}, mfu_upper_bound "
+            f"{rec['mfu_upper_bound']:.4f}, useful_flops_ratio "
+            f"{rec['useful_flops_ratio']:.4f}; fallbacks "
+            f"{rec['sharding_fallbacks']}; lower {rec['lower_s']} s, step "
+            f"{rec['compile_s']} s, {secs:.1f} s in all")
+        if not all(_math.isfinite(v) and v > 0 for v in terms.values()):
+            raise AssertionError(f"[dryrun] {arch}|{shape} terms {terms}")
+        if shape.startswith("train") and not (
+                coll["count_by_kind"].get("all-gather", 0) > 0
+                and coll["count_by_kind"].get("reduce-scatter", 0) > 0):
+            raise AssertionError(f"[dryrun] {arch}|{shape}: FSDP's "
+                                 f"collectives missing: {coll}")
+
+
+def phase_dryrun(dev):
+    """(a) the production cells; (b) the dry-run of qwen1.5-0.5b's 8 x
+    2048 prefill on this card's (1, 1) host mesh, held to the same prefill
+    run for real, plain and flash.  Returns kernel 11's launch counts in
+    the flash run."""
+    import dataclasses
+    import statistics
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.qwen15_05b import CONFIG
+    from repro_torch.launch.mesh import make_host_mesh, release_world
+    from repro_torch.launch.roofline import analyze_cell
+    from repro_torch.models.model import Model
+    from repro_torch.train.step import make_prefill_step
+
+    t0 = time.perf_counter()
+    dryrun_production_cells()
+    log(f"[dryrun] production cells {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    shape = ShapeConfig(f"prefill_{DRYRUN_BATCH}x{DRYRUN_LEN}", DRYRUN_LEN,
+                        DRYRUN_BATCH, "prefill")
+    mesh = make_host_mesh()
+    log(f"[dryrun] host mesh: {mesh}")
+    try:
+        rec = analyze_cell(CONFIG.arch, shape.name, arch_cfg=CONFIG,
+                           profile="h100", mesh=mesh, shape=shape)
+    finally:
+        release_world()
+    if rec["status"] != "ok":
+        raise AssertionError(f"[dryrun] host-mesh cell: {rec}")
+    pd, cost = rec["per_device"], rec["op_cost"]
+    bound_s = rec["step_time_bound_s"]
+    log(f"[dryrun] {CONFIG.arch}|{shape.name}|{rec['mesh']} predicted: "
+        f"argument {pd['argument_bytes']} B, temp {pd['temp_bytes']} B, "
+        f"peak {pd['peak_bytes']} B; flops {cost['flops']:.6e}, dot flops "
+        f"{cost['dot_flops']:.6e} in {int(cost['dot_count'])} dots; terms "
+        f"{rec['roofline']}, bound {bound_s * 1e3:.3f} ms; lower "
+        f"{rec['lower_s']} s, step {rec['compile_s']} s, "
+        f"{time.perf_counter() - t0:.1f} s in all")
+
+    # the same cell for real: the config the dry-run ran (its mesh hints,
+    # so the one-hot embedding too), random weights on the card
+    cfg = dataclasses.replace(CONFIG, batch_axes=("data",), batch_shards=1,
+                              model_axis_size=1)
+    gen = torch.Generator(device=dev).manual_seed(61)
+    model = Model.init(cfg, gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (DRYRUN_BATCH, DRYRUN_LEN),
+                           generator=gen, device=dev, dtype=torch.int32)
+    batch = {"tokens": tokens}
+    real_args = sum(p.numel() * p.element_size()
+                    for p in model.parameters()) \
+        + tokens.numel() * tokens.element_size()
+    log(f"[dryrun] argument bytes predicted {pd['argument_bytes']}, on the "
+        f"card {real_args}")
+    if pd["argument_bytes"] != real_args:
+        raise AssertionError("[dryrun] predicted argument bytes differ from "
+                             "the card's")
+    step = make_prefill_step(model)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with FlopCounterMode(display=False) as fc:
+        plain = step(batch)
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - base
+    counted = fc.get_total_flops()
+    log(f"[dryrun] dot flops predicted {int(cost['dot_flops'])}, "
+        f"FlopCounterMode on the card {counted}")
+    if int(cost["dot_flops"]) != counted:
+        raise AssertionError("[dryrun] predicted dot flops differ from the "
+                             "card's count")
+    log(f"[dryrun] peak memory above the arguments: predicted "
+        f"{_gib(pd['temp_bytes'])}, measured {_gib(measured)} (ratio "
+        f"{pd['temp_bytes'] / measured:.4f}); whole peak predicted "
+        f"{_gib(pd['peak_bytes'])}, measured {_gib(real_args + measured)} "
+        f"(the arguments plus the peak above them; ratio "
+        f"{pd['peak_bytes'] / (real_args + measured):.4f}); earlier phases "
+        f"leave {base - real_args} B allocated beside the arguments")
+
+    def median_ms(fn):
+        fn()
+        times = []
+        for _ in range(DRYRUN_REPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    plain_ms = median_ms(lambda: step(batch))
+    model.cfg = dataclasses.replace(cfg, use_pallas=True)
+    reset_counts()
+    flash = step(batch)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"[dryrun] the flash prefill launched kernel 11 "
+                             f"{counts['flash_attention']} times, not once a "
+                             f"layer ({cfg.n_layers})")
+    flash_ms = median_ms(lambda: step(batch))
+    model.cfg = cfg
+    scale = float(plain.abs().max())
+    rel = float((flash - plain).abs().max()) / scale
+    finite = bool(torch.isfinite(plain).all() and torch.isfinite(flash).all())
+    log(f"[dryrun] last-position logits {tuple(plain.shape)}: flash vs "
+        f"plain max |diff| / max |logits| {rel:.3e} (bound "
+        f"{DENSE_LOGITS_TOL}), finite {finite}; kernel 11 launched "
+        f"{counts['flash_attention']} times "
+        f"({counts['flash_attention.wgmma']} wgmma)")
+    if not (finite and rel < DENSE_LOGITS_TOL
+            and tuple(plain.shape) == (DRYRUN_BATCH, cfg.vocab)):
+        raise AssertionError(f"[dryrun] flash prefill off the plain one by "
+                             f"{rel:.3e}")
+    log(f"[dryrun] median of {DRYRUN_REPS}: plain {plain_ms:.3f} ms, flash "
+        f"{flash_ms:.3f} ms; roofline bound (h100) {bound_s * 1e3:.3f} ms: "
+        f"bound / time {bound_s * 1e3 / plain_ms:.4f} plain, "
+        f"{bound_s * 1e3 / flash_ms:.4f} flash")
+    del plain, flash
+    model.cfg = CONFIG
+    time_cache_write(dev, model)
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _scatter_write(cache, slot, value):
+    """The decode's cache write as a clone and an index_put, the form the
+    model's select (``models.attention._write_slot``) is timed against."""
+    import torch
+    out = cache.clone()
+    out[torch.arange(cache.shape[0], device=cache.device), slot] = value
+    return out
+
+
+def time_cache_write(dev, model):
+    """qwen1.5-0.5b's decode step at the dry-run's batch over a cache of the
+    dry-run's length, with the model's cache write (a select against the
+    slot's one-hot) and with a clone and index_put in its place: the same
+    logits and cache, and the mean time of DECODE_STEPS steps, in the order
+    select, scatter, scatter, select."""
+    import torch
+
+    from repro_torch.models import attention
+    from repro_torch.train.step import make_decode_step
+
+    step = make_decode_step(model)
+    cache = model.init_cache(DRYRUN_BATCH, DRYRUN_LEN)
+    gen = torch.Generator(device=dev).manual_seed(62)
+    for c in cache:
+        for t in c.values():
+            if t.is_floating_point():
+                t.normal_(generator=gen)
+    token = torch.randint(0, model.cfg.vocab, (DRYRUN_BATCH, 1),
+                          generator=gen, device=dev, dtype=torch.int32)
+    pos = torch.randint(0, DRYRUN_LEN, (DRYRUN_BATCH, 1), generator=gen,
+                        device=dev, dtype=torch.int32)
+    select = attention._write_slot
+
+    def run(write):
+        attention._write_slot = write
+        try:
+            return step(token, cache, pos)
+        finally:
+            attention._write_slot = select
+
+    (a, ca), (b, cb) = run(select), run(_scatter_write)
+    same = torch.equal(a, b) and all(
+        torch.equal(x[k], y[k]) for x, y in zip(ca, cb) for k in x)
+    del ca, cb
+    if not same:
+        raise AssertionError("[dryrun] the decode's select and scatter "
+                             "cache writes differ")
+    times = {"select": [], "scatter": []}
+    for form in ("select", "scatter", "scatter", "select"):
+        write = select if form == "select" else _scatter_write
+        times[form].append(time_ms(lambda: run(write), DECODE_STEPS))
+    sel, sca = (sum(times[f]) / 2 for f in ("select", "scatter"))
+    log(f"[dryrun] decode {DRYRUN_BATCH} x 1 over {DRYRUN_LEN} slots, mean "
+        f"of {DECODE_STEPS} steps: select {times['select']} ms, clone + "
+        f"index_put {times['scatter']} ms; select / scatter "
+        f"{sel / sca:.4f}; logits and cache equal")
+
+
 def add_model_launches(entries, model_runs, model_shapes):
     """The kernels line's model paths: kernel 11 in every arch's forward
     (encoder and cross-attention layers included), kernels 2, 3 and 5 in
@@ -5280,6 +5530,10 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         train_counts = phase_train(dev)
         torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        dryrun_counts = phase_dryrun(dev)
+        log(f"[dryrun] {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
         # the SSD kernels' launches in the tuning loop, apart from the
         # main paths', by route
         for entry in entries:
@@ -5328,6 +5582,15 @@ def main(argv=None) -> int:
                 for route in ROUTES.get(name, ()):
                     entry["launches_by_route"][route] += \
                         train_counts[f"{name}.{route}"]
+        # and kernel 11 in the dry-run's flash prefill
+        for entry in entries:
+            if entry["name"] == "flash_attention":
+                n = dryrun_counts["flash_attention"]
+                entry["launches_by_path"]["dryrun"] = n
+                entry["launches_by_route"]["dryrun"] = {
+                    r: dryrun_counts[f"flash_attention.{r}"]
+                    for r in ROUTES["flash_attention"]}
+                entry["launches"] += n
         log(json.dumps({"kernels": entries}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all (build "
         f"{build_s:.1f} s)")

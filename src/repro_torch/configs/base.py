@@ -1,8 +1,9 @@
 """Model configuration schema and registry of the port.
 
 The PyTorch port's own copy of ``repro.configs.base`` (``ModelConfig``,
-``register``, ``reduced()``, ``get_arch``), field for field, so a
-configuration and its reduced smoke-test variant are the same in both
+``register``, ``reduced()``, ``get_arch``, and the dry-run's cells
+``ShapeConfig`` / ``SHAPES`` / ``shape_applicable``), field for field, so
+a configuration and its reduced smoke-test variant are the same in both
 packages.  The registry holds the JAX package's ten configurations.
 """
 from __future__ import annotations
@@ -115,6 +116,21 @@ class ModelConfig:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                 # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
 _REGISTRY: Dict[str, ModelConfig] = {}
 
 
@@ -142,3 +158,11 @@ def _load_all() -> None:
                 "whisper_large_v3", "llama32_vision_90b", "qwen2_moe_a27b",
                 "qwen3_moe_30b_a3b", "recurrentgemma_9b", "mamba2_130m"):
         importlib.import_module(f"repro_torch.configs.{mod}")
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Assignment rules: long_500k only for sub-quadratic archs."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("full-attention arch: 500k-token decode requires "
+                       "sub-quadratic attention (skip per assignment)")
+    return True, ""

@@ -19,11 +19,13 @@ Elems = Tuple[torch.Tensor, ...]
 
 
 def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
-    out = torch.empty(even.shape[:-1] + (even.shape[-1] + odd.shape[-1],),
-                      dtype=even.dtype, device=even.device)
-    out[..., 0::2] = even
-    out[..., 1::2] = odd
-    return out
+    """even[0], odd[0], even[1], ... (``even`` one longer or as long):
+    out of place, so a DTensor step can take it too."""
+    m = odd.shape[-1]
+    pairs = torch.stack([even[..., :m], odd], dim=-1).flatten(-2)
+    if even.shape[-1] == m:
+        return pairs
+    return torch.cat([pairs, even[..., m:]], dim=-1)
 
 
 def _scan(combine: Callable[[Elems, Elems], Sequence[torch.Tensor]],

@@ -18,8 +18,11 @@ function of the same name:
 ``cross_attention`` attends from the queries over an encoder's or a
 vision stub's memory, without a mask: the flash kernel (``causal=False``,
 Lq and Lk apart) under ``use_pallas``, ``_attention_4d`` otherwise.
-The JAX package's sharding hints (``_score_constraint``) have no
-counterpart: the port runs on one device.
+In a distributed step (DTensors) ``_score_constraint`` pins the score
+tensor's sharding on the query sequence (JAX's fallback; JAX prefers the
+heads); on plain tensors it is the identity.  The flash kernel takes no
+DTensor: a distributed step runs with ``use_pallas`` off, as JAX's
+dry-run lowers it.
 """
 from __future__ import annotations
 
@@ -31,6 +34,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.hints import (UNCONSTRAINED, constrain,
+                                          is_dtensor, splittable)
 from repro_torch.kernels.attention.ops import attention as attention_op
 from repro_torch.models.layers import Dense, rope
 
@@ -61,7 +66,7 @@ def init_attention(cfg: ModelConfig, generator: torch.Generator,
 
 def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     b, l, _ = x.shape
-    return x.reshape(b, l, n, hd)
+    return splittable(x, -1, n).reshape(b, l, n, hd)
 
 
 def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -79,16 +84,43 @@ def _inv_sqrt(d: int, device) -> torch.Tensor:
     return 1.0 / root
 
 
+def _score_constraint(lq: int, model_axis: int) -> Optional[tuple]:
+    """Sharding for the (B, H, Lq, Lk) score tensor — the largest activation
+    in every attention cell — in a DTensor step: the query sequence on the
+    model axis when that axis divides Lq, else none (decode's Lq = 1).
+
+    This differs from JAX's, which prefers head (TP) sharding and falls
+    back to the query sequence only for head counts the model axis does
+    not divide (gemma-2b: 8, minitron: 24, whisper: 20): the score product
+    flattens (batch, heads), and a DTensor cannot flatten two sharded dims,
+    so the port always takes JAX's fallback.  In decode JAX shards the
+    scores on the heads, and the port leaves them unconstrained.
+
+    Non-constrained dims stay UNCONSTRAINED so the batch sharding keeps
+    propagating (a None here would *replicate* the batch dim)."""
+    if not model_axis or lq % model_axis:
+        return None
+    return (UNCONSTRAINED, UNCONSTRAINED, "model", UNCONSTRAINED)
+
+
 def _attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, window: Optional[int],
-                    compute_dtype: torch.dtype, q_offset: int
-                    ) -> torch.Tensor:
+                    compute_dtype: torch.dtype, q_offset: int,
+                    model_axis: int = 0) -> torch.Tensor:
     """One (B, Lq, H, D) x (B, Lk, H, D) attention tile; q_offset is the
     global position of q[0] minus kpos[0] (supports q-chunking)."""
     lq, d = q.shape[1], q.shape[3]
     lk = k.shape[1]
+    cons = _score_constraint(lq, model_axis) if is_dtensor(q) else None
+    if cons is not None:
+        # the query sequence sharded, k and v whole on the model axis
+        q = constrain(q, (UNCONSTRAINED, "model", None, None))
+        k = constrain(k, (UNCONSTRAINED, None, None, None))
+        v = constrain(v, (UNCONSTRAINED, None, None, None))
     s = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) \
         * _inv_sqrt(d, q.device)
+    if cons is not None:
+        s = constrain(s, cons)
     qpos = torch.arange(lq, device=q.device) + q_offset
     kpos = torch.arange(lk, device=q.device)
     mask = torch.ones(lq, lk, dtype=torch.bool, device=q.device)
@@ -98,6 +130,8 @@ def _attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask = mask & (kpos[None, :] > qpos[:, None] - window)
     s = torch.where(mask[None, None], s, -1e30)
     p = torch.softmax(s, dim=-1).to(compute_dtype)
+    if cons is not None:
+        p = constrain(p, cons)
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
 
@@ -110,7 +144,8 @@ _Q_CHUNK = 1024
 
 def _attention_4d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool, window: Optional[int],
-                  compute_dtype: torch.dtype) -> torch.Tensor:
+                  compute_dtype: torch.dtype,
+                  model_axis: int = 0) -> torch.Tensor:
     """Plain-op attention keeping the (B, L, H, D) layout; long sequences
     run over q-chunks so only a (chunk, Lk) score block is live, each
     chunk recomputed in the backward."""
@@ -120,12 +155,13 @@ def _attention_4d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if lq * lk <= _SCORE_ELEMS_LIMIT or lq % _Q_CHUNK or lq == lk == 0:
         return _attention_core(q, k, v, causal=causal, window=window,
                                compute_dtype=compute_dtype,
-                               q_offset=base_offset)
+                               q_offset=base_offset, model_axis=model_axis)
 
     def run(qb, i):
         return _attention_core(qb, k, v, causal=causal, window=window,
                                compute_dtype=compute_dtype,
-                               q_offset=i + base_offset)
+                               q_offset=i + base_offset,
+                               model_axis=model_axis)
 
     # each chunk is recomputed in the backward, as the JAX function's
     # jax.checkpoint does (whatever cfg.remat says)
@@ -134,6 +170,19 @@ def _attention_4d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         checkpoint(run, q[:, i:i + _Q_CHUNK], i, use_reentrant=False)
         if remat else run(q[:, i:i + _Q_CHUNK], i)
         for i in range(0, lq, _Q_CHUNK)], dim=1)
+
+
+def _write_slot(cache: torch.Tensor, slot: torch.Tensor,
+                value: torch.Tensor) -> torch.Tensor:
+    """A copy of ``cache`` (B, S, ...) with ``value[b]`` at ``[b, slot[b]]``:
+    a select against the slot's one-hot, which each device of a
+    distributed step (a DTensor cache, sharded on batch and sequence)
+    applies to its own slice, where a scatter into sharded dims has no
+    partitioned form.  A slot past the cache writes nothing, as JAX's
+    scatter drops it."""
+    hit = slot[:, None] == torch.arange(cache.shape[1], device=cache.device)
+    hit = hit.reshape(hit.shape + (1,) * (cache.dim() - 2))
+    return torch.where(hit, value[:, None], cache)
 
 
 def self_attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
@@ -165,20 +214,19 @@ def self_attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     if cache is not None and l == 1:
         pos = positions[:, 0]                                    # (B,)
         cache_len = cache["k"].shape[1]
-        barange = torch.arange(b, device=x.device)
         if "pos" in cache:                                       # ring buffer
             slot = torch.remainder(pos, cache_len)
-            slot_pos = cache["pos"].clone()
-            slot_pos[barange, slot] = pos.to(slot_pos.dtype)
+            slot_pos = _write_slot(cache["pos"], slot,
+                                   pos.to(cache["pos"].dtype))
         else:
             slot = pos
             slot_pos = torch.arange(cache_len, dtype=torch.int32,
                                     device=x.device)[None, :].expand(
                 b, cache_len)
-        ck = cache["k"].clone()
-        cv = cache["v"].clone()
-        ck[barange, slot] = k[:, 0].to(ck.dtype)
-        cv[barange, slot] = v[:, 0].to(cv.dtype)
+        ck = _write_slot(cache["k"], slot, k[:, 0].to(
+            cache["k"].dtype))
+        cv = _write_slot(cache["v"], slot, v[:, 0].to(
+            cache["v"].dtype))
         new_cache = {"k": ck, "v": cv}
         if "pos" in cache:
             new_cache["pos"] = slot_pos
@@ -205,7 +253,7 @@ def self_attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
         o = _flash(q, k, v, causal=True, window=window)
     else:
         o = _attention_4d(q, k, v, causal=True, window=window,
-                          compute_dtype=cd)
+                          compute_dtype=cd, model_axis=cfg.model_axis_size)
     o = o.reshape(b, l, hq * hd)
     return p.wo(o, cd), None
 
@@ -238,5 +286,5 @@ def cross_attention(p: Attention, x: torch.Tensor, memory: torch.Tensor,
         o = _flash(q, k, v, causal=False)
     else:
         o = _attention_4d(q, k, v, causal=False, window=None,
-                          compute_dtype=cd)
+                          compute_dtype=cd, model_axis=cfg.model_axis_size)
     return p.wo(o.reshape(b, l, hq * hd), cd)

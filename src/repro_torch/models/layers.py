@@ -5,7 +5,9 @@ them: ``dense`` / ``Dense`` (optional bias), ``rms_norm``, the gated
 attributes named as the JAX parameter tree names them (``w``, ``b``,
 ``table``), so ``models.convert`` loads a JAX tree into them.  ``x @ w``
 stays a plain ``torch.matmul``: it is a product outside any Pallas kernel
-in the JAX package too."""
+in the JAX package too.  In a distributed step (DTensors) the projections
+gather the weights' FSDP shards and the activations' sequence shards first
+(``distributed.hints``); on plain tensors those are identities."""
 from __future__ import annotations
 
 import math
@@ -13,6 +15,10 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+
+from repro_torch.distributed.hints import (gather_inner, gather_weight,
+                                          projection_output,
+                                          sharded_one_hot)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -47,10 +53,14 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
 
 def dense(w: torch.Tensor, x: torch.Tensor,
           compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    # a distributed step gathers the weight's FSDP shards and the
+    # activations' sequence shards first (identities on plain tensors)
+    w = gather_weight(w)
+    x = gather_inner(x)
     if compute_dtype is not None:
         w = w.to(compute_dtype)
         x = x.to(compute_dtype)
-    return x @ w
+    return projection_output(x @ w)
 
 
 class Dense(nn.Module):
@@ -148,16 +158,28 @@ class Embedding(nn.Module):
                              * (1.0 / math.sqrt(self.table.shape[1])))
 
 
-def embed(p: Embedding, tokens: torch.Tensor,
-          compute_dtype: torch.dtype) -> torch.Tensor:
-    return p.table.to(compute_dtype)[tokens]
+def embed(p: Embedding, tokens: torch.Tensor, compute_dtype: torch.dtype,
+          one_hot: bool = False) -> torch.Tensor:
+    if one_hot:
+        # distributed path: the gather's backward is a scatter-add that the
+        # partitioner replicates to a full (V, D) per device; a one-hot
+        # einsum keeps both forward and backward partitioned (vocab stays
+        # on "model").  Exact: one 1 a row, so each output is one table
+        # element plus zeros.
+        table = gather_weight(p.table)
+        oh = sharded_one_hot(tokens, table.shape[0], table, 0)
+        oh = oh.to(compute_dtype)
+        return torch.einsum("blv,vd->bld", oh, table.to(compute_dtype))
+    return gather_weight(p.table).to(compute_dtype)[tokens]
 
 
 def unembed(p: Embedding, x: torch.Tensor,
             softcap: float = 0.0) -> torch.Tensor:
     """Logits in f32 against the tied table; tanh softcap when set."""
-    logits = torch.einsum("bld,vd->blv", x.to(torch.float32),
-                          p.table.to(torch.float32))
+    table = gather_weight(p.table)
+    logits = torch.einsum("bld,vd->blv",
+                          gather_inner(x).to(torch.float32),
+                          table.to(torch.float32))
     if softcap:
         logits = torch.tanh(logits / softcap) * softcap
     return logits
@@ -171,7 +193,11 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
     Returns (y, new_cache) with cache = the last K-1 inputs (for decode)."""
     K = w.shape[0]
     if cache is None:
-        ctx = torch.nn.functional.pad(x, (0, 0, K - 1, 0))
+        # the K-1 left zeros by a concatenation, not a pad: torch 2.11's
+        # DTensor fails to plan a pad here (one zero row repeated, since L
+        # may be below K-1)
+        zero = torch.zeros_like(x[:, :1])
+        ctx = torch.cat([zero] * (K - 1) + [x], dim=1)
     else:
         ctx = torch.cat([cache.to(x.dtype), x], dim=1)
     L = x.shape[1]

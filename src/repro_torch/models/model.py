@@ -41,6 +41,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.hints import UNCONSTRAINED, constrain
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models.moe import MoE, moe_block
@@ -70,6 +71,36 @@ def _norm(cfg: ModelConfig, dtype: torch.dtype, device) -> nn.Parameter:
 
 def _zero(x: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _constrain_batch(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Pin the batch sharding of the residual stream. The embedding gather
+    (vocab-sharded table) otherwise replicates its output batch dim, and
+    the whole stack inherits the replication.  The identity on a plain
+    tensor (``distributed.hints.constrain``)."""
+    if not cfg.batch_axes or (cfg.batch_shards
+                              and x.shape[0] % cfg.batch_shards):
+        return x
+    b = cfg.batch_axes if len(cfg.batch_axes) > 1 else cfg.batch_axes[0]
+    return constrain(x, (b,) + (UNCONSTRAINED,) * (x.dim() - 1))
+
+
+def _constrain_residual(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Sequence-parallel (SP) sharding of the residual stream at layer
+    boundaries: (B, L, D) -> (batch, "model", UNCONSTRAINED).
+
+    The tensor saved per layer for the backward pass is the block input;
+    without SP it is only batch-sharded, and deep/wide archs blow past the
+    device's memory.  With SP the saves shrink by the model-axis size; the
+    redistributions put the all-gather at attention entry and the
+    reduce-scatter after it (Korthikanti et al.-style SP)."""
+    if (cfg.activation_strategy != "sp" or not cfg.batch_axes
+            or not cfg.model_axis_size or x.dim() != 3
+            or x.shape[1] % cfg.model_axis_size
+            or (cfg.batch_shards and x.shape[0] % cfg.batch_shards)):
+        return x
+    b = cfg.batch_axes if len(cfg.batch_axes) > 1 else cfg.batch_axes[0]
+    return constrain(x, (b, "model", UNCONSTRAINED))
 
 
 def _remat(cfg: ModelConfig, fn, *args):
@@ -314,12 +345,14 @@ class Model(nn.Module):
             return None
         return memory.to(self._cd())
 
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, tokens: torch.Tensor,
+               one_hot: bool = False) -> torch.Tensor:
         cd = self._cd()
         # sqrt(d_model) in the compute type, as the JAX model scales it
         root = torch.tensor(math.sqrt(self.cfg.d_model), dtype=torch.float32,
                             device=tokens.device).to(cd)
-        return L.embed(self.embed, tokens, cd) * root
+        x = L.embed(self.embed, tokens, cd, one_hot=one_hot) * root
+        return _constrain_batch(x, self.cfg)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = L.rms_norm(x, self.final_norm, self.cfg.norm_eps)
@@ -330,7 +363,7 @@ class Model(nn.Module):
         (the stub frontend): its blocks, then ``enc_norm``.  Its
         self-attention is causal, as in the JAX package."""
         cfg, cd = self.cfg, self._cd()
-        x = frames.to(cd)
+        x = _constrain_batch(frames.to(cd), cfg)
         b, t = x.shape[:2]
         positions = torch.arange(t, device=x.device)[None].expand(b, t)
         for blk in self.enc_blocks:
@@ -346,7 +379,8 @@ class Model(nn.Module):
         the groups over their count)."""
         cfg, cd = self.cfg, self._cd()
         b, l = tokens.shape
-        x = self._embed(tokens)
+        # the one-hot embedding under a mesh, as the JAX model's forward
+        x = self._embed(tokens, one_hot=bool(cfg.batch_axes))
         positions = torch.arange(l, device=tokens.device)[None].expand(b, l)
         memory = self._memory(memory)
         aux = _zero(x)
@@ -356,6 +390,7 @@ class Model(nn.Module):
                               window=cfg.attn_window, memory=memory,
                               compute_dtype=cd)
                 return y, a
+            x = _constrain_residual(x, cfg)
             x, a = _remat(cfg, run, x)
             aux = aux + a
         return self._logits(x), aux / max(self.n_groups, 1)

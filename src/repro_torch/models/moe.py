@@ -6,8 +6,9 @@ are (G, S, E, C), with a capacity C of about S k / E slots an expert, so
 the whole object is linear in the tokens.  ``MoE`` holds the parameters
 under the JAX tree's names (``router``, ``wi`` / ``wu`` of (E, d, f),
 ``wo`` of (E, f, d), the optional ``shared`` MLP).  The einsums are plain
-products, outside any kernel in the JAX package too; the JAX package's
-expert-parallel sharding hints have no counterpart on one device.
+products, outside any kernel in the JAX package too.  In a distributed
+step (DTensors) ``_expert_constraint`` shards the expert dim on "model"
+(EP) as the JAX package does; on plain tensors it is the identity.
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.hints import (UNCONSTRAINED, constrain,
+                                          gather_weight)
 from repro_torch.models.layers import MLP, Dense, _act, mlp
 
 
@@ -57,6 +60,22 @@ class MoE(nn.Module):
                                     device=w.device) / math.sqrt(scale))
             if self.shared is not None:
                 self.shared.reset(generator)
+
+
+def _expert_constraint(t: torch.Tensor, cfg: ModelConfig,
+                       e_dim: int) -> torch.Tensor:
+    """Shard the expert dim on "model" (EP) when divisible; group dim on the
+    batch axes. UNCONSTRAINED elsewhere (see attention._score_constraint)."""
+    if not cfg.batch_axes or not cfg.model_axis_size or (
+            cfg.batch_shards and t.shape[0] % cfg.batch_shards):
+        return t
+    b = cfg.batch_axes if len(cfg.batch_axes) > 1 else cfg.batch_axes[0]
+    e = t.shape[e_dim]
+    axes = [UNCONSTRAINED] * t.dim()
+    axes[0] = b
+    if e % cfg.model_axis_size == 0:
+        axes[e_dim] = "model"
+    return constrain(t, tuple(axes))
 
 
 def _one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
@@ -127,14 +146,17 @@ def moe_block(p: MoE, x: torch.Tensor, cfg: ModelConfig,
               * keep[..., None].to(cd))                          # (G, S, k, Ep)
     pos_c = _one_hot(pos, cap, cd)                               # (G, S, k, C)
     dispatch = torch.einsum("gske,gskc->gsec", disp_e, pos_c)    # (G, S, E, C)
+    dispatch = _expert_constraint(dispatch, cfg, 2)
     combine_w = torch.einsum("gsk,gske,gskc->gsec", gate_w.to(cd), disp_e,
                              pos_c)
 
     expert_in = torch.einsum("gsd,gsec->gecd", xg.to(cd), dispatch)
+    expert_in = _expert_constraint(expert_in, cfg, 1)
     gih = _act(cfg.activation, torch.einsum("gecd,edf->gecf", expert_in,
-                                            p.wi.to(cd)))
-    u = torch.einsum("gecd,edf->gecf", expert_in, p.wu.to(cd))
-    expert_out = torch.einsum("gecf,efd->gecd", gih * u, p.wo.to(cd))
+                                            gather_weight(p.wi).to(cd)))
+    u = torch.einsum("gecd,edf->gecf", expert_in, gather_weight(p.wu).to(cd))
+    expert_out = torch.einsum("gecf,efd->gecd", gih * u, gather_weight(p.wo).to(cd))
+    expert_out = _expert_constraint(expert_out, cfg, 1)
 
     out = torch.einsum("gsec,gecd->gsd", combine_w, expert_out)
     out = out.reshape(bsz, l, d)

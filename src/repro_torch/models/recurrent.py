@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.hints import lowering
 from repro_torch.kernels.scan.ops import linear_recurrence
 from repro_torch.kernels.scan.ref import scan_linrec_assoc_ref
 from repro_torch.models.layers import Dense, causal_conv1d, gelu
@@ -120,8 +121,10 @@ def _recurrence(a: torch.Tensor, b: torch.Tensor,
     """The JAX block's ``linear_recurrence(..., use_pallas=cfg.use_pallas
     or None)``: the tuned entry point on the card whatever ``use_pallas``
     says (the kernels), and on the CPU only when it is set (the plan's
-    plain versions); otherwise the associative-scan reference."""
-    if a.is_cuda or cfg.use_pallas:
+    plain versions; a DTensor with real data raises there); otherwise, and
+    on a lowering (fake tensors: the dry-run), the associative-scan
+    reference."""
+    if not lowering(a) and (a.is_cuda or cfg.use_pallas):
         return linear_recurrence(a, b)
     return scan_linrec_assoc_ref(a, b)
 

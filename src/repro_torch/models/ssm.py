@@ -18,7 +18,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.space import Workload
+from repro_torch.distributed.hints import lowering, merged, splittable
 from repro_torch.kernels.ssd.ops import ssd as ssd_op
+from repro_torch.kernels.ssd.ref import ssd_chunked_ref
 from repro_torch.models.layers import Dense, causal_conv1d, rms_norm, silu
 
 
@@ -98,7 +101,8 @@ class SSDBlock(nn.Module):
         dt = F.softplus(dt_raw.to(torch.float32)
                         + self.dt_bias[None, None, :])              # (B, L, H)
         a = torch.exp(-torch.exp(self.a_log)[None, None, :] * dt)  # in (0, 1)
-        xh = xs.reshape(bsz, L, n_heads, cfg.ssm_head_dim)
+        xh = splittable(xs, -1, n_heads).reshape(bsz, L, n_heads,
+                                                 cfg.ssm_head_dim)
         return xh, a, b_in, c_in, z, conv_cache
 
     def forward(self, x: torch.Tensor, cache: Optional[Dict] = None,
@@ -106,12 +110,12 @@ class SSDBlock(nn.Module):
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
         cfg = self.cfg
         bsz, L, _ = x.shape
-        d_inner, _, _ = _dims(cfg)
+        d_inner, n_heads, _ = _dims(cfg)
         xh, a, b_in, c_in, z, conv_cache = self.ssd_inputs(x, cache,
                                                            compute_dtype)
         if cache is None or L > 1:
-            y = ssd_op(xh.to(torch.float32), a, b_in.to(torch.float32),
-                       c_in.to(torch.float32))
+            y = _ssd(xh.to(torch.float32), a, b_in.to(torch.float32),
+                     c_in.to(torch.float32))
             new_state = None  # prefill state capture: decode from scratch
         else:
             # O(1) decode step: h = a h + b x^T ; y = c . h
@@ -125,7 +129,7 @@ class SSDBlock(nn.Module):
             y = torch.einsum("bs,bhsp->bhp", c_t, h)[:, None]      # (B,1,H,P)
             new_state = h
 
-        y = y.reshape(bsz, L, d_inner).to(compute_dtype)
+        y = merged(y.reshape(bsz, L, d_inner), n_heads).to(compute_dtype)
         y = rms_norm(y * silu(z), self.norm_scale, cfg.norm_eps)
         out = self.out_proj(y, compute_dtype)
         new_cache = None
@@ -134,6 +138,23 @@ class SSDBlock(nn.Module):
                          "state": new_state if new_state is not None
                          else cache["state"]}
         return out, new_cache
+
+
+def _ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+         c: torch.Tensor) -> torch.Tensor:
+    """The JAX block's ``ssd(...)``: the tuned op (the kernels on the card,
+    their plain versions on the CPU; a DTensor with real data raises there),
+    and on a lowering (fake tensors: the dry-run) the chunked reference at
+    the session's chunk, as the JAX op runs on its CPU backend and JAX's
+    dry-run lowers it."""
+    if not lowering(x):
+        return ssd_op(x, a, b, c)
+    from repro_torch.tuning import default_session
+
+    B, L, H, _ = x.shape
+    wl = Workload(op="ssd", n=L, batch=B * H, variant="chunked")
+    chunk = default_session().resolve(wl)["chunk"]
+    return ssd_chunked_ref(x, a, b, c, chunk=chunk)
 
 
 def init_ssd_cache(cfg: ModelConfig, batch: int,

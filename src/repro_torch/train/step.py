@@ -7,7 +7,9 @@ the model when it is not the tree the step wrote last, runs the loss
 forward and ``backward``, reads the gradients as a tree (``grad_tree``:
 zeros for a parameter the loss did not reach, as ``jax.grad`` gives),
 and after int8 error feedback, clipping and the optimizer's update,
-writes the new parameters back (``assign_tree``).  The state is JAX's:
+writes the new parameters back (``assign_tree``).  In a distributed
+step (DTensor parameters) each gradient goes to its parameter's placements
+before it is read (``distributed.hints.place_grads``).  The state is JAX's:
 ``{"params", "opt", "step"}`` and, with ``int8_ef``, ``"ef_err"``.
 
 Gradients through a CUDA kernel raise (``tuning.dispatch.no_backward``):
@@ -23,6 +25,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.hints import (is_dtensor, place_grads,
+                                          sharded_one_hot)
 from repro_torch.models.convert import assign_tree, grad_tree, param_tree
 from repro_torch.models.model import Model
 from repro_torch.optim import (adafactor, adamw, clip_by_global_norm,
@@ -61,10 +65,24 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                   mask: torch.Tensor, z_weight: float = 0.0
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """logits f32 (B, L, V), targets (B, L), mask (B, L) f32."""
-    lse = torch.logsumexp(logits, dim=-1)                          # (B, L)
+    if is_dtensor(logits):
+        # over a vocab-sharded DTensor: JAX's logsumexp as jnp writes it,
+        # a max and a sum that each reduce across the shards
+        top = torch.amax(logits, dim=-1, keepdim=True).detach()
+        lse = torch.log(torch.sum(torch.exp(logits - top), dim=-1)) \
+            + top[..., 0]
+    else:
+        lse = torch.logsumexp(logits, dim=-1)                      # (B, L)
     # the label logit: JAX sums a one-hot select over the vocab, which
-    # adds zeros to the one logit; a gather reads the same value
-    label_logit = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    # adds zeros to the one logit; a gather reads the same value.  Over a
+    # vocab-sharded DTensor the select partitions (each device sums its
+    # slice) where a gather would not, so a distributed step takes it.
+    if is_dtensor(logits):
+        onehot = sharded_one_hot(targets, logits.shape[-1], logits, -1)
+        label_logit = torch.sum(torch.where(onehot, logits, 0.0), dim=-1)
+    else:
+        label_logit = torch.gather(logits, -1,
+                                   targets[..., None].long())[..., 0]
     nll = lse - label_logit
     denom = torch.clamp(torch.sum(mask), min=1.0)
     loss = torch.sum(nll * mask) / denom
@@ -126,7 +144,18 @@ def _grads(model: Model, loss_fn: Callable, batch: Dict):
         # partial gradient behind
         model.zero_grad(set_to_none=True)
         raise
+    place_grads(model)
     return grad_tree(model), metrics
+
+
+def _micro_batch(v: torch.Tensor, n: int, i: int) -> torch.Tensor:
+    """Micro step ``i`` of ``n``: contiguous rows, as JAX splits the batch.
+    A batch-sharded DTensor takes every n-th row instead, which each device
+    cuts from its own rows; the accumulated gradient is the same mean over
+    all rows."""
+    if is_dtensor(v):
+        return v.reshape((v.shape[0] // n, n) + v.shape[1:])[:, i]
+    return v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
 
 
 def make_train_step(model: Model, hp: TrainHParams) -> Callable:
@@ -150,8 +179,7 @@ def make_train_step(model: Model, hp: TrainHParams) -> Callable:
             metrics = {k: torch.zeros((), dtype=torch.float32,
                                       device=_device(model)) for k in METRICS}
             for i in range(n):
-                mb = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
-                      for k, v in batch.items()}
+                mb = {k: _micro_batch(v, n, i) for k, v in batch.items()}
                 g, m = _grads(model, loss_fn, mb)
                 grads = tree_map(lambda a, b: a + b.to(torch.float32),
                                  grads, g)

@@ -8,7 +8,9 @@ reference.  Here the tensor's device decides, and nothing else:
   * a CPU tensor runs the kernel's plain PyTorch version through the same
     plan (same launch list, same arithmetic order) — the path the tests
     use, since a CUDA kernel has no interpret mode;
-  * any other device raises.
+  * any other device raises, and so does a DTensor (a distributed step
+    lowers the plain-op path; no kernel is partitioned, in either
+    package).
 
 There is no switch that sends a CUDA tensor to the plain version.
 
@@ -21,14 +23,35 @@ function whose backward raises: neither this package nor the JAX package
 """
 from __future__ import annotations
 
+import sys
 from typing import Optional
 
 import torch
 
 
+def is_dtensor(t) -> bool:
+    """True for a DTensor.  ``torch.distributed.tensor`` is never imported
+    here: a DTensor can exist only once that module is loaded, so it is
+    looked up in ``sys.modules``."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
+def is_dtensor_class(cls) -> bool:
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(cls, type) \
+        and issubclass(cls, mod.DTensor)
+
+
 def kernel_path(t: torch.Tensor) -> bool:
     """True when ``t`` must go through the CUDA kernel, False for the plain
-    version on the CPU; raises for any other device."""
+    version on the CPU; raises for any other device, and for a DTensor."""
+    if is_dtensor(t):
+        raise TypeError(
+            "a DTensor reached a kernel: the kernels run on one device's "
+            "tensors and are not partitioned (the JAX package shard_maps "
+            "none); run the distributed step with use_pallas off, or pass "
+            "the local shard (DTensor.to_local()) explicitly")
     if t.device.type == "cuda":
         return True
     if t.device.type == "cpu":

@@ -22,7 +22,7 @@ from repro.train import loop as j_loop
 from repro.train import step as j_step
 from repro_torch.models.convert import train_state_from_jax
 from repro_torch.optim import AdamWState
-from repro_torch.optim.tree import flatten_with_path
+from repro_torch.optim.tree import flatten_with_path, tree_map
 from repro_torch.train.checkpoint import CheckpointManager
 
 
@@ -206,3 +206,69 @@ def test_shape_mismatch_raises(tmp_path):
             "step": np.asarray(0)}
     with pytest.raises(ValueError):
         m.restore(1, like)
+
+
+def test_checkpoint_restores_across_remesh(tmp_path):
+    """Elastic scaling (``tests/test_elastic_restore.py``, on the port): a
+    checkpoint written under one device layout restores into a shrunken
+    one — global shapes are layout-invariant, so the values come back bit
+    for bit and the shrunken mesh's specs are recomputed from the restored
+    shapes (equal to JAX's on the same mesh)."""
+    from jax.sharding import AbstractMesh
+
+    from repro.distributed import sharding as j_sh
+    from repro_torch.configs.base import get_arch
+    from repro_torch.distributed import sharding as t_sh
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models.model import Model
+    from repro_torch.train.fault import plan_elastic_remesh
+    from repro_torch.train.step import TrainHParams, init_train_state
+
+    cfg = get_arch("qwen1.5-0.5b").reduced()
+    state = init_train_state(Model(cfg, device="cpu"), TrainHParams(),
+                             torch.Generator().manual_seed(0))
+    m = CheckpointManager(str(tmp_path), async_write=False)
+    m.save(3, state)
+
+    # losing a host: plan the shrunken mesh, then restore the same global
+    # state (shapes unchanged -> straight load, placed under the new layout)
+    plan = plan_elastic_remesh(available_chips=224, model_axis=16,
+                               target_batch=256)
+    assert plan.data_axis == 14
+    like = tree_map(torch.zeros_like, state)
+    step, restored = m.restore_latest(like)
+    assert step == 3
+    for (key, a), (_, b) in zip(flatten_with_path(state),
+                                flatten_with_path(restored)):
+        assert a.dtype == b.dtype and _bits(a) == _bits(b), key
+
+    sizes, names = (plan.data_axis, 16), ("data", "model")
+    specs = t_sh.train_state_specs(restored, MeshShape(sizes, names))
+    assert specs == t_sh.train_state_specs(state, MeshShape(sizes, names))
+    jparams = tree_map(lambda t: np.zeros(t.shape, np.float32),
+                       state["params"])
+    try:
+        jmesh = AbstractMesh(sizes, names)
+    except TypeError:
+        jmesh = AbstractMesh(tuple(zip(names, sizes)))
+    want = j_sh.param_specs(jparams, jmesh)
+    got = _spec_leaves(specs["params"])
+    assert [k for k, _ in got] == [k for k, _ in _spec_leaves(want)]
+    for (key, g), (_, w) in zip(got, _spec_leaves(want)):
+        assert tuple(g) == tuple(w), key
+
+
+def _spec_leaves(tree, prefix=""):
+    """(path, spec) of a spec tree of either package, keys sorted."""
+    from jax.sharding import PartitionSpec
+
+    from repro_torch.distributed.sharding import P
+    if isinstance(tree, (P, PartitionSpec)):
+        return [(prefix, tree)]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _spec_leaves(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in _spec_leaves(v, f"{prefix}/{i}")]
+    return []

@@ -313,3 +313,98 @@ def test_the_attention_and_matmul_sources_are_built(source):
     from repro_torch.kernels import build
     assert source in build.SOURCES
     assert os.path.exists(os.path.join(build.CSRC, source))
+
+
+def test_a_dtensor_never_reaches_a_kernel():
+    """A distributed step lowers the plain-op path: an entry point handed a
+    DTensor raises at its kernel's wrapper, before any launch, rather than
+    gathering or running on the local shard."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.kernels.matmul.ops import matmul
+    from repro_torch.kernels.scan.ops import prefix_sum
+    from repro_torch.launch.mesh import fake_world, make_fake_mesh
+
+    with fake_world(2):
+        mesh = make_fake_mesh((2,), ("data",))
+        x = distribute_tensor(torch.ones(4, 256), mesh, [Replicate()])
+        a = distribute_tensor(torch.ones(64, 64), mesh, [Replicate()])
+        with pytest.raises(TypeError, match="DTensor reached a kernel"):
+            prefix_sum(x)
+        with pytest.raises(TypeError, match="DTensor reached a kernel"):
+            matmul(a, a)
+    assert not torch.distributed.is_initialized()
+
+
+def test_importing_the_port_loads_no_fake_process_group():
+    """The fake world's module (torch.testing._internal.distributed) loads
+    only inside the functions that build a fake world."""
+    code = ("import sys, torch\n"
+            "before = set(sys.modules)\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.roofline, "
+            "repro_torch.launch.mesh, repro_torch.launch.inputs, "
+            "repro_torch.launch.op_cost, repro_torch.launch.params, "
+            "repro_torch.distributed.sharding, "
+            "repro_torch.core.distributed_tuning, repro_torch.models.model\n"
+            "new = sorted(m for m in set(sys.modules) - before\n"
+            "             if m.startswith(('torch.testing._internal', 'jax',"
+            " 'repro.')) or m == 'repro')\n"
+            "assert not new, new\n"
+            "assert 'torch.testing._internal.distributed.fake_pg' "
+            "not in sys.modules\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_the_host_mesh_asks_for_the_card_by_default(monkeypatch):
+    from repro_torch.launch.mesh import make_host_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_host_mesh()
+    assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.parametrize("family", ["ssm", "hybrid"])
+def test_a_real_dtensor_in_a_block_raises_at_the_kernel(family):
+    """Only a step with no real data (fake tensors: the dry-run) lowers the
+    SSD block's and the RG-LRU's plain references; a DTensor holding real
+    data goes on to the kernel's wrapper, which refuses it."""
+    import dataclasses
+
+    from torch.distributed.tensor import (Replicate, distribute_module,
+                                          distribute_tensor)
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.mesh import make_host_mesh, release_world
+    from repro_torch.models.recurrent import RecurrentBlock
+    from repro_torch.models.ssm import SSDBlock
+
+    arch = "mamba2-130m" if family == "ssm" else "recurrentgemma-9b"
+    # use_pallas: the RG-LRU reaches its entry point on the CPU only so
+    cfg = dataclasses.replace(get_arch(arch).reduced(), use_pallas=True)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 16, cfg.d_model, generator=gen)
+    mesh = make_host_mesh(device="cpu")
+    try:
+        assert tuple(mesh.shape) == (1, 1)
+        if family == "ssm":
+            block = SSDBlock(cfg, torch.float32, device="cpu")
+            run = lambda b, h: b(h, compute_dtype=torch.float32)  # noqa: E731
+        else:
+            block = RecurrentBlock(cfg, torch.float32, device="cpu")
+            run = lambda b, h: b(h, cfg,  # noqa: E731
+                                 compute_dtype=torch.float32)
+        block.reset(gen)
+        with torch.no_grad():
+            y, _ = run(block, x)       # plain tensors: the plan's versions
+            assert torch.isfinite(y).all()
+            block = distribute_module(block, mesh)
+            xd = distribute_tensor(x, mesh, [Replicate(), Replicate()])
+            with pytest.raises(TypeError, match="DTensor reached a kernel"):
+                run(block, xd)
+    finally:
+        release_world()
+    assert not torch.distributed.is_initialized()

@@ -10,9 +10,13 @@ any order; the cosine branch differs by the libraries' f32 ``cos`` alone
 (a bound derived in its test), and the clip of normal grads by XLA's and
 torch's order of summation (``DTYPE_TOL``).  The JAX package's own cases
 of ``tests/test_optim.py``
-follow, on the port (``psum_compressed``, a mesh collective, is not
-ported yet).
+follow, on the port.  ``psum_compressed`` in a group of one equals JAX's
+single-participant result, and over a gloo group of four processes on
+the CPU equals JAX's four-participant ``vmap`` over the pod axis at f32
+``DTYPE_TOL``.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -189,6 +193,67 @@ def test_compression_equals_repro_exactly():
     zero = t_comp.init_error(_torch(_jax(tree)))
     assert zero["b"]["c"].dtype == torch.float32
     assert not zero["a"].any()
+
+
+def _jax_psum(rows):
+    """JAX's psum_compressed with one participant a row of ``rows``."""
+    return np.asarray(jax.vmap(lambda v: j_comp.psum_compressed(v, "pod"),
+                               axis_name="pod")(jnp.asarray(rows)))
+
+
+def test_psum_compressed_alone_equals_repro():
+    x = _rng("psum_single").normal(size=(5, 33)).astype(np.float32)
+    got = t_comp.psum_compressed(torch.from_numpy(x))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), _jax_psum(x[None])[0])
+
+
+_PSUM_WORKER = """
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from repro_torch.optim.compression import psum_compressed
+
+
+def run(rank, store, inputs, out):
+    dist.init_process_group("gloo", init_method="file://" + store,
+                            rank=rank, world_size=4)
+    try:
+        x = torch.from_numpy(np.load(inputs)[rank])
+        np.save(out + f".{rank}.npy", psum_compressed(x).numpy())
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    torch.set_num_threads(1)
+    mp.spawn(run, args=tuple(sys.argv[1:4]), nprocs=4)
+"""
+
+
+def test_psum_compressed_over_four_gloo_ranks_equals_repro(tmp_path):
+    import subprocess
+    import sys
+
+    x = _rng("psum_pod").normal(size=(4, 3, 130)).astype(np.float32)
+    x[2] *= 9.0                     # one rank sets the common grid
+    np.save(tmp_path / "x.npy", x)
+    script = tmp_path / "worker.py"
+    script.write_text(_PSUM_WORKER)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    proc = subprocess.run(
+        [sys.executable, str(script), str(tmp_path / "store"),
+         str(tmp_path / "x.npy"), str(tmp_path / "out")],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    want = _jax_psum(x)
+    for rank in range(4):
+        got = np.load(tmp_path / f"out.{rank}.npy")
+        assert_kernel_close(got, want[rank], "float32")
 
 
 # --- the JAX package's own cases (tests/test_optim.py), on the port ---
