@@ -34,10 +34,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    or the block kernels for ragged, prime and odd shapes) and on the
    block kernel's record, with the elements not bit-equal counted (the
    run fails unless there are none); ``apply_linrec`` at the tests'
-   tolerance; then, at 2^26 f32 equations a call, ``solve`` for pcr / cr
-   / lf / wm at n = 256 and 1024 (residual, and a float64 Thomas solve
-   of sampled rows), ``solve(variant="lf")`` above ``LF_MULTIPASS_MIN``
-   on a fused and a multipass linrec plan, and ``linear_recurrence``
+   tolerance; the Thomas kernel (``thomas``) against ``thomas_ref`` on
+   the card, f32 and bf16, n = 1 ... 1024, batches 1 ... 4096, every
+   element bit-equal; then, at 2^26 f32 equations a call, ``solve`` for
+   pcr / cr / lf / wm at n = 256 and 1024 (residual, and a float64
+   Thomas solve of sampled rows), ``solve(variant="thomas")`` at n = 256,
+   1024, 2^16 and 2^22 on its kernel (residual, and float64 Thomas of
+   sampled rows, one at 2^22), ``solve(variant="lf")`` above
+   ``LF_MULTIPASS_MIN`` on a fused and a multipass linrec plan, and
+   ``linear_recurrence``
    fused and multipass against float64 references, each call's launch
    list equal to its plans', every kernel's launch count non-zero and
    every linrec and pcr launch on the warp kernels; the warp kernels'
@@ -49,7 +54,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    cuSPARSE's ``gtsv2StridedBatch`` (bound with ctypes from the CUDA
    toolkit's ``libcusparse.so`` in a child process, never by the port)
    held once against ``pcr``'s solution and timed beside it at n = 1024
-   and 256, for kernel 7's ``library_ms``;
+   and 256, for kernel 7's ``library_ms``, and against the Thomas
+   kernel's at its four sizes, for its ``library_ms``; the Thomas kernel's
+   time at each size beside its bound (bytes, or its chain of 2n steps a
+   system at the card's clock);
 6. the FFT: ``fft_stockham`` against ``fft_plain`` on the card over every
    admitted config of ``fft_space`` at n = 1024 and 8192 under ``h100``
    and the ragged and prime stage sequences, inverse on and off, at the
@@ -233,7 +241,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    f32 train step on the card against the CPU (loss and grad norm at
    DTYPE_TOL); the packing's prefix sum on the card (``scan_add``
    launched, offsets bit-equal to the plain version's); and the gradient
-   guard: a backward through each of the twelve kernels, and a train step
+   guard: a backward through each of the thirteen kernels, and a train step
    of qwen with ``use_pallas`` and of mamba2-130m at full width, must
    raise the guard's error naming a kernel, with no gradient left behind;
 18. the dry-run (``[dryrun]``): ``launch.roofline.analyze_cell`` on the
@@ -251,7 +259,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    max |logits| of the plain run's last-position logits; printed without
    a gate, the predicted against the measured peak memory and each run's
    median time against the roofline bound;
-19. the ``kernels`` line: per kernel (all twelve) its launches on the main
+19. the examples (``[examples]``): ``examples_torch/``'s five scripts
+   through their ``main`` in this process, on the card, at their defaults
+   (train_lm at the 100M preset, 200 steps of 8 x 128 tokens): quickstart's tuned and radix-4 scans within DTYPE_TOL of a
+   float64 cumsum with ``scan_add`` launched; autotune_kernels' Phi <= 1
+   in every row, no runner failure; serve_lm's ten requests equal to a
+   ``ReferenceEngine`` on the same model; train_lm's loss finite and
+   falling, its checkpoint restored equal; fault_tolerant_train dead at
+   17, resumed from 10, finished at 29; each example's seconds and
+   launches, the 100M run's median step, tokens/s and peak memory;
+20. the ``kernels`` line: per kernel (all twelve, and the Thomas kernel,
+   which ports no Pallas kernel) its launches on the main
    paths (by route for ``scan_add``, ``scan_linrec``, ``scan_linrec_prod``,
    ``pcr``, ``fft_stockham`` and the three SSD kernels, with the earlier
    kernel's time beside theirs; by path for the kernels that run on
@@ -260,7 +278,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    launches by route; every kernel with its launches in the ``[ml]``
    sweeps, ``launches_ml``, in the ``[portability]`` phase,
    ``launches_portability``, in the differential table,
-   ``launches_differential``, and on the train path, ``launches_train``),
+   ``launches_differential``, on the train path, ``launches_train``, and
+   in the examples, ``launches_examples``),
    its error
    against the plain version, its time, the plain version's and the
    library call's (null where no one PyTorch call
@@ -656,12 +675,12 @@ def counted_wrappers():
     from repro_torch.kernels.fft.kernel import fft_stockham
     from repro_torch.kernels.ssd.kernel import (ssd_apply_entry, ssd_intra,
                                                 ssd_state_apply)
-    from repro_torch.kernels.tridiag.kernel import pcr
+    from repro_torch.kernels.tridiag.kernel import pcr, thomas
     from repro_torch.kernels.attention.kernel import flash_attention
     from repro_torch.kernels.matmul.kernel import matmul_tiled
     return {"scan_add": scan_add, "apply_add": apply_add,
             "scan_linrec": scan_linrec, "scan_linrec_prod": scan_linrec_prod,
-            "apply_linrec": apply_linrec, "pcr": pcr,
+            "apply_linrec": apply_linrec, "pcr": pcr, "thomas": thomas,
             "fft_stockham": fft_stockham, "ssd_intra": ssd_intra,
             "ssd_state_apply": ssd_state_apply,
             "ssd_apply_entry": ssd_apply_entry,
@@ -1485,12 +1504,17 @@ def pcr_divide_check(dev, quick: bool):
                              f"__fdiv_rn: {near_bad} / {tiny_bad}")
 
 
+THOMAS_SIZES = (256, 1024, 2 ** 16, 2 ** 22)   # solve(variant="thomas")
+
+
 def tridiag_path_cases():
     """(variant, n, batch): 2^26 equations a call."""
     out = [(v, n, TOTAL_ELEMS // n) for n in (256, 1024)
            for v in ("pcr", "cr", "lf", "wm")]
     # LF above LF_MULTIPASS_MIN: a fused and a multipass linrec plan
-    return out + [("lf", 2 ** 16, 1024), ("lf", 2 ** 22, 16)]
+    out += [("lf", 2 ** 16, 1024), ("lf", 2 ** 22, 16)]
+    # Thomas on its kernel at the paper's sizes
+    return out + [("thomas", n, TOTAL_ELEMS // n) for n in THOMAS_SIZES]
 
 
 def linrec_path_cases():
@@ -1511,6 +1535,58 @@ def linrec_f64_sequential(a, b):
     return torch.tensor(rows, dtype=torch.float64)
 
 
+def thomas_f64_sequential(a, b, c, d):
+    """The Thomas algorithm in float64 on the CPU, one step at a time
+    (Python floats: a fraction of a second for a row of 2^16, a few
+    seconds for a row of 2^22)."""
+    import torch
+    rows = []
+    for ar, br, cr, dr in zip(*(v.double().cpu().tolist()
+                                for v in (a, b, c, d))):
+        cps, dps, cp, dp = [], [], 0.0, 0.0
+        for ai, bi, ci, di in zip(ar, br, cr, dr):
+            denom = bi - ai * cp
+            cp, dp = ci / denom, (di - ai * dp) / denom
+            cps.append(cp)
+            dps.append(dp)
+        x, out = 0.0, [0.0] * len(cps)
+        for i in reversed(range(len(cps))):
+            x = dps[i] - cps[i] * x
+            out[i] = x
+        rows.append(out)
+    return torch.tensor(rows, dtype=torch.float64)
+
+
+def thomas_kernel_check(dev):
+    """The Thomas kernel against ``thomas_ref`` on the card, f32 and bf16,
+    n = 1 ... 1024 (ragged tiles at 31, 33, 97), batches 1 ... 4096 (ragged
+    warps at 3, 33): every element bit-equal (compared as integers), or
+    the run fails.  Returns the cases and the elements compared."""
+    import torch
+    from repro_torch.kernels.tridiag.kernel import thomas
+    from repro_torch.kernels.tridiag.ref import random_system, thomas_ref
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    gen = torch.Generator(device=dev).manual_seed(28)
+    cases = elems = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in (1, 2, 3, 31, 33, 97, 256, 1024):
+            for batch in (1, 3, 32, 33, 4096):
+                planes = [v.to(dtype) for v in random_system(gen, batch, n)]
+                got, ref = thomas(*planes), thomas_ref(*planes)
+                unequal = int((got.view(bits[dtype])
+                               != ref.view(bits[dtype])).sum())
+                if unequal or got.shape != ref.shape:
+                    raise AssertionError(
+                        f"thomas {dtype} batch={batch} n={n}: {unequal} "
+                        f"elements not bit-equal to thomas_ref")
+                cases += 1
+                elems += got.numel()
+    torch.cuda.synchronize()
+    log(f"[kernels] thomas: {cases} cases (f32 and bf16, n = 1 ... 1024, "
+        f"batch 1 ... 4096), {elems} elements, all bit-equal to thomas_ref")
+    return {"cases": cases, "elements": elems, "unequal_elements": 0}
+
+
 def phase_tridiag_path(dev):
     """solve and linear_recurrence at the paper's size, through the default
     session."""
@@ -1520,8 +1596,7 @@ def phase_tridiag_path(dev):
     from repro_torch.kernels.blocks.plan import plan_for
     from repro_torch.kernels.scan.ops import _plan_workload, linear_recurrence
     from repro_torch.kernels.tridiag.ops import LF_MULTIPASS_MIN, solve
-    from repro_torch.kernels.tridiag.ref import (random_system, residual,
-                                                 thomas_ref)
+    from repro_torch.kernels.tridiag.ref import random_system, residual
     from repro_torch.tuning import default_session
 
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -1548,13 +1623,12 @@ def phase_tridiag_path(dev):
     log(f"[main] launches on the tridiagonal / linrec path: {counts}")
     require_launched(counts, ("scan_linrec", "scan_linrec.warp",
                               "scan_linrec_prod", "scan_linrec_prod.warp",
-                              "apply_linrec", "pcr", "pcr.warp"),
+                              "apply_linrec", "pcr", "pcr.warp", "thomas"),
                      "the tridiagonal / linrec path")
     require_new_routes(counts, "the tridiagonal / linrec path")
 
     plans = {}
     thomas = {}
-    sample = slice(0, 64)
     for variant, n, batch, x, launched in solved:
         wl = Workload(op="tridiag", n=n, batch=batch, variant=variant)
         if variant == "lf" and n > LF_MULTIPASS_MIN:
@@ -1562,6 +1636,13 @@ def phase_tridiag_path(dev):
             plan = plan_for(lwl, session.resolve(lwl))
             want = plan.launches * 2       # the forward and back sweeps
             detail = f"linrec plan {plan.kind}, config {session.resolve(lwl)}"
+        elif variant == "thomas":
+            # no config to resolve (solve asks for none, and the h100
+            # space admits none at 2^16 and 2^22); the plan, as JAX's,
+            # launches nothing through the driver: the kernel is counted
+            plan = plan_for(wl, {})
+            want = plan.launches
+            detail = "the Thomas kernel (plan: no driver launch)"
         else:
             cfg = session.resolve(wl)
             plan = plan_for(wl, cfg)
@@ -1585,14 +1666,17 @@ def phase_tridiag_path(dev):
                                  f"> {bound:.3e}")
         line = (f"[main] solve {variant} n={n} batch={batch}: {detail}, "
                 f"{len(launched)} launch(es), residual {res:.3e}")
-        if n <= 1024:
+        if n <= 1024 or variant == "thomas":
+            # sampled rows: 64 up to n = 1024, 2 at 2^16, 1 at 2^22
+            rows = 64 if n <= 1024 else 2 if n <= 2 ** 16 else 1
             if n not in thomas:
-                thomas[n] = thomas_ref(*(v[sample].double().cpu()
-                                         for v in systems[n]))
-            err = check_close(x[sample].cpu(), thomas[n], "float32",
+                thomas[n] = thomas_f64_sequential(*(v[:rows]
+                                                    for v in systems[n]))
+            err = check_close(x[:rows].cpu(), thomas[n], "float32",
                               f"solve {variant} n={n} vs float64 Thomas",
                               scale=50.0)
-            line += f", max abs err vs float64 Thomas {err:.3e}"
+            line += (f", max abs err vs float64 Thomas of {rows} "
+                     f"row{'s' if rows > 1 else ''} {err:.3e}")
         log(line)
 
     for n, batch, h, launched in recurred:
@@ -1706,20 +1790,37 @@ class CusparseGtsv:
 def cusparse_probe(lib, path, cases):
     """In a process of its own (``--cusparse``, started by
     :func:`phase_cusparse`, with the toolkit's libraries loaded before
-    torch): per (n, pcr config), diagonally dominant systems of 2^26
-    equations from a seed, gtsv2StridedBatch's solution once against
-    pcr's at DTYPE_TOL f32, then its time (repeated solves in place: the
-    work of a call does not depend on x).  Prints one JSON line."""
+    torch): per (n, pcr config) of ``cases["pcr"]``, diagonally dominant
+    systems of 2^26 equations from a seed, gtsv2StridedBatch's solution
+    once against pcr's at DTYPE_TOL f32, then its time (repeated solves in
+    place: the work of a call does not depend on x); the same against the
+    Thomas kernel at each n of ``cases["thomas"]``, its time beside.
+    Prints one JSON line."""
     import torch
     sys.path.insert(0, SRC)
-    from repro_torch.kernels.tridiag.kernel import pcr
+    from repro_torch.kernels.tridiag.kernel import pcr, thomas
     from repro_torch.kernels.tridiag.ref import random_system
     dev = torch.device("cuda", 0)
     gtsv = CusparseGtsv(lib, path)
     gen = torch.Generator(device=dev).manual_seed(27)
-    out = {}
+    out, by_thomas = {}, {}
     try:
-        for n, cfg in cases:
+        for n in cases["thomas"]:
+            a, b, c, d = random_system(gen, TOTAL_ELEMS // n, n)
+            call, x = gtsv.solver(a, b, c, d)
+            call()
+            want = thomas(a, b, c, d)
+            torch.cuda.synchronize()
+            err = check_close(x, want, "float32",
+                              f"cusparse gtsv2StridedBatch n={n} vs thomas")
+            reps = 1 if n >= 2 ** 22 else 5
+            by_thomas[str(n)] = {
+                "ms": time_ms(call, reps, warmup=1),
+                "thomas_ms": time_ms(lambda: thomas(a, b, c, d), reps,
+                                     warmup=1),
+                "max_abs_err_vs_thomas": err, "shape": list(a.shape)}
+            del a, b, c, d, x, want
+        for n, cfg in cases["pcr"]:
             a, b, c, d = random_system(gen, TOTAL_ELEMS // n, n)
             call, x = gtsv.solver(a, b, c, d)
             call()
@@ -1735,15 +1836,17 @@ def cusparse_probe(lib, path, cases):
             del a, b, c, d, x, want
     finally:
         gtsv.close()
-    print(json.dumps({"library": os.path.basename(path), "n": out}),
-          flush=True)
+    print(json.dumps({"library": os.path.basename(path), "n": out,
+                      "thomas": by_thomas}), flush=True)
 
 
 def phase_cusparse(cfgs):
-    """cuSPARSE gtsv2StridedBatch beside pcr at the pcr main-path shapes,
-    in a child process (its libraries clash with PyTorch's once torch is
-    loaded); fails when the child does."""
-    cases = json.dumps([[n, cfgs[n]] for n in sorted(cfgs)])
+    """cuSPARSE gtsv2StridedBatch beside pcr at the pcr main-path shapes
+    and beside the Thomas kernel at THOMAS_SIZES, in a child process (its
+    libraries clash with PyTorch's once torch is loaded); fails when the
+    child does.  Returns the pcr sizes' records and the Thomas sizes'."""
+    cases = json.dumps({"pcr": [[n, cfgs[n]] for n in sorted(cfgs)],
+                        "thomas": list(THOMAS_SIZES)})
     child = subprocess.run([sys.executable, os.path.abspath(__file__),
                             "--cusparse", cases], capture_output=True,
                            text=True, timeout=600)
@@ -1753,7 +1856,8 @@ def phase_cusparse(cfgs):
                            f"\n{child.stderr[-4000:]}")
     result = json.loads(child.stdout.strip().splitlines()[-1])
     log(f"[cusparse] {json.dumps(result, sort_keys=True)}")
-    return {int(n): v for n, v in result["n"].items()}
+    return ({int(n): v for n, v in result["n"].items()},
+            {int(n): v for n, v in result["thomas"].items()})
 
 
 def phase_tridiag_numbers(dev, systems, recs, plans, counts, errs,
@@ -1865,7 +1969,7 @@ def phase_tridiag_numbers(dev, systems, recs, plans, counts, errs,
         if v == "pcr":
             cfgs[n] = default_session().resolve(
                 Workload(op="tridiag", n=n, batch=batch, variant="pcr"))
-    gtsv = phase_cusparse(cfgs)
+    gtsv, gtsv_thomas = phase_cusparse(cfgs)
     planes = systems[max(cfgs)]
     batch, n = planes[0].shape
     cfg = cfgs[n]
@@ -1886,6 +1990,7 @@ def phase_tridiag_numbers(dev, systems, recs, plans, counts, errs,
     log(f"[numbers] pcr library_ms (cuSPARSE) {entries[-1]['library_ms']}")
     for m in sorted(cfgs):
         pcr_issue_floor(TOTAL_ELEMS, m, cfgs[m]["unroll"])
+    entries.append(thomas_entry(systems, counts, bandwidth, gtsv_thomas))
     # both pcr routes over the admitted configs at each main-path shape,
     # and the warp kernel at one warp a system (unroll n / 32)
     for m in sorted(cfgs):
@@ -1918,6 +2023,73 @@ def phase_tridiag_numbers(dev, systems, recs, plans, counts, errs,
             f"a call")
     tridiag_trace(systems, recs, plans, cfgs)
     return entries, ends
+
+
+def thomas_entry(systems, counts, bandwidth: float, gtsv):
+    """The Thomas kernel at each of THOMAS_SIZES on solve's main-path
+    systems: its time, its bound and cuSPARSE's time on the same kind of
+    systems (``gtsv``, from the child); the entry's own numbers at n =
+    1024, where thomas_ref (its plain version) is timed too, and every
+    element must be bit-equal to it.  Bound: the larger of the bytes the
+    function needs (a, b, c, d in, x out: five planes, as pcr's) over the
+    memory rate, and the chain of 2n dependent steps a system at one step
+    a clock of the card's maximum SM clock (nvidia-smi): a floor, since
+    each step is a multiply, a subtract and a divide in a row.  The
+    kernel's own traffic (c' and d' also out and back: nine planes) is
+    given beside it as ``traffic_ms``."""
+    import torch
+    from repro_torch.kernels.tridiag.kernel import thomas
+    from repro_torch.kernels.tridiag.ref import thomas_ref
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
+    mhz = float(smi.stdout.split()[0])
+    by_n = {}
+    for n in THOMAS_SIZES:
+        planes = systems[n]
+        elems = planes[0].numel()
+        by_bytes = 5 * elems * 4 / bandwidth * 1e3
+        by_chain = 2 * n / (mhz * 1e6) * 1e3
+        reps = 1 if n >= 2 ** 22 else 5
+        by_n[n] = {"shape": list(planes[0].shape),
+                   "ms": time_ms(lambda: thomas(*planes), reps, warmup=1),
+                   "bound_ms": max(by_bytes, by_chain),
+                   "bound_by": "bytes" if by_bytes >= by_chain
+                   else "operations",
+                   "bytes_ms": by_bytes, "chain_ms": by_chain,
+                   "traffic_ms": 9 * elems * 4 / bandwidth * 1e3,
+                   "library_ms": gtsv[n]["ms"],
+                   "library_thomas_ms_same_process": gtsv[n]["thomas_ms"]}
+        log(f"[numbers] thomas n={n} batch={elems // n}: "
+            f"{json.dumps(by_n[n], sort_keys=True)}")
+    n = 1024
+    planes = systems[n]
+    got, ref = thomas(*planes), thomas_ref(*planes)
+    torch.cuda.synchronize()
+    unequal = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+    if unequal:
+        raise AssertionError(f"thomas at {list(got.shape)}: {unequal} "
+                             f"elements not bit-equal to thomas_ref")
+    out = {"name": "thomas", "route": "cuda",
+           "source": "src/repro_torch/csrc/tridiag.cu",
+           "replaces": "src/repro/kernels/tridiag/ref.py:12 (thomas_ref: "
+                       "an XLA lax.scan, not a Pallas kernel)",
+           "launches": counts["thomas"], "max_abs_err": max_err(got, ref),
+           "unequal_elements": unequal,
+           "ms": by_n[n]["ms"], "plain_ms": time_ms(
+               lambda: thomas_ref(*planes), 1, warmup=1),
+           "bound_ms": by_n[n]["bound_ms"], "bound_by": by_n[n]["bound_by"],
+           "library_ms": by_n[n]["library_ms"],
+           "library": "cusparseSgtsv2StridedBatch",
+           "shape": by_n[n]["shape"], "dtype": "float32",
+           "sm_clock_mhz": mhz,
+           "by_n": {str(k): v for k, v in by_n.items()}}
+    del got, ref
+    log(f"[numbers] {json.dumps(out, sort_keys=True)}")
+    return out
 
 
 def tridiag_trace(systems, recs, plans, pcr_cfgs):
@@ -4764,7 +4936,7 @@ def train_run(dev, model, hp, steps: int, loop_kw=None, injector=None,
 
 
 def train_guard_checks(dev):
-    """A backward through each of the twelve kernels, on small CUDA inputs
+    """A backward through each of the thirteen kernels, on small CUDA inputs
     that require grad, must raise the gradient guard's error naming the
     kernel before any gradient reaches an input; so must a qwen train step
     with use_pallas (the flash kernel) and a full-width mamba2-130m one
@@ -4783,7 +4955,7 @@ def train_guard_checks(dev):
                                                  scan_linrec_prod)
     from repro_torch.kernels.ssd.kernel import (ssd_apply_entry, ssd_intra,
                                                 ssd_state_apply)
-    from repro_torch.kernels.tridiag.kernel import pcr
+    from repro_torch.kernels.tridiag.kernel import pcr, thomas
     from repro_torch.models.model import Model
     from repro_torch.train.step import (TrainHParams, init_train_state,
                                         make_train_step)
@@ -4825,6 +4997,7 @@ def train_guard_checks(dev):
         "apply_linrec": (lambda: apply_linrec(y96, p96, e96, rows=3),
                          [y96, p96, e96]),
         "pcr": (lambda: pcr(*planes, rows_per_program=4, unroll=1), planes),
+        "thomas": (lambda: thomas(*planes), planes),
         "fft_stockham": (lambda: torch.view_as_real(fft_stockham(
             z, rows_per_program=4, stages=radix4)), [z]),
         "ssd_intra": (lambda: ssd_intra(sx, sa, sb, sc, chunk=64)[2],
@@ -5118,6 +5291,166 @@ DRYRUN_CELLS = (("qwen1.5-0.5b", "train_4k"), ("mamba2-130m", "prefill_32k"))
 DRYRUN_BATCH, DRYRUN_LEN = 8, 2048     # the prefill held to the card
 DRYRUN_REPS = 3
 DECODE_STEPS = 20
+
+# The examples (phase 19): examples_torch/*.py, each through its main()
+EXAMPLES = os.path.join(ROOT, "examples_torch")
+# train_lm at the 100M preset and the example's own defaults (200 steps
+# of 8 x 128 tokens: about 15 s on the card)
+EXAMPLES_TRAIN = ["--preset", "100m", "--batch", "8", "--seq", "128"]
+
+
+def call_example(name: str, argv, entry: str):
+    """examples_torch/<name>.py's ``main(argv)`` in this process: its exit
+    code, and what the function it runs (``entry``) returned."""
+    import importlib
+    if EXAMPLES not in sys.path:
+        sys.path.insert(0, EXAMPLES)
+    module = importlib.import_module(name)
+    inner, results = getattr(module, entry), []
+
+    def capture(*args, **kwargs):
+        results.append(inner(*args, **kwargs))
+        return results[-1]
+
+    setattr(module, entry, capture)
+    try:
+        rc = module.main(argv)
+    finally:
+        setattr(module, entry, inner)
+    if rc != 0 or len(results) != 1:
+        raise AssertionError(f"[examples] {name}: main returned {rc} after "
+                             f"{len(results)} call(s) of {entry}")
+    return results[0]
+
+
+def phase_examples(dev):
+    """The five examples on the card through their ``main`` at their
+    defaults (train_lm at the 100M preset, EXAMPLES_TRAIN), each gated:
+    quickstart's tuned and radix-4 scans within DTYPE_TOL of a float64
+    cumsum, ``scan_add`` launched; autotune_kernels' Phi <= 1 in every
+    row and no runner failure (no time at PENALTY_TIME); serve_lm's ten
+    requests done with the greedy tokens of a ``ReferenceEngine`` on the
+    same model; train_lm's recorded losses finite and falling (the mean
+    of the last three below the first three's), its newest checkpoint
+    restored equal to its final state; fault_tolerant_train dead at step
+    17, resumed from 10, finished at 29.  Prints each example's seconds
+    and launches by kernel, and the 100M run's median step, tokens/s and
+    peak memory.  Returns the launches of all five."""
+    import shutil
+    import statistics
+    import tempfile
+
+    import torch
+    from repro_torch.core import PENALTY_TIME
+    from repro_torch.optim.tree import flatten_with_path
+    from repro_torch.serve.reference import ReferenceEngine
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    total = dict.fromkeys(read_counts(), 0)
+    seconds = {}
+
+    def run(name, argv, entry):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = call_example(name, argv, entry)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        counts = read_counts()
+        for k, v in counts.items():
+            total[k] += v
+        log(f"[examples] {name}: {seconds[name]:.1f} s, launches "
+            f"{json.dumps({k: v for k, v in counts.items() if v})}")
+        return res, counts
+
+    res, counts = run("quickstart", [], "run")
+    want = torch.cumsum(res["x"].double(), dim=-1)
+    errs = {what: check_close(res[what], want, "float32",
+                              f"[examples] quickstart {what}")
+            for what in ("y", "y4")}
+    require_launched(counts, ("scan_add",), "quickstart")
+    log(f"[examples] quickstart: config {res['config']}, max abs err vs "
+        f"float64 cumsum {json.dumps(errs)}")
+
+    res, _ = run("autotune_kernels", [], "run")
+    bad = {row: v for row, v in res["phi"].items()
+           if not (v["analytical"] <= 1.0 and v["bayesian"] <= 1.0)}
+    failed = [key for key, methods in res["runs"].items()
+              for m in methods.values() if not m["time_s"] < PENALTY_TIME]
+    if bad or failed or len(res["runs"]) != 20:
+        raise AssertionError(f"[examples] autotune_kernels: Phi above 1 "
+                             f"{bad}, runner failures {failed}, "
+                             f"{len(res['runs'])} sizes")
+    log(f"[examples] autotune_kernels Phi: {json.dumps(res['phi'])}")
+
+    res, _ = run("serve_lm", [], "run")
+    ref = ReferenceEngine(res["model"], max_batch=4, max_len=128)
+    for prompt, new in sys.modules["serve_lm"].requests(
+            res["model"].cfg.vocab):
+        ref.submit(prompt, max_new_tokens=new)
+    want = {r.rid: list(r.output) for r in ref.run()}
+    got = {r.rid: list(r.output) for r in res["done"]}
+    if len(got) != 10 or got != want:
+        raise AssertionError(f"[examples] serve_lm: {len(got)} requests "
+                             f"done; tokens {got} against the reference "
+                             f"engine's {want}")
+    log(f"[examples] serve_lm: {res['tokens']} tokens in "
+        f"{res['seconds']:.2f} s, equal to the reference engine's; tuner "
+        f"{res['tuner']['state']}, {res['tuner']['measured']} trial "
+        f"measurements")
+    del res, ref
+
+    ckpt = tempfile.mkdtemp(prefix="examples_train_lm_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        res, _ = run("train_lm", EXAMPLES_TRAIN + ["--ckpt", ckpt], "train")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        hist = res["history"]
+        losses = [h["loss"] for h in hist]
+        first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+        if not (all(math.isfinite(v) for v in losses) and last < first):
+            raise AssertionError(f"[examples] train_lm: losses {losses}")
+        steps = CheckpointManager(ckpt).all_steps()
+        step, restored = CheckpointManager(ckpt).restore_latest(
+            res["state"], device=dev)
+        unequal = sum(int((a != b).sum()) for (_, a), (_, b) in zip(
+            flatten_with_path(res["state"]["params"]),
+            flatten_with_path(restored["params"]))) if restored else None
+        if not steps or unequal != 0:
+            raise AssertionError(f"[examples] train_lm: checkpoints {steps}, "
+                                 f"restored step {step}, {unequal} parameter "
+                                 f"elements unequal")
+        # the loop records every tenth step's time (and the last's); the
+        # first step's holds the allocator's first blocks
+        med = statistics.median(h["step_time_s"] for h in hist[1:])
+        tokens = 8 * 128                   # EXAMPLES_TRAIN's batch x seq
+        stats = {"steps": hist[-1]["step"] + 1, "losses": losses,
+                 "first3": first, "last3": last,
+                 "median_step_ms": med * 1e3, "tokens_per_s": tokens / med,
+                 "peak_gib": peak, "checkpoints": steps,
+                 "restored_step": step,
+                 "parameters": sum(p.numel() for _, p in flatten_with_path(
+                     res["state"]["params"]))}
+        log(f"[examples] train_lm 100m: {json.dumps(stats)}")
+        del res, restored
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+    ckpt = tempfile.mkdtemp(prefix="examples_fault_")
+    try:
+        res, _ = run("fault_tolerant_train", ["--ckpt", ckpt], "run")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    last = res["history"][-1]["step"]
+    if res["died"] != "injected node failure at step 17" \
+            or res["resumed_from"] != 10 or last != 29:
+        raise AssertionError(f"[examples] fault_tolerant_train: died "
+                             f"{res['died']!r}, resumed from "
+                             f"{res['resumed_from']}, last step {last}")
+    log(f"[examples] seconds {json.dumps(seconds)}; launches "
+        f"{json.dumps({k: v for k, v in total.items() if v})}")
+    torch.cuda.empty_cache()
+    return total
 
 
 def _gib(n) -> str:
@@ -5413,6 +5746,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     phase_kernels(dev, args.quick)
     errs = phase_linrec_kernels(dev, args.quick)
+    thomas_kernel_check(dev)
     fft_err = phase_fft_kernels(dev, args.quick)
     ssd_errs = phase_ssd_kernels(dev, args.quick)
     kernel_errs = {"flash": phase_attention_kernels(dev, args.quick),
@@ -5534,6 +5868,9 @@ def main(argv=None) -> int:
         dryrun_counts = phase_dryrun(dev)
         log(f"[dryrun] {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        example_counts = phase_examples(dev)
+        log(f"[examples] {time.perf_counter() - t0:.1f} s")
         # the SSD kernels' launches in the tuning loop, apart from the
         # main paths', by route
         for entry in entries:
@@ -5582,6 +5919,18 @@ def main(argv=None) -> int:
                 for route in ROUTES.get(name, ()):
                     entry["launches_by_route"][route] += \
                         train_counts[f"{name}.{route}"]
+        # and in the examples
+        for entry in entries:
+            name = entry["name"]
+            n = example_counts[name]
+            entry["launches_examples"] = n
+            if n:
+                entry.setdefault("launches_by_path",
+                                 {"main": entry["launches"]})["examples"] = n
+                entry["launches"] += n
+                for route in ROUTES.get(name, ()):
+                    entry["launches_by_route"][route] += \
+                        example_counts[f"{name}.{route}"]
         # and kernel 11 in the dry-run's flash prefill
         for entry in entries:
             if entry["name"] == "flash_attention":

@@ -137,6 +137,9 @@ def load_library() -> ctypes.CDLL:
     lib.repro_pcr.restype = i32
     lib.repro_pcr_warp.argtypes = lib.repro_pcr.argtypes
     lib.repro_pcr_warp.restype = i32
+    lib.repro_thomas.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32, i64, i32,
+                                 vp]
+    lib.repro_thomas.restype = i32
     lib.repro_pcr_divide_check.argtypes = [vp, vp, i64, vp, vp]
     lib.repro_pcr_divide_check.restype = i32
     lib.repro_fft.argtypes = [vp, vp, i64, i32, i32,

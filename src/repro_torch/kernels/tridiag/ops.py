@@ -1,4 +1,4 @@
-"""Tridiagonal solver library: PCR (CUDA kernel), CR, LF, WM (+ Thomas).
+"""Tridiagonal solver library: PCR and Thomas (CUDA kernels), CR, LF, WM.
 
 The PyTorch port of ``repro.kernels.tridiag.ops``.  The four parallel
 variants mirror the BPLG solver family (paper §III):
@@ -13,8 +13,11 @@ variants mirror the BPLG solver family (paper §III):
         across chunks) — the radix is the tunable fan-in, as in the paper.
 
 ``cr``, ``lf`` (up to ``LF_MULTIPASS_MIN``), ``wm`` and ``thomas`` are
-plain XLA in the JAX package; here they are torch ops on the input's
-device — the JAX package's own routing.  ``solve(..., variant=...)``
+plain XLA in the JAX package; here the first three are torch ops on the
+input's device — the JAX package's own routing — and ``thomas``, whose
+two ``lax.scan``s XLA runs as one device loop, is the CUDA kernel
+``kernel.thomas`` on the card (its plan keeps JAX's empty launch list:
+no Pallas launch).  ``solve(..., variant=...)``
 resolves the configuration for the (op="tridiag", variant, n, batch)
 workload through the TunerSession.
 """
@@ -29,7 +32,7 @@ from repro_torch.core.space import Workload, fit_block, tridiag_space
 from repro_torch.kernels.blocks import driver
 from repro_torch.kernels.blocks.associative import associative_scan
 from repro_torch.kernels.blocks.plan import plan_for, wm_chunk
-from repro_torch.kernels.tridiag.kernel import pcr
+from repro_torch.kernels.tridiag.kernel import pcr, thomas
 from repro_torch.kernels.tridiag.ref import thomas_ref
 from repro_torch.tuning import default_session, tuned_kernel
 
@@ -242,5 +245,5 @@ def solve(a, b, c, d, variant: str = "pcr", config: Optional[dict] = None):
         cfg = default_session().resolve(wl, config=config)
         return wm_solve(a, b, c, d, chunk=cfg["chunk"])
     if variant == "thomas":
-        return thomas_ref(a, b, c, d)
+        return thomas(a, b, c, d)
     raise ValueError(f"unknown tridiag variant {variant!r}")

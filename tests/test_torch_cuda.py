@@ -28,8 +28,10 @@ from repro_torch.kernels.scan.ops import linear_recurrence, prefix_sum
 from repro_torch.kernels.scan.ref import scan_linrec_assoc_ref
 from repro_torch.kernels.tridiag import ops as tridiag_ops
 from repro_torch.kernels.tridiag import kernel as pcr_kernel
-from repro_torch.kernels.tridiag.kernel import pcr, pcr_plain, pcr_route
-from repro_torch.kernels.tridiag.ref import random_system, residual
+from repro_torch.kernels.tridiag.kernel import (pcr, pcr_plain, pcr_route,
+                                                thomas)
+from repro_torch.kernels.tridiag.ref import (random_system, residual,
+                                             thomas_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -377,7 +379,28 @@ def test_pcr_counts_its_route(cuda):
     assert pcr.launches == before
 
 
-@pytest.mark.parametrize("variant", ["pcr", "cr", "lf", "wm"])
+_BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [1, 2, 3, 31, 33, 97, 256, 1024])
+@pytest.mark.parametrize("batch", [1, 3, 32, 33, 4096])
+def test_thomas_kernel_is_bit_equal_to_thomas_ref(cuda, dtype, n, batch):
+    """The Thomas kernel rounds every step where thomas_ref's torch ops do
+    on the card: every element bit-equal, over ragged warps (batch 3, 33)
+    and ragged tiles (n = 31, 33, 97)."""
+    gen = torch.Generator(device=cuda).manual_seed(batch * 7919 + n)
+    planes = [v.to(_TORCH[dtype]) for v in random_system(gen, batch, n)]
+    before = thomas.launches
+    got = thomas(*planes)
+    assert thomas.launches == before + 1
+    ref = thomas_ref(*planes)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    bits = _BITS[got.dtype]
+    assert int((got.view(bits) != ref.view(bits)).sum()) == 0
+
+
+@pytest.mark.parametrize("variant", ["pcr", "cr", "lf", "wm", "thomas"])
 def test_solve_on_the_card(cuda, variant):
     gen = torch.Generator(device=cuda).manual_seed(5)
     system = random_system(gen, 256, 1024)

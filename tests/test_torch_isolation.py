@@ -1,6 +1,7 @@
-"""The port stands alone: no JAX and nothing of the JAX package in
-``src/repro_torch`` or ``chip_smoke.py``, and no path that quietly sends
-a tensor meant for the card anywhere else."""
+"""The port stands alone: no JAX, nothing of the JAX package and nothing
+of its benchmarks in ``src/repro_torch``, ``examples_torch`` or
+``chip_smoke.py``, and no path that quietly sends a tensor meant for the
+card anywhere else."""
 import ast
 import importlib.util
 import os
@@ -14,6 +15,7 @@ from conftest import DTYPE_TOL
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "src", "repro_torch")
+EXAMPLES = os.path.join(ROOT, "examples_torch")
 SMOKE = os.path.join(ROOT, "chip_smoke.py")
 
 
@@ -21,12 +23,14 @@ def _port_files():
     out = [SMOKE]
     for dirpath, _, files in os.walk(PORT):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    out += [os.path.join(EXAMPLES, f) for f in os.listdir(EXAMPLES)
+            if f.endswith(".py")]
     return sorted(out)
 
 
 def _forbidden(module: str) -> bool:
-    return module in ("jax", "repro", "ml_dtypes") \
-        or module.startswith(("jax.", "repro.", "ml_dtypes."))
+    return module in ("jax", "repro", "ml_dtypes", "benchmarks") \
+        or module.startswith(("jax.", "repro.", "ml_dtypes.", "benchmarks."))
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -253,6 +253,17 @@ def test_tridiag_space_plan_score_cost_identical(profile, variant, n, batch):
 
 
 @pytest.mark.parametrize("profile", PROFILES)
+def test_thomas_plans_no_launch_in_either_package(profile):
+    """The Thomas kernel ports no Pallas kernel: JAX's plan for ``thomas``
+    launches nothing, and the port's keeps that empty list (its kernel is
+    not routed through ``driver.launch``)."""
+    jwl, twl = _pair("thomas", 1024, 64, op="tridiag")
+    jplan = j_plan.plan_for(jwl, {}, profile=j_profiles.get_profile(profile))
+    tplan = t_plan.plan_for(twl, {}, profile=t_profiles.get_profile(profile))
+    assert jplan.launches == tplan.launches == ()
+
+
+@pytest.mark.parametrize("profile", PROFILES)
 @pytest.mark.parametrize("variant", ["pcr", "wm"])
 def test_tridiag_bf16_space_identical(profile, variant):
     jwl, twl = _pair(variant, 1024, 64, dtype="bfloat16", op="tridiag")

@@ -441,7 +441,8 @@ def test_every_launch_site_returns_through_the_guard():
         ("scan/kernel.py", "_launch"), ("scan/kernel.py", "_launch_linrec"),
         ("ssd/kernel.py", "_launch_intra"),
         ("ssd/kernel.py", "_launch_apply"), ("fft/kernel.py", "_launch"),
-        ("tridiag/kernel.py", "_launch")}
+        ("tridiag/kernel.py", "_launch"),
+        ("tridiag/kernel.py", "_launch_thomas")}
     assert [s for s in sites if not s[2]] == []
 
 

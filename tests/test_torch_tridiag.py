@@ -29,7 +29,8 @@ from repro_torch.kernels.blocks import driver as t_driver
 from repro_torch.kernels.blocks.plan import plan_for as t_plan_for
 from repro_torch.kernels.tridiag import ops as t_ops
 from repro_torch.kernels.tridiag import ref as t_ref
-from repro_torch.kernels.tridiag.kernel import pcr, pcr_plain
+from repro_torch.kernels.tridiag import kernel as t_kernel
+from repro_torch.kernels.tridiag.kernel import pcr, pcr_plain, thomas
 from repro_torch.launch import tune
 
 j_hw = importlib.import_module("repro.hw.profiles")
@@ -188,6 +189,36 @@ def test_cpu_path_counts_no_kernel_launch():
     t_ops.solve(*t_ref.random_system(torch.Generator().manual_seed(1), 8,
                                      64), variant="pcr")
     assert pcr.launches == before
+
+
+def test_thomas_on_cuda_tensors_routes_to_its_kernel(monkeypatch):
+    """solve(variant="thomas") on a tensor bound for the card reaches the
+    Thomas kernel's launcher (stubbed here: there is no card) and counts
+    one launch; a CPU tensor runs thomas_ref and counts none; a meta
+    tensor raises rather than falling back."""
+    system = t_ref.random_system(torch.Generator().manual_seed(3), 5, 40)
+    launched = []
+
+    def launcher(planes):
+        launched.append(tuple(v.shape for v in planes))
+        return t_ref.thomas_ref(*planes)
+
+    before = thomas.launches
+    x = t_ops.solve(*system, variant="thomas")
+    assert thomas.launches == before and launched == []
+    monkeypatch.setattr(t_kernel, "kernel_path", lambda t: True)
+    monkeypatch.setattr(t_kernel, "_launch_thomas", launcher)
+    with t_driver.capture_launches() as planned:
+        y = t_ops.solve(*system, variant="thomas")
+    assert launched == [((5, 40),) * 4] and planned == []
+    assert thomas.launches == before + 1
+    assert torch.equal(x, y)
+    monkeypatch.undo()
+    meta = torch.empty(4, 64, device="meta")
+    with pytest.raises(ValueError, match="no kernel for tensors on meta"):
+        t_ops.solve(meta, meta, meta, meta, variant="thomas")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        t_kernel._launch_thomas(system)
 
 
 def test_pcr_rejects_what_the_kernel_does_not_take():
