@@ -34,13 +34,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    or the block kernels for ragged, prime and odd shapes) and on the
    block kernel's record, with the elements not bit-equal counted (the
    run fails unless there are none); ``apply_linrec`` at the tests'
-   tolerance; the Thomas kernel (``thomas``) against ``thomas_ref`` on
-   the card, f32 and bf16, n = 1 ... 1024, batches 1 ... 4096, every
-   element bit-equal; then, at 2^26 f32 equations a call, ``solve`` for
+   tolerance; the Thomas kernel (``thomas``) on each of its routes
+   (lane, wide, long), forced, against ``thomas_ref`` on the card, f32
+   and bf16, n = 1 ... 1024, batches 1 ... 4096, ragged rows on the long
+   route and rows beyond the fast divide's range, every element
+   bit-equal; then, at 2^26 f32 equations a call, ``solve`` for
    pcr / cr / lf / wm at n = 256 and 1024 (residual, and a float64
    Thomas solve of sampled rows), ``solve(variant="thomas")`` at n = 256,
-   1024, 2^16 and 2^22 on its kernel (residual, and float64 Thomas of
-   sampled rows, one at 2^22), ``solve(variant="lf")`` above
+   1024, 2^16 and 2^22 on its kernel, each call on the new route
+   ``thomas_route`` picks (residual, and float64 Thomas of sampled rows,
+   one at 2^22), ``solve(variant="lf")`` above
    ``LF_MULTIPASS_MIN`` on a fused and a multipass linrec plan, and
    ``linear_recurrence``
    fused and multipass against float64 references, each call's launch
@@ -56,8 +59,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    held once against ``pcr``'s solution and timed beside it at n = 1024
    and 256, for kernel 7's ``library_ms``, and against the Thomas
    kernel's at its four sizes, for its ``library_ms``; the Thomas kernel's
-   time at each size beside its bound (bytes, or its chain of 2n steps a
-   system at the card's clock);
+   time at each size on its route, bit-equal to the lane kernel's result,
+   beside the lane kernel's time and every other route's on the same
+   planes, its bound (bytes, or its chain of 2n steps a system at the
+   card's clock), ``chain_floor_ms`` (the chain probe's step time x 2n)
+   and the route's own traffic;
 6. the FFT: ``fft_stockham`` against ``fft_plain`` on the card over every
    admitted config of ``fft_space`` at n = 1024 and 8192 under ``h100``
    and the ragged and prime stage sequences, inverse on and off, at the
@@ -139,10 +145,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    through the port's ``Model`` at full width in bf16, random weights at
    the JAX init's scales, ``use_pallas`` on, one after another (each freed
    before the next): gemma-2b, minitron-4b and granite-34b (its first 44
-   of 88 layers) on 2 x 2048 tokens, recurrentgemma-9b on 1 x 4096 (its
-   2048 window binds), qwen2-moe-a2.7b on 2 x 2048, qwen3-moe-30b-a3b on
-   1 x 2048, llama-3.2-vision-90b (5 of 20 groups) on 1 x 2048 over a
-   1 x 1601 patch memory and whisper-large-v3 encoding 2 x 1500 frames
+   of 88 layers) on 2 x 2048 tokens, recurrentgemma-9b (12 of 36 layers)
+   on 1 x 4096 (its 2048 window binds), qwen2-moe-a2.7b on 2 x 2048,
+   qwen3-moe-30b-a3b on 1 x 2048, llama-3.2-vision-90b (5 of 20 groups)
+   on 1 x 2048 over a 1 x 1601 patch memory and whisper-large-v3
+   encoding 2 x 1500 frames
    and decoding 2 x 448 tokens.  Per arch: the flash launches equal its
    attention layers (encoder and cross-attention included), all on the
    tensor cores, and recurrentgemma's linrec launch list equals its rec
@@ -271,7 +278,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
 20. the ``kernels`` line: per kernel (all twelve, and the Thomas kernel,
    which ports no Pallas kernel) its launches on the main
    paths (by route for ``scan_add``, ``scan_linrec``, ``scan_linrec_prod``,
-   ``pcr``, ``fft_stockham`` and the three SSD kernels, with the earlier
+   ``pcr``, ``thomas``, ``fft_stockham`` and the three SSD kernels, with the earlier
    kernel's time beside theirs; by path for the kernels that run on
    several, kernels 2, 3, 5 and 11 also by model arch; kernels 8–10 also
    by chunk length and with the tuning loop's
@@ -692,12 +699,14 @@ def counted_wrappers():
 # matmul whose shape the tensor-core kernel does not take the CUDA-core one
 # too (ragged); the prefix
 # sum, the linear recurrence, PCR and the FFT pick theirs by the plan
-# (scan_route, linrec_route, pcr_route, fft_route), the SSD phases by the
-# shapes (ssd_intra_route, ssd_state_apply_route, ssd_apply_entry_route)
+# (scan_route, linrec_route, pcr_route, fft_route), the SSD phases and the
+# Thomas kernel by the shapes (ssd_intra_route, ssd_state_apply_route,
+# ssd_apply_entry_route, thomas_route)
 ROUTES = {"flash_attention": ("wgmma", "simt"),
           "matmul": ("wgmma", "ragged", "simt"),
           "scan_add": ("warp", "block"), "scan_linrec": ("warp", "block"),
           "scan_linrec_prod": ("warp", "block"), "pcr": ("warp", "block"),
+          "thomas": ("lane", "wide", "long"),
           "fft_stockham": ("pow2", "generic"),
           "ssd_intra": ("tiled", "block"),
           "ssd_state_apply": ("tiled", "block"),
@@ -1557,33 +1566,91 @@ def thomas_f64_sequential(a, b, c, d):
     return torch.tensor(rows, dtype=torch.float64)
 
 
-def thomas_kernel_check(dev):
-    """The Thomas kernel against ``thomas_ref`` on the card, f32 and bf16,
-    n = 1 ... 1024 (ragged tiles at 31, 33, 97), batches 1 ... 4096 (ragged
-    warps at 3, 33): every element bit-equal (compared as integers), or
-    the run fails.  Returns the cases and the elements compared."""
+def thomas_out_of_range_rows(planes):
+    """The planes with row i's a, b, c scaled by 2^e and d by 2^h, e and h
+    cycling through exponents beyond the routes' fast divide (divisors
+    past 2^+-24, dividends past 2^+-96), and signed zeros in d: the lanes
+    that meet them replay their tile or segment with __fdiv_rn."""
     import torch
-    from repro_torch.kernels.tridiag.kernel import thomas
+    a, b, c, d = (v.clone() for v in planes)
+    rows = torch.arange(a.shape[0], device=a.device)
+    # (e, h) pairs keep x finite: |h - e| <= 100
+    e = torch.tensor([0, 30, -30, 60, -60, 100, -100, 0],
+                     device=a.device)[rows % 8].to(torch.float32)
+    h = torch.tensor([97, 0, 0, 120, -120, 30, -30, -100],
+                     device=a.device)[rows % 8].to(torch.float32)
+    f, g = torch.exp2(e)[:, None], torch.exp2(h)[:, None]
+    a, b, c = (v.float().mul(f).to(v.dtype) for v in (a, b, c))
+    d = d.float().mul(g).to(d.dtype)
+    d[:, 1::5] = 0.0
+    d[:, 3::7] = -0.0
+    return a, b, c, d
+
+
+def thomas_kernel_check(dev):
+    """Each route of the Thomas kernel, forced, against ``thomas_ref`` on
+    the card, f32 and bf16: the lane kernel and the long route over n = 1
+    ... 1024 (ragged tiles at 31, 33, 97) and batches 1 ... 4096 (ragged
+    warps at 3, 33), the wide route where n is a multiple of 8 (with c'
+    and d' through the scratch pair, and on chip where they fit), and the
+    long route's ragged rows, n = 1, 33, 97, 4097 at batch 1, 3, 16, and
+    rows whose divides leave the fast divide's range
+    (``thomas_out_of_range_rows``: the replay with __fdiv_rn): every
+    element bit-equal (compared as integers), or the run fails.
+    Launches made to compare are not counted.  Returns the cases by route
+    and the elements compared."""
+    import torch
+    from repro_torch.kernels.tridiag import kernel as tk
     from repro_torch.kernels.tridiag.ref import random_system, thomas_ref
     bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
     gen = torch.Generator(device=dev).manual_seed(28)
-    cases = elems = 0
+    cases = {r: 0 for r in tk.THOMAS_ROUTES}
+    elems = 0
+
+    def hold(planes, ref, route, resident=None):
+        nonlocal elems
+        got = tk._launch_thomas(tuple(planes), route=route,
+                                resident=resident)
+        unequal = int((got.view(bits[ref.dtype])
+                       != ref.view(bits[ref.dtype])).sum())
+        if unequal or got.shape != ref.shape:
+            raise AssertionError(
+                f"thomas route {route} (resident {resident}) {ref.dtype} "
+                f"{list(ref.shape)}: {unequal} elements not bit-equal to "
+                f"thomas_ref")
+        cases[route] += 1
+        elems += got.numel()
+
+    # (n, batch, kind): the grid every route takes, the long route's
+    # ragged rows, rows beyond the fast divide's range
+    cases_nb = ([(n, batch, "grid")
+                 for n in (1, 2, 3, 8, 31, 33, 97, 256, 1024)
+                 for batch in (1, 3, 32, 33, 4096)]
+                + [(n, batch, "ragged") for n in (1, 33, 97, 4097)
+                   for batch in (1, 3, 16)]
+                + [(256, 64, "scaled"), (1024, 33, "scaled"),
+                   (4096, 5, "scaled")])
     for dtype in (torch.float32, torch.bfloat16):
-        for n in (1, 2, 3, 31, 33, 97, 256, 1024):
-            for batch in (1, 3, 32, 33, 4096):
-                planes = [v.to(dtype) for v in random_system(gen, batch, n)]
-                got, ref = thomas(*planes), thomas_ref(*planes)
-                unequal = int((got.view(bits[dtype])
-                               != ref.view(bits[dtype])).sum())
-                if unequal or got.shape != ref.shape:
-                    raise AssertionError(
-                        f"thomas {dtype} batch={batch} n={n}: {unequal} "
-                        f"elements not bit-equal to thomas_ref")
-                cases += 1
-                elems += got.numel()
+        for n, batch, kind in cases_nb:
+            planes = [v.to(dtype) for v in random_system(gen, batch, n)]
+            if kind == "scaled":
+                planes = thomas_out_of_range_rows(planes)
+            ref = thomas_ref(*planes)
+            hold(planes, ref, "long")
+            if kind == "ragged":
+                continue
+            hold(planes, ref, "lane")
+            if n % tk.THOMAS_WIDE_ALIGN == 0:
+                hold(planes, ref, "wide", resident=False)
+                if tk.thomas_wide_smem(n, ref.element_size(),
+                                       True) <= tk.SMEM_MAX:
+                    hold(planes, ref, "wide", resident=True)
     torch.cuda.synchronize()
-    log(f"[kernels] thomas: {cases} cases (f32 and bf16, n = 1 ... 1024, "
-        f"batch 1 ... 4096), {elems} elements, all bit-equal to thomas_ref")
+    log(f"[kernels] thomas: {json.dumps(cases)} cases by route (f32 and "
+        f"bf16, n = 1 ... 1024 at batch 1 ... 4096, the long route also at "
+        f"n = 1, 33, 97, 4097 and batch 1, 3, 16, and rows out of the fast "
+        f"divide's range), {elems} elements, all "
+        f"bit-equal to thomas_ref")
     return {"cases": cases, "elements": elems, "unequal_elements": 0}
 
 
@@ -1595,6 +1662,7 @@ def phase_tridiag_path(dev):
     from repro_torch.kernels.blocks.driver import capture_launches
     from repro_torch.kernels.blocks.plan import plan_for
     from repro_torch.kernels.scan.ops import _plan_workload, linear_recurrence
+    from repro_torch.kernels.tridiag import kernel as thomas_kernel
     from repro_torch.kernels.tridiag.ops import LF_MULTIPASS_MIN, solve
     from repro_torch.kernels.tridiag.ref import random_system, residual
     from repro_torch.tuning import default_session
@@ -1611,9 +1679,13 @@ def phase_tridiag_path(dev):
     reset_counts()
     solved, recurred = [], []
     for variant, n, batch in tridiag_path_cases():
+        before = read_counts()
         with capture_launches() as launched:
             x = solve(*systems[n], variant=variant)
-        solved.append((variant, n, batch, x, list(launched)))
+        after = read_counts()
+        taken = [r for r in ROUTES["thomas"]
+                 if after[f"thomas.{r}"] > before[f"thomas.{r}"]]
+        solved.append((variant, n, batch, x, list(launched), taken))
     for n, batch in linrec_path_cases():
         with capture_launches() as launched:
             h = linear_recurrence(*recs[n])
@@ -1629,7 +1701,8 @@ def phase_tridiag_path(dev):
 
     plans = {}
     thomas = {}
-    for variant, n, batch, x, launched in solved:
+    sms = thomas_kernel.sm_count(dev)
+    for variant, n, batch, x, launched, taken in solved:
         wl = Workload(op="tridiag", n=n, batch=batch, variant=variant)
         if variant == "lf" and n > LF_MULTIPASS_MIN:
             lwl = Workload(op="scan", n=n, batch=batch, variant="linrec")
@@ -1642,7 +1715,16 @@ def phase_tridiag_path(dev):
             # launches nothing through the driver: the kernel is counted
             plan = plan_for(wl, {})
             want = plan.launches
-            detail = "the Thomas kernel (plan: no driver launch)"
+            route = thomas_kernel.thomas_route(batch, n, sms)
+            if taken != [route] or route == "lane":
+                raise AssertionError(f"solve thomas n={n}: launched the "
+                                     f"routes {taken}, not the new route "
+                                     f"{route!r} thomas_route picks")
+            detail = (f"the Thomas kernel, route {route} (plan: no driver "
+                      f"launch)")
+        elif taken:
+            raise AssertionError(f"solve {variant} n={n} launched the "
+                                 f"Thomas kernel ({taken})")
         else:
             cfg = session.resolve(wl)
             plan = plan_for(wl, cfg)
@@ -2025,20 +2107,74 @@ def phase_tridiag_numbers(dev, systems, recs, plans, counts, errs,
     return entries, ends
 
 
+def thomas_traffic_planes(route: str, n: int, itemsize: int,
+                          resident: bool) -> float:
+    """Planes of (batch, n) a route moves: a, b, c, d in and x out, and c'
+    and d' out and back through scratch, except the wide route's last tile
+    of them (kept on chip) and all of them where it keeps them resident."""
+    if route != "wide":
+        return 9.0
+    if resident:
+        return 5.0
+    from repro_torch.kernels.tridiag.kernel import thomas_tile_row_bytes
+    cols = min(n, thomas_tile_row_bytes(False) // itemsize)
+    return 5.0 + 4.0 * (n - cols) / n
+
+
+def thomas_chain_probe(steps: int = 1 << 20, ieee: bool = False) -> float:
+    """Milliseconds of one lane (``repro_thomas_chain_probe``) running
+    ``steps`` forward and ``steps`` backward f32 Thomas steps with the
+    routes' op sequence, all in registers (``ieee``: __fdiv_rn for every
+    divide):
+    ms / (2 steps) is a floor of one step of this op sequence, not of the
+    function.  Fails unless c', d' and x are finite and every fast divide
+    was exact."""
+    import torch
+    from repro_torch.kernels.build import check, load_library
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator().manual_seed(29)
+    a = torch.rand(8, generator=gen) * 0.9 + 0.1
+    c = torch.rand(8, generator=gen) * 0.9 + 0.1
+    b = a + c + torch.rand(8, generator=gen) + 1.0
+    d = torch.randn(8, generator=gen)
+    inp = torch.cat([a, b, c, d]).to(dev)
+    out = torch.empty(4, device=dev)
+    lib = load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for _ in range(2):                       # the first call warms up
+        start.record()
+        code = lib.repro_thomas_chain_probe(inp.data_ptr(), out.data_ptr(),
+                                            int(ieee), steps, stream)
+        end.record()
+        check(code, "thomas chain probe")
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(out).all()) or float(out[3]) != 1.0:
+        raise AssertionError(f"thomas chain probe: c', d', x, exact = "
+                             f"{out.tolist()}")
+    return start.elapsed_time(end)
+
+
 def thomas_entry(systems, counts, bandwidth: float, gtsv):
     """The Thomas kernel at each of THOMAS_SIZES on solve's main-path
-    systems: its time, its bound and cuSPARSE's time on the same kind of
-    systems (``gtsv``, from the child); the entry's own numbers at n =
-    1024, where thomas_ref (its plain version) is timed too, and every
-    element must be bit-equal to it.  Bound: the larger of the bytes the
-    function needs (a, b, c, d in, x out: five planes, as pcr's) over the
-    memory rate, and the chain of 2n dependent steps a system at one step
-    a clock of the card's maximum SM clock (nvidia-smi): a floor, since
-    each step is a multiply, a subtract and a divide in a row.  The
-    kernel's own traffic (c' and d' also out and back: nine planes) is
-    given beside it as ``traffic_ms``."""
+    systems, on the route thomas_route picks: its result bit-equal, as
+    integers, to the lane kernel's (the earlier kernel: thomas_ref takes
+    minutes there); its time beside the lane kernel's (``lane_ms``) and
+    every other route's that takes the shape (``ms_by_route``), all on the
+    same planes; its bound, cuSPARSE's time on the same kind of systems
+    (``gtsv``, from the child).  The entry's own numbers at n = 1024, where
+    thomas_ref (its plain version) is timed too and every element must be
+    bit-equal to it.  Bound: the larger of the bytes the function needs
+    (a, b, c, d in, x out: five planes, as pcr's) over the memory rate,
+    and the chain of 2n dependent steps a system at one step a clock of
+    the card's maximum SM clock (nvidia-smi).  Beside it:
+    ``chain_floor_ms``, 2n steps at the time a step of this op sequence
+    takes one lane in registers (:func:`thomas_chain_probe`: a floor of
+    this op sequence, not of the function), and ``traffic_ms``, the planes
+    the chosen route moves (c' and d' out and back, where it does)."""
     import torch
-    from repro_torch.kernels.tridiag.kernel import thomas
+    from repro_torch.kernels.tridiag import kernel as tk
     from repro_torch.kernels.tridiag.ref import thomas_ref
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -2047,27 +2183,68 @@ def thomas_entry(systems, counts, bandwidth: float, gtsv):
     if smi.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
     mhz = float(smi.stdout.split()[0])
+    dev = systems[THOMAS_SIZES[0]][0].device
+    sms = tk.sm_count(dev)
+    probe_steps = 1 << 20
+    probe = {"routes' divide": thomas_chain_probe(probe_steps),
+             "__fdiv_rn": thomas_chain_probe(probe_steps, ieee=True)}
+    step_ns = probe["routes' divide"] * 1e6 / (2 * probe_steps)
+    log(f"[numbers] thomas chain probe: ms for {probe_steps} forward and "
+        f"{probe_steps} backward f32 steps of one lane, by divide: "
+        f"{json.dumps(probe)}; {step_ns:.4f} ns a step with the routes' "
+        f"divide ({step_ns * mhz * 1e-3:.2f} clocks at {mhz:.0f} MHz)")
     by_n = {}
     for n in THOMAS_SIZES:
-        planes = systems[n]
+        planes = tuple(v.contiguous() for v in systems[n])
+        batch = planes[0].shape[0]
         elems = planes[0].numel()
+        route = tk.thomas_route(batch, n, sms)
+        resident = tk.thomas_resident(n, 4) if route == "wide" else None
+        got = tk._launch_thomas(planes, route=route)
+        lane = tk._launch_thomas(planes, route="lane")
+        torch.cuda.synchronize()
+        unequal = int((got.view(torch.int32) != lane.view(torch.int32)).sum())
+        if unequal:
+            raise AssertionError(f"thomas n={n}: route {route} differs from "
+                                 f"the lane kernel in {unequal} elements")
+        del got, lane
+        reps = 1 if n >= 2 ** 22 else 5
+        runs = {"long": None, "lane": None}
+        if n % tk.THOMAS_WIDE_ALIGN == 0 and n < 2 ** 22:
+            runs["wide scratch"] = False
+            if tk.thomas_wide_smem(n, 4, True) <= tk.SMEM_MAX:
+                runs["wide resident"] = True
+        ms_by_route = {
+            name: time_ms(lambda: tk._launch_thomas(
+                planes, route=name.split()[0], resident=res), reps, warmup=1)
+            for name, res in runs.items()}
+        chosen = route if route != "wide" else \
+            f"wide {'resident' if resident else 'scratch'}"
         by_bytes = 5 * elems * 4 / bandwidth * 1e3
         by_chain = 2 * n / (mhz * 1e6) * 1e3
-        reps = 1 if n >= 2 ** 22 else 5
-        by_n[n] = {"shape": list(planes[0].shape),
-                   "ms": time_ms(lambda: thomas(*planes), reps, warmup=1),
+        by_n[n] = {"shape": list(planes[0].shape), "route": route,
+                   "resident": resident,
+                   "long_rows": tk.thomas_long_rows(batch, sms),
+                   "ms": ms_by_route[chosen], "lane_ms": ms_by_route["lane"],
+                   "ms_by_route": ms_by_route,
+                   "unequal_vs_lane": unequal,
                    "bound_ms": max(by_bytes, by_chain),
                    "bound_by": "bytes" if by_bytes >= by_chain
                    else "operations",
                    "bytes_ms": by_bytes, "chain_ms": by_chain,
-                   "traffic_ms": 9 * elems * 4 / bandwidth * 1e3,
+                   "chain_floor_ms": 2 * n * step_ns * 1e-6,
+                   "traffic_ms": thomas_traffic_planes(
+                       route, n, 4, bool(resident)) * elems * 4
+                   / bandwidth * 1e3,
                    "library_ms": gtsv[n]["ms"],
                    "library_thomas_ms_same_process": gtsv[n]["thomas_ms"]}
-        log(f"[numbers] thomas n={n} batch={elems // n}: "
+        log(f"[numbers] thomas n={n} batch={batch}: "
             f"{json.dumps(by_n[n], sort_keys=True)}")
     n = 1024
-    planes = systems[n]
-    got, ref = thomas(*planes), thomas_ref(*planes)
+    planes = tuple(v.contiguous() for v in systems[n])
+    route = by_n[n]["route"]
+    got = tk._launch_thomas(planes, route=route)
+    ref = thomas_ref(*planes)
     torch.cuda.synchronize()
     unequal = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
     if unequal:
@@ -2077,15 +2254,21 @@ def thomas_entry(systems, counts, bandwidth: float, gtsv):
            "source": "src/repro_torch/csrc/tridiag.cu",
            "replaces": "src/repro/kernels/tridiag/ref.py:12 (thomas_ref: "
                        "an XLA lax.scan, not a Pallas kernel)",
-           "launches": counts["thomas"], "max_abs_err": max_err(got, ref),
-           "unequal_elements": unequal,
-           "ms": by_n[n]["ms"], "plain_ms": time_ms(
-               lambda: thomas_ref(*planes), 1, warmup=1),
+           "launches": counts["thomas"],
+           "launches_by_route": {r: counts[f"thomas.{r}"]
+                                 for r in tk.THOMAS_ROUTES},
+           "max_abs_err": max_err(got, ref),
+           "unequal_elements": unequal, "kernel_route": route,
+           "ms": by_n[n]["ms"], "lane_ms": by_n[n]["lane_ms"],
+           "plain_ms": time_ms(lambda: thomas_ref(*planes), 1, warmup=1),
            "bound_ms": by_n[n]["bound_ms"], "bound_by": by_n[n]["bound_by"],
+           "chain_floor_ms": by_n[n]["chain_floor_ms"],
+           "traffic_ms": by_n[n]["traffic_ms"],
            "library_ms": by_n[n]["library_ms"],
            "library": "cusparseSgtsv2StridedBatch",
            "shape": by_n[n]["shape"], "dtype": "float32",
-           "sm_clock_mhz": mhz,
+           "sm_clock_mhz": mhz, "chain_probe_ms": probe,
+           "chain_step_ns": step_ns,
            "by_n": {str(k): v for k, v in by_n.items()}}
     del got, ref
     log(f"[numbers] {json.dumps(out, sort_keys=True)}")
@@ -3597,12 +3780,14 @@ def phase_mamba_model(dev, bandwidth: float):
 # arch: (batch, tokens, layers kept or None).  granite-34b is 93.9 GB and
 # llama-3.2-vision-90b 179 GB of bf16 weights: the first 44 layers (47 GB)
 # and 5 groups of 5 (46 GB) fit the 80 GB card with their activations.
-# recurrentgemma runs 4096 tokens so that its 2048 window binds; whisper
-# runs its encoder over 2 x 1500 frames and its decoder over 2 x 448
-# tokens (its context).
+# recurrentgemma runs 4096 tokens so that its 2048 window binds, at 12
+# of its 36 layers (four of its (rec, rec, attn) groups): at full depth
+# its ring-wrapping prefill, a step a position, took 213.8 s of a whole
+# run of 1190.3 s against the 1200 s limit; whisper runs its encoder over
+# 2 x 1500 frames and its decoder over 2 x 448 tokens (its context).
 MODEL_RUNS = {"gemma-2b": (2, 2048, None), "minitron-4b": (2, 2048, None),
               "granite-34b": (2, 2048, 44),
-              "recurrentgemma-9b": (1, 4096, None),
+              "recurrentgemma-9b": (1, 4096, 12),
               "qwen2-moe-a2.7b": (2, 2048, None),
               "qwen3-moe-30b-a3b": (1, 2048, None),
               "llama-3.2-vision-90b": (1, 2048, 25),

@@ -27,7 +27,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 SOURCES = ("scan.cu", "linrec.cu", "tridiag.cu", "fft.cu", "ssd.cu",
            "attention.cu", "matmul.cu")
-HEADERS = ("sm90.cuh",)   # included by attention.cu, matmul.cu and ssd.cu
+HEADERS = ("sm90.cuh",)   # included by four of the sources
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_kernels.so"
@@ -140,6 +140,13 @@ def load_library() -> ctypes.CDLL:
     lib.repro_thomas.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32, i64, i32,
                                  vp]
     lib.repro_thomas.restype = i32
+    lib.repro_thomas_wide.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32, i64,
+                                      i32, i32, vp]
+    lib.repro_thomas_wide.restype = i32
+    lib.repro_thomas_long.argtypes = lib.repro_thomas_wide.argtypes
+    lib.repro_thomas_long.restype = i32
+    lib.repro_thomas_chain_probe.argtypes = [vp, vp, i32, i64, vp]
+    lib.repro_thomas_chain_probe.restype = i32
     lib.repro_pcr_divide_check.argtypes = [vp, vp, i64, vp, vp]
     lib.repro_pcr_divide_check.restype = i32
     lib.repro_fft.argtypes = [vp, vp, i64, i32, i32,

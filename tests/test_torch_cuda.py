@@ -382,22 +382,126 @@ def test_pcr_counts_its_route(cuda):
 _BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
 
 
+@pytest.mark.parametrize("route", ["lane", "wide", "long"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n", [1, 2, 3, 31, 33, 97, 256, 1024])
+@pytest.mark.parametrize("n", [1, 2, 3, 8, 31, 33, 97, 256, 1024])
 @pytest.mark.parametrize("batch", [1, 3, 32, 33, 4096])
-def test_thomas_kernel_is_bit_equal_to_thomas_ref(cuda, dtype, n, batch):
-    """The Thomas kernel rounds every step where thomas_ref's torch ops do
-    on the card: every element bit-equal, over ragged warps (batch 3, 33)
-    and ragged tiles (n = 31, 33, 97)."""
+def test_thomas_kernel_is_bit_equal_to_thomas_ref(cuda, route, dtype, n,
+                                                  batch):
+    """Each route of the Thomas kernel, forced, rounds every step where
+    thomas_ref's torch ops do on the card: every element bit-equal, over
+    ragged warps (batch 3, 33) and ragged tiles (n = 31, 33, 97); the wide
+    route refuses an n that is not a multiple of 8, and is held both with
+    c' and d' on chip and through the scratch pair where both fit."""
     gen = torch.Generator(device=cuda).manual_seed(batch * 7919 + n)
     planes = [v.to(_TORCH[dtype]) for v in random_system(gen, batch, n)]
-    before = thomas.launches
-    got = thomas(*planes)
-    assert thomas.launches == before + 1
+    if route == "wide" and n % pcr_kernel.THOMAS_WIDE_ALIGN:
+        with pytest.raises(ValueError, match="multiple of 8"):
+            pcr_kernel._launch_thomas(tuple(planes), route=route)
+        return
     ref = thomas_ref(*planes)
-    assert got.dtype == ref.dtype and got.shape == ref.shape
-    bits = _BITS[got.dtype]
+    bits = _BITS[ref.dtype]
+    forms = [None]
+    if route == "wide":
+        item = ref.element_size()
+        forms = [False] + ([True] if pcr_kernel.thomas_wide_smem(
+            n, item, True) <= pcr_kernel.SMEM_MAX else [])
+    for resident in forms:
+        got = pcr_kernel._launch_thomas(tuple(planes), route=route,
+                                        resident=resident)
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        assert int((got.view(bits) != ref.view(bits)).sum()) == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [1, 33, 97, 4097])
+@pytest.mark.parametrize("batch", [1, 3, 16])
+def test_thomas_long_route_on_ragged_rows(cuda, dtype, n, batch):
+    """The long route where rows are not 16-byte aligned (its lanes' own
+    loads and stores, not bulk copies): bit-equal to thomas_ref."""
+    gen = torch.Generator(device=cuda).manual_seed(batch * 31 + n)
+    planes = [v.to(_TORCH[dtype]) for v in random_system(gen, batch, n)]
+    got = pcr_kernel._launch_thomas(tuple(planes), route="long")
+    ref = thomas_ref(*planes)
+    bits = _BITS[ref.dtype]
     assert int((got.view(bits) != ref.view(bits)).sum()) == 0
+
+
+def _out_of_range_rows(planes):
+    """The planes with row i's a, b, c scaled by 2^e and d by 2^h, e and h
+    cycling through exponents beyond the routes' fast divide (divisors
+    past 2^+-24, dividends past 2^+-96), and signed zeros in d: the lanes
+    that meet them replay their tile or segment with __fdiv_rn."""
+    a, b, c, d = (v.clone() for v in planes)
+    rows = torch.arange(a.shape[0], device=a.device)
+    # (e, h) pairs keep x finite: |h - e| <= 100
+    e = torch.tensor([0, 30, -30, 60, -60, 100, -100, 0],
+                     device=a.device)[rows % 8].to(torch.float32)
+    h = torch.tensor([97, 0, 0, 120, -120, 30, -30, -100],
+                     device=a.device)[rows % 8].to(torch.float32)
+    f, g = torch.exp2(e)[:, None], torch.exp2(h)[:, None]
+    a, b, c = (v.float().mul(f).to(v.dtype) for v in (a, b, c))
+    d = d.float().mul(g).to(d.dtype)
+    d[:, 1::5] = 0.0
+    d[:, 3::7] = -0.0
+    return a, b, c, d
+
+
+@pytest.mark.parametrize("route", ["lane", "wide", "long"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch,n", [(64, 256), (33, 1024), (5, 4096),
+                                     (3, 97)])
+def test_thomas_routes_replay_out_of_range_divides(cuda, route, dtype, batch,
+                                                   n):
+    """Rows whose divides leave the fast divide's exact range (and signed
+    zero dividends) stay bit-equal to thomas_ref on every route."""
+    if route == "wide" and n % pcr_kernel.THOMAS_WIDE_ALIGN:
+        return
+    gen = torch.Generator(device=cuda).manual_seed(batch + n)
+    planes = _out_of_range_rows(
+        [v.to(_TORCH[dtype]) for v in random_system(gen, batch, n)])
+    ref = thomas_ref(*planes)
+    bits = _BITS[ref.dtype]
+    got = pcr_kernel._launch_thomas(tuple(planes), route=route)
+    assert int((got.view(bits) != ref.view(bits)).sum()) == 0
+
+
+@pytest.mark.parametrize("route", ["lane", "wide", "long"])
+def test_thomas_routes_take_planes_off_16_byte_boundaries(cuda, route):
+    """Contiguous planes that start 4 bytes past a 16-byte boundary (a view
+    into a larger buffer): each route still solves them bit-equal to
+    thomas_ref (the wrapper copies them onto a boundary for the routes'
+    16-byte copies)."""
+    batch, n = 40, 264
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    planes = []
+    for v in random_system(gen, batch, n):
+        buf = torch.empty(batch * n + 1, device=cuda)
+        view = buf[1:].view(batch, n)
+        view.copy_(v)
+        assert view.is_contiguous() and view.data_ptr() % 16 == 4
+        planes.append(view)
+    ref = thomas_ref(*planes)
+    got = pcr_kernel._launch_thomas(tuple(planes), route=route)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("batch,n", [(8192, 256), (4096, 1024), (64, 4096),
+                                     (3, 2 ** 14)])
+def test_thomas_counts_the_route_it_takes(cuda, batch, n):
+    """thomas() launches the route thomas_route picks on this card and
+    counts it; its result is bit-equal to the lane kernel's."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    planes = random_system(gen, batch, n)
+    route = pcr_kernel.thomas_route(batch, n, pcr_kernel.sm_count(cuda))
+    before = (thomas.launches, getattr(thomas, f"launches_{route}"))
+    got = thomas(*planes)
+    assert (thomas.launches, getattr(thomas, f"launches_{route}")) == (
+        before[0] + 1, before[1] + 1)
+    lane = pcr_kernel._launch_thomas(tuple(planes), route="lane")
+    assert torch.equal(got.view(torch.int32), lane.view(torch.int32))
+
+
 
 
 @pytest.mark.parametrize("variant", ["pcr", "cr", "lf", "wm", "thomas"])

@@ -199,7 +199,7 @@ def test_thomas_on_cuda_tensors_routes_to_its_kernel(monkeypatch):
     system = t_ref.random_system(torch.Generator().manual_seed(3), 5, 40)
     launched = []
 
-    def launcher(planes):
+    def launcher(planes, route=None):
         launched.append(tuple(v.shape for v in planes))
         return t_ref.thomas_ref(*planes)
 
@@ -207,6 +207,7 @@ def test_thomas_on_cuda_tensors_routes_to_its_kernel(monkeypatch):
     x = t_ops.solve(*system, variant="thomas")
     assert thomas.launches == before and launched == []
     monkeypatch.setattr(t_kernel, "kernel_path", lambda t: True)
+    monkeypatch.setattr(t_kernel, "sm_count", lambda device: 132)
     monkeypatch.setattr(t_kernel, "_launch_thomas", launcher)
     with t_driver.capture_launches() as planned:
         y = t_ops.solve(*system, variant="thomas")
@@ -219,6 +220,94 @@ def test_thomas_on_cuda_tensors_routes_to_its_kernel(monkeypatch):
         t_ops.solve(meta, meta, meta, meta, variant="thomas")
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         t_kernel._launch_thomas(system)
+
+
+# (batch, n, route, long-route rows) on a card of 132 SMs: the main path's
+# four sizes at 2^26 equations, and the edges
+THOMAS_ROUTE_TABLE = [
+    (262144, 256, "wide", 32),
+    (65536, 1024, "wide", 32),
+    (1024, 2 ** 16, "long", 8),
+    (16, 2 ** 22, "long", 1),
+    (1, 1, "long", 1),                  # one system of one equation
+    (1, 2 ** 20, "long", 1),
+    (4224, 8, "wide", 32),              # the batch where "wide" begins
+    (4223, 8, "long", 32),              # one system short of it
+    (4224, 33, "lane", 32),             # many systems of a ragged n
+    (65536, 97, "lane", 32),
+    (4096, 4097, "long", 32),
+    (133, 1024, "long", 2),             # a ragged batch: 67 blocks
+    (0, 64, "long", 1),
+]
+
+
+@pytest.mark.parametrize("batch,n,route,rows", THOMAS_ROUTE_TABLE)
+def test_thomas_route_by_shape(batch, n, route, rows):
+    """thomas_route picks by (batch, n, SMs) alone; the long route's rows a
+    block shrink until the blocks cover the card, down to one."""
+    assert t_kernel.thomas_route(batch, n, 132) == route
+    assert t_kernel.thomas_long_rows(batch, 132) == rows
+    if route == "long":
+        assert -(-batch // rows) <= 132 or rows == 32
+    if route == "wide":
+        assert n % t_kernel.THOMAS_WIDE_ALIGN == 0
+
+
+@pytest.mark.parametrize("n,itemsize,resident", [
+    (256, 4, True), (264, 4, False), (1024, 4, False), (512, 2, True),
+    (1024, 2, False), (8, 4, True)])
+def test_thomas_wide_keeps_c_and_d_on_chip_where_they_fit(n, itemsize,
+                                                         resident):
+    """The wide route's c' and d' stay in shared memory up to 64 KB a warp
+    (five planes of traffic), and its block asks for at most what the H100
+    gives one where it does."""
+    assert t_kernel.thomas_resident(n, itemsize) == resident
+    smem = t_kernel.thomas_wide_smem(n, itemsize, resident)
+    assert smem <= t_kernel.SMEM_MAX
+    assert t_kernel.thomas_wide_smem(n, itemsize, False) == 18 * 4096
+
+
+@pytest.mark.parametrize("batch,n,sms,route", [
+    (64, 16, 2, "wide"), (64, 33, 2, "lane"), (3, 97, 2, "long"),
+    (1, 1, 132, "long")])
+def test_thomas_wrapper_passes_and_counts_its_route(monkeypatch, batch, n,
+                                                    sms, route):
+    """Through a stubbed _launch_thomas (a card of ``sms`` SMs): the wrapper
+    passes the route thomas_route picks and counts it, in launches and
+    launches_<route> alone; a CPU tensor counts none; a meta tensor
+    raises; nothing falls back."""
+    assert t_kernel.thomas_route(batch, n, sms) == route
+    planes = t_ref.random_system(torch.Generator().manual_seed(5), batch, n)
+    calls = []
+
+    def launcher(planes, route=None):
+        calls.append(route)
+        return t_ref.thomas_ref(*planes)
+
+    def counts():
+        return {r: getattr(thomas, f"launches_{r}")
+                for r in t_kernel.THOMAS_ROUTES} | {"all": thomas.launches}
+
+    before = counts()
+    x = t_kernel.thomas(*planes)
+    assert counts() == before and calls == []
+    monkeypatch.setattr(t_kernel, "kernel_path", lambda t: True)
+    monkeypatch.setattr(t_kernel, "sm_count", lambda device: sms)
+    monkeypatch.setattr(t_kernel, "_launch_thomas", launcher)
+    y = t_kernel.thomas(*planes)
+    assert calls == [route] and torch.equal(x, y)
+    after = counts()
+    assert after == {**before, "all": before["all"] + 1,
+                     route: before[route] + 1}
+    monkeypatch.undo()
+    meta = torch.empty(4, 64, device="meta")
+    with pytest.raises(ValueError, match="no kernel for tensors on meta"):
+        t_kernel.thomas(meta, meta, meta, meta)
+    with pytest.raises(ValueError, match="unknown thomas route"):
+        t_kernel._launch_thomas(tuple(planes), route="warp")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        t_kernel._launch_thomas(tuple(planes), route=route)
+    assert counts() == after
 
 
 def test_pcr_rejects_what_the_kernel_does_not_take():
