@@ -337,12 +337,18 @@ def log(msg: str) -> None:
 
 
 def load_port():
-    """Put the checkout's ``src`` on the path and read the paper's problem
-    size from the port's ``configs/paper_ops.py`` (no torch import, so the
-    cuSPARSE child can call it after loading its libraries)."""
-    global TOTAL_ELEMS
+    """Put the checkout's ``src`` on the path, read the paper's problem
+    size from the port's ``configs/paper_ops.py`` and take the launch
+    counters' readers and route tables from ``repro_torch.telemetry``
+    (which imports the kernel modules, and with them torch: the cuSPARSE
+    child calls it after loading its libraries)."""
+    global TOTAL_ELEMS, LAUNCH_ROUTES, NEWEST_ROUTE, launch_counts, \
+        launch_wrappers, reset_launch_counts
     sys.path.insert(0, SRC)
     from repro_torch.configs.paper_ops import TOTAL_ELEMS
+    from repro_torch.telemetry import (LAUNCH_ROUTES, NEWEST_ROUTE,
+                                       launch_counts, launch_wrappers,
+                                       reset_launch_counts)
 
 
 def max_err(got, ref) -> float:
@@ -674,67 +680,6 @@ def phase_kernels(dev, quick: bool):
     log("[kernels] apply_add: f32 and bf16 outputs equal the plain version")
 
 
-def counted_wrappers():
-    """Every kernel wrapper, by name; each counts its CUDA launches."""
-    from repro_torch.kernels.blocks.driver import apply_add, apply_linrec
-    from repro_torch.kernels.scan.kernel import (scan_add, scan_linrec,
-                                                 scan_linrec_prod)
-    from repro_torch.kernels.fft.kernel import fft_stockham
-    from repro_torch.kernels.ssd.kernel import (ssd_apply_entry, ssd_intra,
-                                                ssd_state_apply)
-    from repro_torch.kernels.tridiag.kernel import pcr, thomas
-    from repro_torch.kernels.attention.kernel import flash_attention
-    from repro_torch.kernels.matmul.kernel import matmul_tiled
-    return {"scan_add": scan_add, "apply_add": apply_add,
-            "scan_linrec": scan_linrec, "scan_linrec_prod": scan_linrec_prod,
-            "apply_linrec": apply_linrec, "pcr": pcr, "thomas": thomas,
-            "fft_stockham": fft_stockham, "ssd_intra": ssd_intra,
-            "ssd_state_apply": ssd_state_apply,
-            "ssd_apply_entry": ssd_apply_entry,
-            "flash_attention": flash_attention, "matmul": matmul_tiled}
-
-
-# kernels with one launch counter per route besides their total: bf16 runs
-# the tensor-core kernel (wgmma), f32 the CUDA-core one (simt), and a bf16
-# matmul whose shape the tensor-core kernel does not take the CUDA-core one
-# too (ragged); the prefix
-# sum, the linear recurrence, PCR and the FFT pick theirs by the plan
-# (scan_route, linrec_route, pcr_route, fft_route), the SSD phases and the
-# Thomas kernel by the shapes (ssd_intra_route, ssd_state_apply_route,
-# ssd_apply_entry_route, thomas_route)
-ROUTES = {"flash_attention": ("wgmma", "simt"),
-          "matmul": ("wgmma", "ragged", "simt"),
-          "scan_add": ("warp", "block"), "scan_linrec": ("warp", "block"),
-          "scan_linrec_prod": ("warp", "block"), "pcr": ("warp", "block"),
-          "thomas": ("lane", "wide", "long"),
-          "fft_stockham": ("pow2", "generic"),
-          "ssd_intra": ("tiled", "block"),
-          "ssd_state_apply": ("tiled", "block"),
-          "ssd_apply_entry": ("tiled", "block")}
-# the kernels whose main-path launches must all take the new route
-NEW_ROUTES = {"scan_add": "warp", "scan_linrec": "warp",
-              "scan_linrec_prod": "warp", "pcr": "warp",
-              "fft_stockham": "pow2", "ssd_intra": "tiled",
-              "ssd_state_apply": "tiled", "ssd_apply_entry": "tiled"}
-
-
-def reset_counts():
-    for name, fn in counted_wrappers().items():
-        fn.launches = 0
-        for route in ROUTES.get(name, ()):
-            setattr(fn, f"launches_{route}", 0)
-
-
-def read_counts():
-    """Launches by kernel, and by route as "name.route"."""
-    counts = {}
-    for name, fn in counted_wrappers().items():
-        counts[name] = fn.launches
-        for route in ROUTES.get(name, ()):
-            counts[f"{name}.{route}"] = getattr(fn, f"launches_{route}")
-    return counts
-
-
 def require_launched(counts, names, what):
     for name in names:
         if counts[name] == 0:
@@ -743,7 +688,7 @@ def require_launched(counts, names, what):
 
 def require_new_routes(counts, what):
     """Every launch of a routed kernel on this path took its new route."""
-    for name, route in NEW_ROUTES.items():
+    for name, route in NEWEST_ROUTE.items():
         if counts[f"{name}.{route}"] != counts[name]:
             raise AssertionError(f"{what}: {name} took an earlier kernel: "
                                  f"{counts}")
@@ -768,7 +713,7 @@ def phase_main_path(dev):
     for n, batch in main_path_cases():
         inputs[n] = torch.randn(batch, n, generator=gen, device=dev)
     torch.cuda.synchronize()
-    reset_counts()
+    reset_launch_counts()
     for n, batch in main_path_cases():
         with capture_launches() as launched:
             outputs[n] = prefix_sum(inputs[n])
@@ -777,7 +722,7 @@ def phase_main_path(dev):
         plan = plan_for(_plan_workload(wl, linrec=False), cfg)
         runs.append((n, batch, cfg, plan, list(launched)))
     torch.cuda.synchronize()
-    counts = read_counts()
+    counts = launch_counts()
     log(f"[main] launches on the prefix-sum path: {counts}")
     require_launched(counts, ("scan_add", "scan_add.warp", "apply_add"),
                      "the prefix-sum path")
@@ -851,13 +796,13 @@ def phase_loop(dev):
     from repro_torch.evaluation import check_report, compare_methods, format_report
 
     made = []
-    reset_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     report = compare_methods(loop_workloads(), LOOP_METHODS,
                              objective_factory=loop_factory(dev, made),
                              seed=0, max_evals=20)
     seconds = time.perf_counter() - t0
-    counts = read_counts()
+    counts = launch_counts()
     failures = sum(o.failures for o in made)
     log(f"[loop] compare_methods on the card in {seconds:.1f} s; launches "
         f"{counts}")
@@ -936,12 +881,12 @@ def phase_ml(dev):
                                warmup=1, device="cuda")
     measured = CachedObjective(inner)
     t0 = time.perf_counter()
-    reset_counts()
+    reset_launch_counts()
     sweep_into(measured, train, train_dir)
     t_train = time.perf_counter() - t0
     sweep_into(measured, hold, hold_dir)
     torch.cuda.synchronize()
-    counts = read_counts()
+    counts = launch_counts()
     t_sweeps = time.perf_counter() - t0
     swept = measured.evaluations
     log(f"[ml] card suite: {len(train)} train workloads ({sizes['train']} "
@@ -1065,7 +1010,7 @@ def phase_numbers(dev, inputs, runs, counts, bandwidth: float):
                     "replaces": "src/repro/kernels/scan/kernel.py:97",
                     "launches": counts["scan_add"],
                     "launches_by_route": {r: counts[f"scan_add.{r}"]
-                                          for r in ROUTES["scan_add"]},
+                                          for r in LAUNCH_ROUTES["scan_add"]},
                     "max_abs_err": row["max_abs_err"],
                     "unequal_elements": int((got != ref).sum()),
                     "ms": row["scan_add_ms"],
@@ -1676,14 +1621,14 @@ def phase_tridiag_path(dev):
             for n, batch in linrec_path_cases()}
     torch.cuda.synchronize()
     session = default_session()
-    reset_counts()
+    reset_launch_counts()
     solved, recurred = [], []
     for variant, n, batch in tridiag_path_cases():
-        before = read_counts()
+        before = launch_counts()
         with capture_launches() as launched:
             x = solve(*systems[n], variant=variant)
-        after = read_counts()
-        taken = [r for r in ROUTES["thomas"]
+        after = launch_counts()
+        taken = [r for r in LAUNCH_ROUTES["thomas"]
                  if after[f"thomas.{r}"] > before[f"thomas.{r}"]]
         solved.append((variant, n, batch, x, list(launched), taken))
     for n, batch in linrec_path_cases():
@@ -1691,7 +1636,7 @@ def phase_tridiag_path(dev):
             h = linear_recurrence(*recs[n])
         recurred.append((n, batch, h, list(launched)))
     torch.cuda.synchronize()
-    counts = read_counts()
+    counts = launch_counts()
     log(f"[main] launches on the tridiagonal / linrec path: {counts}")
     require_launched(counts, ("scan_linrec", "scan_linrec.warp",
                               "scan_linrec_prod", "scan_linrec_prod.warp",
@@ -1993,7 +1938,7 @@ def phase_tridiag_numbers(dev, systems, recs, plans, counts, errs,
             torch.cuda.synchronize()
             out.update(
                 launches_by_route={r: counts[f"{name}.{r}"]
-                                   for r in ROUTES[name]},
+                                   for r in LAUNCH_ROUTES[name]},
                 unequal_elements=sum(int((g != r).sum())
                                      for g, r in zip(got, ref)),
                 block_unequal_elements=sum(int((g != r).sum())
@@ -2451,7 +2396,7 @@ def phase_fft_path(dev):
         calls.append((f"fft n={deep} m={m}", deep, deep_batch,
                       dict(resolved(deep, deep_batch), tile_n=tile)))
     torch.cuda.synchronize()
-    reset_counts()
+    reset_launch_counts()
     outputs = []
     for name, n, batch, cfg in calls:
         with capture_launches() as launched:
@@ -2463,7 +2408,7 @@ def phase_fft_path(dev):
             back = ifft(fft(inputs[n]))
         trips.append((n, back, list(launched)))
     torch.cuda.synchronize()
-    counts = read_counts()
+    counts = launch_counts()
     log(f"[main] launches on the FFT path: {counts}")
     require_launched(counts, ("fft_stockham", "fft_stockham.pow2"),
                      "the FFT path")
@@ -2571,7 +2516,7 @@ def phase_fft_numbers(dev, inputs, runs, counts, err, bandwidth: float):
              "replaces": "src/repro/kernels/fft/kernel.py:53",
              "launches": counts["fft_stockham"],
              "launches_by_route": {r: counts[f"fft_stockham.{r}"]
-                                   for r in ROUTES["fft_stockham"]},
+                                   for r in LAUNCH_ROUTES["fft_stockham"]},
              "max_abs_err": float((got - ref).abs().max()),
              "unequal_elements": int((got != ref).sum()),
              "ms": time_ms(lambda: fft_stockham(x, unroll=int(plan.ilp), **kw),
@@ -2764,13 +2709,13 @@ def phase_ssd_path(dev):
 
     with torch.inference_mode():
         torch.cuda.synchronize()
-        reset_counts()
+        reset_launch_counts()
         with capture_launches() as launched:
             out, _ = block(x)
             cache = init_ssd_cache(cfg, SSD_BATCH, device=dev)
             step, new = block(x[:, :1], cache=cache)
         torch.cuda.synchronize()
-        block_counts = read_counts()
+        block_counts = launch_counts()
         log(f"[ssd] launches on the Mamba-2 block's path: {block_counts}")
         require_launched(block_counts, ("ssd_intra",), "the Mamba-2 block")
         require_new_routes(block_counts, "the Mamba-2 block")
@@ -2816,7 +2761,7 @@ def phase_ssd_path(dev):
                                         "fuse": c["fuse"]})
             runs.append((c, L, part, yo, list(launched)))
         torch.cuda.synchronize()
-        counts = read_counts()
+        counts = launch_counts()
         log(f"[ssd] launches on the SSD path (block, then the op): {counts}")
         require_launched(counts, ("ssd_intra", "ssd_state_apply",
                                   "ssd_apply_entry", "scan_linrec",
@@ -3016,7 +2961,8 @@ def phase_ssd_numbers(dev, run, errs, bandwidth: float):
                    "check_max_abs_err": errs[name]}
             if block_fn is not None:
                 out["launches_by_route"] = {
-                    r: run["counts"][f"{name}.{r}"] for r in ROUTES[name]}
+                    r: run["counts"][f"{name}.{r}"]
+                    for r in LAUNCH_ROUTES[name]}
                 out["block_ms"] = time_ms(block_fn, 10)
                 rows = by_chunk[name]
                 out["ms_by_chunk"] = {ch: r["tiled_ms"]
@@ -3126,14 +3072,14 @@ def phase_rglru_path(dev):
         if key == "wide":
             calls.append((key, wl, dict(cfg, fuse=1 - cfg["fuse"])))
     torch.cuda.synchronize()
-    reset_counts()
+    reset_launch_counts()
     outs = []
     for key, wl, cfg in calls:
         with capture_launches() as launched:
             h = rglru(*inputs[key], config=cfg)
         outs.append((key, wl, cfg, h, list(launched)))
     torch.cuda.synchronize()
-    counts = read_counts()
+    counts = launch_counts()
     log(f"[rglru] launches on the RG-LRU path: {counts}")
     require_launched(counts, ("scan_linrec", "scan_linrec.warp",
                               "scan_linrec_prod", "scan_linrec_prod.warp",
@@ -3288,7 +3234,7 @@ def phase_attention_kernels(dev, quick: bool):
         cases = sweep[:2] + sweep[-2:] + attention_kernel_cases()[:2]
     stats, qkv = {}, {}
     before = {r: getattr(flash_attention, f"launches_{r}")
-              for r in ROUTES["flash_attention"]}
+              for r in LAUNCH_ROUTES["flash_attention"]}
     for BH, lq, lk, d, bq, bk, causal, window, dtype in cases:
         key = (BH, lq, lk, d, dtype)
         if key not in qkv:
@@ -3357,7 +3303,7 @@ def phase_matmul_kernels(dev, quick: bool):
     gen = torch.Generator(device=dev).manual_seed(22)
     stats = {}
     before = {r: getattr(matmul_tiled, f"launches_{r}")
-              for r in ROUTES["matmul"]}
+              for r in LAUNCH_ROUTES["matmul"]}
     for dtype, dt in (("float32", torch.float32),
                       ("bfloat16", torch.bfloat16)):
         a = torch.randn(m, k, generator=gen, device=dev).to(dt)
@@ -3449,8 +3395,8 @@ def phase_differential(dev):
         raise AssertionError(f"[differential] registered entry points "
                              f"without a row: {missing}")
     cpu = torch.device("cpu")
-    names = list(counted_wrappers())
-    total = dict.fromkeys(read_counts(), 0)
+    names = list(launch_wrappers())
+    total = dict.fromkeys(launch_counts(), 0)
     report = {}
     t0 = time.perf_counter()
     for entry, dtype, batch, n in diff.cases():
@@ -3458,11 +3404,11 @@ def phase_differential(dev):
         inputs = row.make(batch, n)
         what = f"[differential] {entry} {dtype} b{batch} n{n}"
         torch.cuda.synchronize()
-        before = read_counts()
+        before = launch_counts()
         with capture_launches() as launched:
             got, cfgs = diff.run_case(entry, diff.tensors(inputs, dtype, dev))
         torch.cuda.synchronize()
-        after = read_counts()
+        after = launch_counts()
         delta = {k: after[k] - before[k] for k in after}
         want, _ = diff.run_case(entry, diff.tensors(inputs, dtype, cpu), cfgs)
         if got.shape != want.shape or got.dtype != want.dtype:
@@ -3536,11 +3482,11 @@ def phase_dense_path(dev):
     log(f"[dense] {cfg.arch}: {n_params / 1e9:.3f} B parameters "
         f"({sum(p.numel() * p.element_size() for p in model.parameters()) / 2**30:.2f} GiB) "
         f"drawn on the card in {time.perf_counter() - t0:.1f} s")
-    reset_counts()
+    reset_launch_counts()
     with torch.inference_mode():
         logits, _ = model(tokens)
     torch.cuda.synchronize()
-    counts = read_counts()
+    counts = launch_counts()
     log(f"[dense] launches in one forward: {counts}")
     if counts["flash_attention"] != cfg.n_layers \
             or counts["flash_attention.wgmma"] != cfg.n_layers:
@@ -3729,11 +3675,11 @@ def phase_mamba_model(dev, bandwidth: float):
     tokens = torch.randint(0, CONFIG.vocab, (MAMBA_BATCH, SSD_LEN),
                            generator=gen, device=dev)
     torch.cuda.synchronize()
-    reset_counts()
+    reset_launch_counts()
     with torch.inference_mode():
         logits, _ = model(tokens)
     torch.cuda.synchronize()
-    counts = read_counts()
+    counts = launch_counts()
     log(f"[mamba] {CONFIG.arch} forward launches: {counts}")
     require_launched(counts, ("ssd_intra", "ssd_intra.tiled"),
                      "the ssm Model.forward")
@@ -3960,11 +3906,11 @@ def flash_at_shape(dev, timed, call, batch):
         Workload(op="attention", n=lk, batch=BH, variant="flash"),
         dims={"lq": lq, "lk": lk})
     rows = slice(0, 4)
-    before = read_counts()
+    before = launch_counts()
     got = flash_attention(q[rows], k[rows], v[rows], causal=causal,
                           window=window, **blocks)
-    after = read_counts()
-    route = [r for r in ROUTES["flash_attention"]
+    after = launch_counts()
+    route = [r for r in LAUNCH_ROUTES["flash_attention"]
              if after[f"flash_attention.{r}"] > before[f"flash_attention.{r}"]]
     want = flash_attention_plain(q[rows], k[rows], v[rows], causal=causal,
                                  window=window, **blocks)
@@ -4096,7 +4042,7 @@ def phase_model_arch(dev, arch, trace: bool, timed):
         mem = model.encode(frames) if frames is not None else memory
         return model(tokens, memory=mem)
 
-    reset_counts()
+    reset_launch_counts()
     route_log = RouteLog()
     with torch.inference_mode(), capture_launches() as launched:
         if moe:
@@ -4105,7 +4051,7 @@ def phase_model_arch(dev, arch, trace: bool, timed):
         else:
             logits, aux = forward()
     torch.cuda.synchronize()
-    counts = read_counts()
+    counts = launch_counts()
     out["counts"] = counts
     calls = attention_calls(model, B, T)
     n_flash = sum(c[-1] for c in calls)
@@ -4270,13 +4216,13 @@ def phase_long_carry(dev):
     gen = torch.Generator(device=dev).manual_seed(16)
     x = torch.randn(batch, n, generator=gen, device=dev)
     a = torch.rand(batch, n, generator=gen, device=dev) * 0.19 + 0.8
-    reset_counts()
+    reset_launch_counts()
     with capture_launches() as sum_launches:
         y = prefix_sum(x, config=cfg)
     with capture_launches() as rec_launches:
         h = linear_recurrence(a, x, config=cfg)
     torch.cuda.synchronize()
-    counts = read_counts()
+    counts = launch_counts()
     require_new_routes(counts, "the 2^22 carry-tile path")
     for linrec, launched in ((False, sum_launches), (True, rec_launches)):
         wl = Workload(op="scan", n=n, batch=batch,
@@ -4331,10 +4277,10 @@ def phase_matmul_path(dev):
         Workload(op="matmul", n=n, batch=m, variant="tiled"),
         dims={"m": m, "k": k})
     torch.cuda.synchronize()
-    reset_counts()
+    reset_launch_counts()
     c = matmul(a, b)
     torch.cuda.synchronize()
-    counts = read_counts()
+    counts = launch_counts()
     require_launched(counts, ("matmul",), "the matmul entry point")
     err = check_close(c, a.double() @ b.double(), "bfloat16",
                       "matmul vs float64")
@@ -4456,9 +4402,9 @@ def phase_attention_matmul_numbers(dev, dense_counts, mm, loop_counts, errs,
             "flash_attention"]},
         "launches_by_route": {
             "dense forward": {r: dense_counts[f"flash_attention.{r}"]
-                              for r in ROUTES["flash_attention"]},
+                              for r in LAUNCH_ROUTES["flash_attention"]},
             "tuning loop": {r: loop_counts[f"flash_attention.{r}"]
-                            for r in ROUTES["flash_attention"]}},
+                            for r in LAUNCH_ROUTES["flash_attention"]}},
         "max_abs_err": max(err, errs["flash"]),
         "ms": med("flash wgmma, session's blocks"),
         "ms_tuned_128_128": med("flash wgmma, (128, 128)"),
@@ -4481,9 +4427,9 @@ def phase_attention_matmul_numbers(dev, dense_counts, mm, loop_counts, errs,
                              "tuning loop": loop_counts["matmul"]},
         "launches_by_route": {
             "matmul entry point": {r: mm["counts"][f"matmul.{r}"]
-                                   for r in ROUTES["matmul"]},
+                                   for r in LAUNCH_ROUTES["matmul"]},
             "tuning loop": {r: loop_counts[f"matmul.{r}"]
-                            for r in ROUTES["matmul"]}},
+                            for r in LAUNCH_ROUTES["matmul"]}},
         "max_abs_err": max(mm_err, errs["matmul"]),
         "ms": med("matmul wgmma, session's blocks"),
         "simt_bf16_ms": med("matmul simt bf16, session's blocks"),
@@ -4611,9 +4557,9 @@ def phase_serve(dev):
     eng.warmup()
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
+    reset_launch_counts()
     done, eng_s = serve_once(eng, trace)
-    counts = read_counts()
+    counts = launch_counts()
     eng_peak = torch.cuda.max_memory_allocated()
     ref = ReferenceEngine(model, max_batch=SERVE_ENGINE["max_batch"],
                           max_len=SERVE_ENGINE["max_len"])
@@ -4725,9 +4671,9 @@ def phase_serve(dev):
     mtrace = serve_trace(MAMBA.vocab)[:SERVE_MAMBA_REQUESTS]
     eng = ServeEngine(model, **SERVE_ENGINE)
     eng.warmup()
-    reset_counts()
+    reset_launch_counts()
     done, eng_s = serve_once(eng, mtrace)
-    mcounts = read_counts()
+    mcounts = launch_counts()
     refs, ref_s = [], 0.0
     for r in mtrace:
         solo = ReferenceEngine(model, max_batch=SERVE_ENGINE["max_batch"],
@@ -4915,7 +4861,7 @@ def phase_portability(dev, card: str):
                                      f"({priors[wl.key]}): transfer would "
                                      f"be a cold Bayesian search")
         made = []
-        reset_counts()
+        reset_launch_counts()
         t0 = time.perf_counter()
         report = compare_methods(wls, PORT_METHODS,
                                  objective_factory=loop_factory(dev, made),
@@ -5004,14 +4950,14 @@ def phase_portability(dev, card: str):
         x = torch.randn(wl.batch, wl.n, device=dev,
                         generator=torch.Generator(device=dev).manual_seed(5))
         previous = set_default_session(capped)
-        before = read_counts()["scan_add"]
+        before = launch_counts()["scan_add"]
         with capture_launches() as launched:
             y = prefix_sum(x)
         torch.cuda.synchronize()
         cfg = capped.resolve(wl)
         plan = plan_for(_plan_workload(wl, linrec=False), cfg)
         if tuple(launched) != plan.launches or \
-                read_counts()["scan_add"] == before:
+                launch_counts()["scan_add"] == before:
             raise AssertionError(f"[portability] memory_cap prefix_sum "
                                  f"launched {launched}, plan "
                                  f"{plan.launches}")
@@ -5061,7 +5007,7 @@ def phase_portability(dev, card: str):
                     f"measured {got['energy']['mJ'] / got['latency']['mJ']:.4f}"
                     f", modeled {got['energy']['model_mJ'] / got['latency']['model_mJ']:.4f}")
         torch.cuda.synchronize()
-        counts = read_counts()
+        counts = launch_counts()
     finally:
         if previous is not None:
             set_default_session(previous)
@@ -5195,7 +5141,7 @@ def train_guard_checks(dev):
         "flash_attention": (lambda: attention(*qkv), qkv),
         "matmul": (lambda: matmul(ma, mb), [ma, mb]),
     }
-    wrappers = counted_wrappers()
+    wrappers = launch_wrappers()
     named = {"kernels": []}
     for name, (call, inputs) in calls.items():
         before = wrappers[name].launches
@@ -5228,7 +5174,7 @@ def train_guard_checks(dev):
                                device=dev)
         batch = {"tokens": tokens[:, :-1], "targets": tokens[:, 1:],
                  "mask": torch.ones(b, l, device=dev)}
-        reset_counts()
+        reset_launch_counts()
         try:
             make_train_step(model, hp)(state, batch)
         except RuntimeError as e:
@@ -5236,7 +5182,7 @@ def train_guard_checks(dev):
             hit = [k for k in want if f"CUDA kernel {k}:" in msg]
             if not hit:
                 raise AssertionError(f"{what}: another error: {msg}")
-            launched = {k: v for k, v in read_counts().items()
+            launched = {k: v for k, v in launch_counts().items()
                         if "." not in k and v}
             if any(p.grad is not None for p in model.parameters()):
                 raise AssertionError(f"{what}: partial gradients were left "
@@ -5297,9 +5243,9 @@ def phase_train(dev):
 
     # the main run
     model = build_model(cfg, device=dev)
-    reset_counts()
+    reset_launch_counts()
     res, peak, med = train_run(dev, model, hp, TRAIN_STEPS)
-    counts = read_counts()
+    counts = launch_counts()
     losses = [h["loss"] for h in res["history"]]
     first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
     out["main"] = {"arch": cfg.arch, "steps": len(losses),
@@ -5449,10 +5395,10 @@ def phase_train(dev):
     # the packing's prefix sum on the card: kernel 1
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                       global_batch=TRAIN_BATCH, seed=TRAIN_SEED)
-    reset_counts()
+    reset_launch_counts()
     got = pack_documents(SyntheticCorpus(dcfg).documents(), TRAIN_SEQ,
                          TRAIN_BATCH, use_kernel_scan=True, device=dev)
-    scan_counts = read_counts()
+    scan_counts = launch_counts()
     want = pack_documents(SyntheticCorpus(dcfg).documents(), TRAIN_SEQ,
                           TRAIN_BATCH)
     same = all(np.array_equal(g, w) and g.dtype == w.dtype
@@ -5531,17 +5477,17 @@ def phase_examples(dev):
     from repro_torch.serve.reference import ReferenceEngine
     from repro_torch.train.checkpoint import CheckpointManager
 
-    total = dict.fromkeys(read_counts(), 0)
+    total = dict.fromkeys(launch_counts(), 0)
     seconds = {}
 
     def run(name, argv, entry):
         torch.cuda.synchronize()
-        reset_counts()
+        reset_launch_counts()
         t0 = time.perf_counter()
         res = call_example(name, argv, entry)
         torch.cuda.synchronize()
         seconds[name] = time.perf_counter() - t0
-        counts = read_counts()
+        counts = launch_counts()
         for k, v in counts.items():
             total[k] += v
         log(f"[examples] {name}: {seconds[name]:.1f} s, launches "
@@ -5775,10 +5721,10 @@ def phase_dryrun(dev):
 
     plain_ms = median_ms(lambda: step(batch))
     model.cfg = dataclasses.replace(cfg, use_pallas=True)
-    reset_counts()
+    reset_launch_counts()
     flash = step(batch)
     torch.cuda.synchronize()
-    counts = read_counts()
+    counts = launch_counts()
     if counts["flash_attention"] != cfg.n_layers:
         raise AssertionError(f"[dryrun] the flash prefill launched kernel 11 "
                              f"{counts['flash_attention']} times, not once a "
@@ -5888,7 +5834,7 @@ def add_model_launches(entries, model_runs, model_shapes):
         entry["launches"] += n
         routes = {r: sum(run["counts"][f"{name}.{r}"]
                          for run in model_runs.values())
-                  for r in ROUTES.get(name, ())}
+                  for r in LAUNCH_ROUTES.get(name, ())}
         if name == "flash_attention":
             entry["launches_by_route"]["models"] = routes
             entry["model_shapes"] = model_shapes
@@ -5996,7 +5942,7 @@ def main(argv=None) -> int:
                 entry["launches_by_path"] = paths
                 entry["launches"] = sum(paths.values())
             if name in ("scan_linrec", "scan_linrec_prod"):
-                for route in ROUTES[name]:
+                for route in LAUNCH_ROUTES[name]:
                     entry["launches_by_route"][route] += \
                         ssd_counts[f"{name}.{route}"] \
                         + rglru_counts[f"{name}.{route}"]
@@ -6024,7 +5970,7 @@ def main(argv=None) -> int:
                          "mamba2 forward": mamba_counts["ssd_intra"]}
                 entry["launches_by_path"] = paths
                 entry["launches"] = sum(paths.values())
-                for route in ROUTES["ssd_intra"]:
+                for route in LAUNCH_ROUTES["ssd_intra"]:
                     entry["launches_by_route"][route] += \
                         mamba_counts[f"ssd_intra.{route}"]
         t0 = time.perf_counter()
@@ -6062,7 +6008,7 @@ def main(argv=None) -> int:
             if entry["name"].startswith("ssd_"):
                 entry["launches_loop"] = {
                     r: loop_counts[f"{entry['name']}.{r}"]
-                    for r in ROUTES[entry["name"]]}
+                    for r in LAUNCH_ROUTES[entry["name"]]}
         t0 = time.perf_counter()
         entries += phase_attention_matmul_numbers(
             dev, dense_counts, mm, loop_counts, kernel_errs, bandwidth)
@@ -6073,25 +6019,25 @@ def main(argv=None) -> int:
         for entry in entries:
             name = entry["name"]
             entry["launches_ml"] = ml_counts[name]
-            if name in ROUTES:
+            if name in LAUNCH_ROUTES:
                 entry["launches_ml_by_route"] = {
-                    r: ml_counts[f"{name}.{r}"] for r in ROUTES[name]}
+                    r: ml_counts[f"{name}.{r}"] for r in LAUNCH_ROUTES[name]}
         # and in the [portability] phase (its measured sweep, the
         # memory_cap session's prefix_sum, the joule readings)
         for entry in entries:
             name = entry["name"]
             entry["launches_portability"] = port_counts[name]
-            if name in ROUTES:
+            if name in LAUNCH_ROUTES:
                 entry["launches_portability_by_route"] = {
-                    r: port_counts[f"{name}.{r}"] for r in ROUTES[name]}
+                    r: port_counts[f"{name}.{r}"] for r in LAUNCH_ROUTES[name]}
         # and in the differential table's cases (phase 9b), apart from the
         # main paths', by route where it has routes
         for entry in entries:
             name = entry["name"]
             entry["launches_differential"] = diff_counts[name]
-            if name in ROUTES:
+            if name in LAUNCH_ROUTES:
                 entry["launches_differential_by_route"] = {
-                    r: diff_counts[f"{name}.{r}"] for r in ROUTES[name]}
+                    r: diff_counts[f"{name}.{r}"] for r in LAUNCH_ROUTES[name]}
         # and on the train path (the packing's input scan: kernel 1)
         for entry in entries:
             name = entry["name"]
@@ -6101,7 +6047,7 @@ def main(argv=None) -> int:
                 entry.setdefault("launches_by_path",
                                  {"main": entry["launches"]})["train"] = n
                 entry["launches"] += n
-                for route in ROUTES.get(name, ()):
+                for route in LAUNCH_ROUTES.get(name, ()):
                     entry["launches_by_route"][route] += \
                         train_counts[f"{name}.{route}"]
         # and in the examples
@@ -6113,7 +6059,7 @@ def main(argv=None) -> int:
                 entry.setdefault("launches_by_path",
                                  {"main": entry["launches"]})["examples"] = n
                 entry["launches"] += n
-                for route in ROUTES.get(name, ()):
+                for route in LAUNCH_ROUTES.get(name, ()):
                     entry["launches_by_route"][route] += \
                         example_counts[f"{name}.{route}"]
         # and kernel 11 in the dry-run's flash prefill
@@ -6123,7 +6069,7 @@ def main(argv=None) -> int:
                 entry["launches_by_path"]["dryrun"] = n
                 entry["launches_by_route"]["dryrun"] = {
                     r: dryrun_counts[f"flash_attention.{r}"]
-                    for r in ROUTES["flash_attention"]}
+                    for r in LAUNCH_ROUTES["flash_attention"]}
                 entry["launches"] += n
         log(json.dumps({"kernels": entries}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all (build "

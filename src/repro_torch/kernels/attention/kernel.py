@@ -33,6 +33,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core.space import (CUDA_SMEM_LIMIT, FLASH_HEAD_DIMS,
                                     flash_smem_bytes, flash_wgmma_geometry)
 from repro_torch.tuning.dispatch import kernel_path, no_backward
@@ -210,6 +211,7 @@ def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    route="simt")
 
 
+@telemetry.spanned("repro.launch.flash_attention")
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     block_q: int = 256, block_k: int = 256,
                     causal: bool = True,

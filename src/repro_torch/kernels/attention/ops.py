@@ -15,6 +15,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core.space import Workload, attention_space, fit_block
 from repro_torch.kernels.attention.kernel import flash_attention
 from repro_torch.kernels.attention.ref import attention_ref
@@ -34,6 +35,7 @@ def _normalize(cfg, wl, dims=None):
 @tuned_kernel("attention", space=attention_space, kernel=flash_attention,
               reference=attention_ref, normalize=_normalize,
               variants=("flash",))
+@telemetry.spanned("repro.entry.attention")
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
               config: Optional[dict] = None) -> torch.Tensor:

@@ -35,6 +35,7 @@ from typing import Callable, List, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import telemetry
 from repro_torch.core.space import Workload
 from repro_torch.kernels.blocks.plan import Launch, StagePlan
 from repro_torch.tuning.dispatch import kernel_path, no_backward
@@ -150,6 +151,7 @@ def _check_apply(y: torch.Tensor, entry: torch.Tensor, rows: int,
                         f"{out_dtype}")
 
 
+@telemetry.spanned("repro.launch.apply_add")
 def apply_add(y: torch.Tensor, entry: torch.Tensor, *, rows: int,
               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Multipass launch 3: ``y + entry`` per row, written as ``out_dtype``."""
@@ -223,6 +225,7 @@ def _check_apply_linrec(h, prod, entry, rows, out_dtype) -> None:
                          f"products, got {tuple(prod.shape)} {prod.dtype}")
 
 
+@telemetry.spanned("repro.launch.apply_linrec")
 def apply_linrec(h: torch.Tensor, prod: torch.Tensor, entry: torch.Tensor, *,
                  rows: int, out_dtype: torch.dtype = torch.float32
                  ) -> torch.Tensor:

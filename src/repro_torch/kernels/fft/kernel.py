@@ -37,6 +37,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.kernels.blocks import primitives as prim
 from repro_torch.tuning.dispatch import kernel_path, no_backward
 
@@ -161,6 +162,7 @@ def fft_generic(x: torch.Tensor, *, rows_per_program: int,
                    inverse, unroll, route="generic")
 
 
+@telemetry.spanned("repro.launch.fft_stockham")
 def fft_stockham(x: torch.Tensor, *, rows_per_program: int,
                  stages: Sequence[int], inverse: bool = False,
                  unroll: int = 1) -> torch.Tensor:

@@ -23,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core.multikernel import max_resident_tile
 from repro_torch.core.space import Workload, fft_space, large_fft_space
 from repro_torch.kernels.blocks import driver
@@ -56,6 +57,7 @@ def fft_plan(batch: int, n: int, config: Optional[dict] = None) -> StagePlan:
 
 @tuned_kernel("fft", space=fft_space, kernel=fft_stockham, reference=fft_ref,
               normalize=_normalize, variants=("stockham",))
+@telemetry.spanned("repro.entry.fft")
 def fft(x: torch.Tensor, config: Optional[dict] = None,
         inverse: bool = False) -> torch.Tensor:
     batch, n = x.shape

@@ -43,6 +43,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.tuning.dispatch import kernel_path, no_backward
 
 # dtype codes of the C interface
@@ -202,6 +203,7 @@ def wgmma_probe(a: torch.Tensor, b: torch.Tensor, *, b_mn_major: bool,
     return no_backward("wgmma_probe", c, a, b)
 
 
+@telemetry.spanned("repro.launch.matmul_tiled")
 def matmul_tiled(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 256,
                  block_n: int = 256, block_k: int = 256) -> torch.Tensor:
     """(M, K) @ (K, N) with an f32 accumulator, in a's type: bf16 on the

@@ -14,6 +14,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core.space import Workload, fit_block, matmul_space
 from repro_torch.kernels.matmul.kernel import matmul_tiled
 from repro_torch.kernels.matmul.ref import matmul_ref
@@ -33,6 +34,7 @@ def _normalize(cfg, wl, dims=None):
 
 @tuned_kernel("matmul", space=matmul_space, kernel=matmul_tiled,
               reference=matmul_ref, normalize=_normalize, variants=("tiled",))
+@telemetry.spanned("repro.entry.matmul")
 def matmul(a: torch.Tensor, b: torch.Tensor,
            config: Optional[dict] = None) -> torch.Tensor:
     m, k = a.shape

@@ -22,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core.space import Workload, linrec_space
 from repro_torch.kernels.blocks import driver
 from repro_torch.kernels.blocks.plan import plan_for
@@ -34,6 +35,7 @@ from repro_torch.tuning import default_session, tuned_kernel
 
 @tuned_kernel("rglru", space=linrec_space, kernel=scan_linrec,
               reference=scan_linrec_assoc_ref, normalize=_normalize_scan)
+@telemetry.spanned("repro.entry.rglru")
 def rglru(a: torch.Tensor, u: torch.Tensor,
           config: Optional[dict] = None) -> torch.Tensor:
     B, L, D = a.shape

@@ -40,6 +40,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.kernels.blocks import primitives as prim
 from repro_torch.kernels.blocks.plan import stage_strides
 from repro_torch.tuning.dispatch import kernel_path, no_backward
@@ -218,6 +219,7 @@ def scan_add_block(x: torch.Tensor, *, rows_per_program: int, tile_n: int,
                    tuple(int(r) for r in stages), unroll, route="block")
 
 
+@telemetry.spanned("repro.launch.scan_add")
 def scan_add(x: torch.Tensor, *, rows_per_program: int, tile_n: int,
              stages: Sequence[int], unroll: int = 1) -> torch.Tensor:
     """Inclusive prefix sum over the last axis of (batch, n)."""
@@ -368,6 +370,7 @@ def _launch_linrec(a: torch.Tensor, b: torch.Tensor, rows: int, tile_n: int,
                        (h, p), a, b)
 
 
+@telemetry.spanned("repro.launch.scan_linrec")
 def scan_linrec(a: torch.Tensor, b: torch.Tensor, *, rows_per_program: int,
                 tile_n: int, stages: Sequence[int], gate: bool = False
                 ) -> torch.Tensor:
@@ -388,6 +391,7 @@ def scan_linrec(a: torch.Tensor, b: torch.Tensor, *, rows_per_program: int,
     return h
 
 
+@telemetry.spanned("repro.launch.scan_linrec_prod")
 def scan_linrec_prod(a: torch.Tensor, b: torch.Tensor, *,
                      rows_per_program: int, stages: Sequence[int],
                      gate: bool = False

@@ -20,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core.space import Workload, fit_block, scan_space
 from repro_torch.kernels.blocks import driver
 from repro_torch.kernels.blocks.plan import plan_for
@@ -61,6 +62,7 @@ def _plan_workload(wl, linrec: bool):
 @tuned_kernel("scan", space=scan_space, kernel=scan_add,
               reference=scan_add_ref, normalize=_normalize,
               variants=("ks", "lf", "linrec"))
+@telemetry.spanned("repro.entry.prefix_sum")
 def prefix_sum(x: torch.Tensor, variant: str = "ks",
                config: Optional[dict] = None) -> torch.Tensor:
     """Inclusive row-wise prefix sum with tuned blocking."""
@@ -79,6 +81,7 @@ def prefix_sum(x: torch.Tensor, variant: str = "ks",
 @tuned_kernel("scan", space=scan_space, kernel=scan_linrec,
               reference=scan_linrec_assoc_ref, normalize=_normalize,
               variants=("ks", "lf", "linrec"))
+@telemetry.spanned("repro.entry.linear_recurrence")
 def linear_recurrence(a: torch.Tensor, b: torch.Tensor,
                       variant: str = "linrec",
                       config: Optional[dict] = None) -> torch.Tensor:

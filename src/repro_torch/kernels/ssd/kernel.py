@@ -46,6 +46,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.kernels.scan.kernel import DTYPE_CODES, count_launch
 from repro_torch.tuning.dispatch import kernel_path, no_backward
 
@@ -273,6 +274,7 @@ def _launch_intra(x, a, b, c, chunk, route=None):
     return no_backward("ssd_intra", (y, a_chunk, state), x, a, b, c)
 
 
+@telemetry.spanned("repro.launch.ssd_intra")
 def ssd_intra(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
               c: torch.Tensor, *, chunk: int = 128,
               route: Optional[str] = None
@@ -397,6 +399,7 @@ def _launch_apply(what, y_intra, a, c, chunk, a_chunk, state, fused,
     return no_backward(what, out, y_intra, a, c, a_chunk, state)
 
 
+@telemetry.spanned("repro.launch.ssd_state_apply")
 def ssd_state_apply(y_intra: torch.Tensor, a: torch.Tensor, c: torch.Tensor,
                     a_chunk: torch.Tensor, state: torch.Tensor, *,
                     chunk: int = 128,
@@ -420,6 +423,7 @@ def ssd_state_apply(y_intra: torch.Tensor, a: torch.Tensor, c: torch.Tensor,
     return out
 
 
+@telemetry.spanned("repro.launch.ssd_apply_entry")
 def ssd_apply_entry(y_intra: torch.Tensor, a: torch.Tensor, c: torch.Tensor,
                     entry: torch.Tensor, *, chunk: int = 128,
                     route: Optional[str] = None) -> torch.Tensor:

@@ -26,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core.space import Workload, fit_block, scan_space
 from repro_torch.kernels.blocks import driver
 from repro_torch.kernels.blocks.plan import plan_for_chain
@@ -47,6 +48,7 @@ def _normalize(cfg, wl, dims=None):
 @tuned_kernel("ssd", space=scan_space, kernel=ssd_intra,
               reference=ssd_chunked_ref, normalize=_normalize,
               variants=("chunked",))
+@telemetry.spanned("repro.entry.ssd")
 def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         config: Optional[dict] = None) -> torch.Tensor:
     B, L, H, P = x.shape

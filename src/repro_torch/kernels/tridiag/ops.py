@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import telemetry
 from repro_torch.core.space import Workload, fit_block, tridiag_space
 from repro_torch.kernels.blocks import driver
 from repro_torch.kernels.blocks.associative import associative_scan
@@ -225,6 +226,7 @@ def wm_solve(a, b, c, d, chunk: int = 32):
 @tuned_kernel("tridiag", space=tridiag_space, kernel=pcr,
               reference=thomas_ref, normalize=_normalize,
               variants=("pcr", "cr", "lf", "wm", "thomas"))
+@telemetry.spanned("repro.entry.solve")
 def solve(a, b, c, d, variant: str = "pcr", config: Optional[dict] = None):
     """Tuned batched tridiagonal solve; x with A x = d."""
     batch, n = a.shape

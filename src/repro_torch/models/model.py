@@ -40,6 +40,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import telemetry
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.hints import UNCONSTRAINED, constrain
 from repro_torch.models import attention as attn_mod
@@ -372,6 +373,7 @@ class Model(nn.Module):
             x = _remat(cfg, run, x)
         return L.rms_norm(x, self.enc_norm, cfg.norm_eps)
 
+    @telemetry.spanned("repro.model.forward")
     def forward(self, tokens: torch.Tensor,
                 memory: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

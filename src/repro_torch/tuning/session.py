@@ -34,6 +34,7 @@ import threading
 from collections import OrderedDict
 from typing import Callable, Dict, Mapping, Optional, Tuple, Union
 
+from repro_torch import telemetry
 from repro_torch.core.analytical import AnalyticalTuner
 from repro_torch.core.bayesian import BayesianTuner, TuneResult
 from repro_torch.core.exhaustive import ExhaustiveSearch, RandomSearch
@@ -195,29 +196,34 @@ class TunerSession:
 
     def resolve(self, wl: Workload, *, config: Optional[Mapping[str, int]] = None,
                 dims: Optional[Mapping[str, int]] = None) -> Config:
-        """Launch-ready config for ``wl``: resolved, overridden, normalized."""
-        wl = wl.canonical()
-        ov = active_overrides(wl.op)
-        cache_key = (wl.key, _dims_token(dims), self.policy.key)
-        if config is None and ov is None:
-            with self._lock:
-                cached = self._resolved.get(cache_key)
-                if cached is not None:
+        """Launch-ready config for ``wl``: resolved, overridden, normalized.
+        One span ``repro.tuning.resolve``, noting whether the cache hit."""
+        with telemetry.span("repro.tuning.resolve") as span:
+            wl = wl.canonical()
+            ov = active_overrides(wl.op)
+            cache_key = (wl.key, _dims_token(dims), self.policy.key)
+            if config is None and ov is None:
+                with self._lock:
+                    cached = self._resolved.get(cache_key)
+                    if cached is not None:
+                        self._resolved.move_to_end(cache_key)
+                        self.hits += 1
+                        span.note(hit=True)
+                        return dict(cached)
+                    self.misses += 1
+            span.note(hit=False)
+            base = dict(config) if config is not None \
+                else self.resolve_raw(wl)
+            if ov:
+                base.update(ov)
+            resolved = normalizer_for(wl.op)(base, wl, dims)
+            if config is None and ov is None:
+                with self._lock:
+                    self._resolved[cache_key] = dict(resolved)
                     self._resolved.move_to_end(cache_key)
-                    self.hits += 1
-                    return dict(cached)
-                self.misses += 1
-        base = dict(config) if config is not None else self.resolve_raw(wl)
-        if ov:
-            base.update(ov)
-        resolved = normalizer_for(wl.op)(base, wl, dims)
-        if config is None and ov is None:
-            with self._lock:
-                self._resolved[cache_key] = dict(resolved)
-                self._resolved.move_to_end(cache_key)
-                while len(self._resolved) > self.cache_size:
-                    self._resolved.popitem(last=False)
-        return resolved
+                    while len(self._resolved) > self.cache_size:
+                        self._resolved.popitem(last=False)
+            return resolved
 
     def resolve_raw(self, wl: Workload) -> Config:
         """Pre-normalization config: DB hit (under the session policy),
