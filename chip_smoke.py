@@ -5962,17 +5962,18 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         mamba_counts, _ = phase_mamba_model(dev, bandwidth)
         log(f"[mamba] {time.perf_counter() - t0:.1f} s")
-        # kernel 8 runs on two main paths: the SSD block and op, and the
-        # mamba2-130m forward
+        # kernels 8 and 9 run on two main paths: the SSD block and op, and
+        # the mamba2-130m forward (kernel 9 where its chunks are fused)
         for entry in entries:
-            if entry["name"] == "ssd_intra":
+            name = entry["name"]
+            if name in ("ssd_intra", "ssd_state_apply"):
                 paths = {"ssd": entry["launches"],
-                         "mamba2 forward": mamba_counts["ssd_intra"]}
+                         "mamba2 forward": mamba_counts[name]}
                 entry["launches_by_path"] = paths
                 entry["launches"] = sum(paths.values())
-                for route in LAUNCH_ROUTES["ssd_intra"]:
+                for route in LAUNCH_ROUTES[name]:
                     entry["launches_by_route"][route] += \
-                        mamba_counts[f"ssd_intra.{route}"]
+                        mamba_counts[f"{name}.{route}"]
         t0 = time.perf_counter()
         model_runs, model_shapes = phase_models(dev)
         log(f"[models] {time.perf_counter() - t0:.1f} s")

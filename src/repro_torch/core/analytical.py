@@ -1,9 +1,16 @@
 """Analytical model-driven tuning (paper §IV-A, adapted to the TPU).
 
-The PyTorch port's own copy of ``repro.core.analytical``: the same
-TPU-derived guideline, unchanged, so both packages rank every config
-identically.  How well it ranks on the H100 is measured by
-``compare_methods`` on the card (PERF.md).
+The PyTorch port's own copy of ``repro.core.analytical``: the TPU-derived
+guideline below, plus one term for CUDA cards.  Under a profile whose
+``backend`` is ``"cuda"`` the SSD is ranked, right after the tier, by
+the modelled time of its chain (:func:`ssd_chain_time`): the guideline's
+"fewest passes first" holds for a linear scan, whose work inside a tile
+does not grow with the tile, but the SSD's masked intra-chunk products
+grow with the chunk, and on the card that work outweighs a pass.  Every
+other op, and the SSD under the three profiles the JAX package shares
+(``tpu_v5e``, ``gpu_sm``, ``cpu_interpret``), ranks as JAX ranks it.
+How well it ranks on the H100 is measured by ``compare_methods`` on the
+card (PERF.md).
 
 Zero-evaluation tuner: scores every valid configuration with an ordinal
 occupancy model and returns the argmax. This is the *online* methodology —
@@ -29,6 +36,12 @@ from repro_torch.core.space import Config, SearchSpace
 
 OVERLAP_GRID = 4          # grid programs needed for full DMA/compute overlap
 OCCUPANCY_BAND = (0.60, 1.00)
+# The SSD's state and head widths for its chain time: a Workload carries
+# neither, so the term assumes Mamba-2's published d_state and head dim.
+# The ranking leans on them only where a pass's fixed cost meets the
+# intra-chunk work; the intra share grows with the chunk whatever they are.
+SSD_STATE = 128
+SSD_HEAD_DIM = 64
 
 # keys every resources() dict carries (the plan <-> model contract);
 # repro_torch.analysis verifies presence and finiteness for every valid config
@@ -60,13 +73,19 @@ class AnalyticalScore:
     #                        sequential per core, unlike CUDA blocks/SM)
     occupancy: float
     ilp_rank: float
+    chain_time: Optional[float] = None  # the SSD's modelled chain seconds
+    #                                     on a CUDA card; None elsewhere
 
     def key(self) -> Tuple:
-        # Lexicographic: tier, then pass count (§IV-C), then carry-chain
-        # depth, then radix (rule 4 overrides block choice), then the
+        # Lexicographic: tier, then (the SSD on a CUDA card) the chain's
+        # modelled time, then pass count (§IV-C), then carry-chain depth,
+        # then radix (rule 4 overrides block choice), then the
         # tier-specific objective, then ILP tie-break.
-        return (self.tier, self.pass_rank, self.seq_rank, self.radix_rank,
+        rest = (self.pass_rank, self.seq_rank, self.radix_rank,
                 self.block_rank, self.occupancy, self.ilp_rank)
+        if self.chain_time is None:
+            return (self.tier,) + rest
+        return (self.tier, -self.chain_time) + rest
 
 
 def resources(space: SearchSpace, cfg: Config) -> Dict[str, float]:
@@ -83,6 +102,26 @@ def resources(space: SearchSpace, cfg: Config) -> Dict[str, float]:
     from repro_torch.kernels.blocks.plan import plan_for
 
     return plan_for(space.workload, cfg, profile=space.spec).resources()
+
+
+def ssd_chain_time(space: SearchSpace, res: Dict[str, float]) -> float:
+    """Modelled seconds of one SSD chain (intra -> state -> apply).
+
+    The intra-chunk work is the two masked chunk x chunk products, C B^T
+    over the state and its decay-weighted product with x over the head:
+    (S + P) flops a row, token and unit of chunk, at ``peak_vpu_flops``.
+    Each pass adds a launch, a sync and one HBM round trip of a (rows, L,
+    P) f32 plane.  Chunk and passes come from the plan's accounting
+    (``seq_tiles`` is the chunk count; ``tile_divides_n`` makes it exact).
+    """
+    spec, wl = space.spec, space.workload
+    rows, length = max(wl.batch, 1), wl.n
+    chunk = length / max(res["seq_tiles"], 1)
+    intra = rows * length * chunk * (SSD_STATE + SSD_HEAD_DIM) \
+        / spec.peak_vpu_flops
+    trip = 2 * rows * length * SSD_HEAD_DIM * 4 / spec.hbm_bandwidth
+    return intra + res["passes"] * (spec.kernel_launch_s + spec.pass_sync_s
+                                    + trip)
 
 
 def score(space: SearchSpace, cfg: Config,
@@ -121,10 +160,13 @@ def score(space: SearchSpace, cfg: Config,
         block_rank = math.log2(min(max(res["block_bytes"], 1), 4 * 2**20))
     else:
         block_rank = -1.0   # starves the pipeline: strictly worse
+    chain_time = None
+    if space.workload.op == "ssd" and spec.backend == "cuda":
+        chain_time = ssd_chain_time(space, res)
     return AnalyticalScore(tier, -res["passes"],
                            -math.log2(max(res.get("seq_tiles", 1), 1)),
                            radix_rank, block_rank, occ,
-                           math.log2(max(res["ilp"], 1)))
+                           math.log2(max(res["ilp"], 1)), chain_time)
 
 
 class AnalyticalTuner:

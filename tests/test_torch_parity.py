@@ -7,6 +7,8 @@ arithmetic on the same inputs.
 """
 import dataclasses
 import importlib
+import json
+import os
 
 import numpy as np
 import pytest
@@ -570,10 +572,11 @@ def test_single_link_chains_identical(profile):
 
 
 @pytest.mark.parametrize("op,n,batch,tile_n,fuse,kind", [
-    # the session's picks under h100 (the numpy the port keeps verbatim):
-    # one chunk as long as the mamba2-130m prefill, and a fused rglru
-    ("ssd", 2048, 8 * 24, 2048, 0, "fused"),
-    ("ssd", 1024, 24, 1024, 0, "fused"),
+    # the session's picks under h100: the SSD at the least modelled chain
+    # time, chunks of 128 with phases B + C fused, for the mamba2-130m
+    # prefill and a shorter sequence; a fused rglru
+    ("ssd", 2048, 8 * 24, 128, 1, "two-phase"),
+    ("ssd", 1024, 24, 128, 1, "two-phase"),
     ("rglru", 2048, 8192, 2048, 1, "fused"),
     ("rglru", 8192, 4096, 2048, 1, "fused"),
 ])
@@ -602,3 +605,108 @@ def test_h100_ssd_space_admits_chunks_to_16384():
     wl = t_space.Workload(op="ssd", n=2048, batch=192, variant="chunked")
     assert {c["tile_n"] for c in t_space.build_space(
         wl, h100).enumerate_valid()} == {128, 256, 512, 1024, 2048}
+
+
+@pytest.mark.parametrize("n", [256, 512, 2048, 8192])
+@pytest.mark.parametrize("batch", [4, 96, 192])
+def test_h100_ssd_chain_time_picks(n, batch):
+    """Under h100 the SSD ranks by its modelled chain time after the tier:
+    chunks shorter than L from 512 up, fused wherever there are several
+    chunks, and at fixed passes a longer chunk always models slower.  At
+    L = 256 one chunk of 256 stays the pick, as the card's sweep found it
+    fastest at rows 4, 96 and 192 (one more launch costs more than the
+    intra work it saves)."""
+    h100 = t_profiles.get_profile("h100")
+    wl = t_space.Workload(op="ssd", n=n, batch=batch, variant="chunked")
+    space = t_space.build_space(wl, h100)
+    cfg = t_analytical.AnalyticalTuner().suggest(space)
+    chunk = min(cfg["tile_n"], n)
+    assert (chunk < n) == (n >= 512)
+    if n // chunk > 1:
+        assert cfg["fuse"] == 1
+    by_passes = {}
+    for c in space.enumerate_valid():
+        res = t_analytical.resources(space, c)
+        by_passes.setdefault(res["passes"], {})[min(c["tile_n"], n)] = \
+            t_analytical.ssd_chain_time(space, res)
+    for times in by_passes.values():
+        chunks = sorted(times)
+        assert all(times[a] < times[b] for a, b in zip(chunks, chunks[1:]))
+
+
+# The h100 picks (tile_n, rows_per_program, radix, unroll, in_register) of
+# every shape of portbench/configs/bplg-2p26.json, at 2^26 elements a call,
+# and of rglru at (2048, 8192): the SSD's chain-time term leaves every
+# other op's ranking as it was.
+_GRID_PICKS = {
+    ("scan", "lf", 128): (128, 64, 2, 8, 1),
+    ("scan", "lf", 256): (256, 32, 4, 8, 0),
+    ("scan", "lf", 512): (512, 16, 8, 8, 0),
+    ("scan", "lf", 1024): (1024, 8, 4, 8, 0),
+    ("scan", "lf", 2048): (2048, 4, 2, 8, 0),
+    ("scan", "lf", 4096): (2048, 4, 2, 8, 0),
+    ("scan", "ks", 128): (128, 64, 2, 8, 1),
+    ("scan", "ks", 256): (256, 32, 4, 8, 0),
+    ("scan", "ks", 512): (512, 16, 8, 8, 0),
+    ("scan", "ks", 1024): (1024, 8, 4, 8, 0),
+    ("scan", "ks", 2048): (2048, 4, 2, 8, 0),
+    ("scan", "ks", 4096): (2048, 4, 2, 8, 0),
+    ("tridiag", "cr", 64): (64, 1, 2, 1, 0),
+    ("tridiag", "cr", 128): (128, 1, 2, 1, 0),
+    ("tridiag", "cr", 256): (256, 1, 2, 1, 0),
+    ("tridiag", "cr", 512): (512, 1, 2, 1, 0),
+    ("tridiag", "cr", 1024): (1024, 1, 2, 1, 0),
+    ("tridiag", "pcr", 64): (64, 64, 2, 4, 1),
+    ("tridiag", "pcr", 128): (128, 32, 2, 4, 1),
+    ("tridiag", "pcr", 256): (256, 16, 2, 4, 0),
+    ("tridiag", "pcr", 512): (512, 8, 2, 4, 0),
+    ("tridiag", "pcr", 1024): (1024, 4, 2, 4, 0),
+    ("tridiag", "lf", 64): (64, 1, 2, 1, 0),
+    ("tridiag", "lf", 128): (128, 1, 2, 1, 0),
+    ("tridiag", "lf", 256): (256, 1, 2, 1, 0),
+    ("tridiag", "lf", 512): (512, 1, 2, 1, 0),
+    ("tridiag", "lf", 1024): (1024, 1, 2, 1, 0),
+    ("tridiag", "wm", 64): (64, 1, 8, 1, 0),
+    ("tridiag", "wm", 128): (128, 1, 2, 1, 0),
+    ("tridiag", "wm", 256): (256, 1, 4, 1, 0),
+    ("tridiag", "wm", 512): (512, 1, 8, 1, 0),
+    ("tridiag", "wm", 1024): (1024, 1, 4, 1, 0),
+    ("fft", "stockham", 64): (64, 64, 8, 4, 0),
+    ("fft", "stockham", 128): (128, 32, 2, 4, 0),
+    ("fft", "stockham", 256): (256, 16, 16, 4, 0),
+    ("fft", "stockham", 512): (512, 8, 8, 4, 0),
+    ("fft", "stockham", 1024): (1024, 4, 4, 4, 0),
+    ("fft", "stockham", 2048): (2048, 2, 2, 4, 0),
+    ("fft", "stockham", 4096): (4096, 1, 16, 4, 0),
+    ("large_fft", "stockham", 8192): (256, 16, 16, 4, 0),
+    ("large_fft", "stockham", 65536): (256, 16, 16, 4, 0),
+    ("large_fft", "stockham", 1048576): (512, 4, 8, 4, 0),
+    ("large_fft", "stockham", 8388608): (256, 8, 16, 4, 0),
+}
+
+
+def _grid_shapes():
+    path = os.path.join(os.path.dirname(__file__), os.pardir, "portbench",
+                        "configs", "bplg-2p26.json")
+    with open(path) as f:
+        cfg = json.load(f)
+    total = cfg["elements_per_call"]
+    return [(fam, variant, n, total // n, d["dtype"])
+            for fam, d in cfg["families"].items()
+            for variant in d["variants"] for n in d["sizes"]] \
+        + [("rglru", "", 2048, 8192, "float32")]
+
+
+@pytest.mark.parametrize("op,variant,n,batch,dtype", _grid_shapes())
+def test_h100_grid_picks_unchanged(op, variant, n, batch, dtype):
+    h100 = t_profiles.get_profile("h100")
+    wl = t_space.Workload(op=op, n=n, batch=batch, dtype=dtype,
+                          variant=variant)
+    cfg = t_analytical.AnalyticalTuner().suggest(t_space.build_space(wl,
+                                                                     h100))
+    if op == "rglru":
+        assert cfg == {"tile_n": 2048, "rows_per_program": 4, "radix": 2,
+                       "unroll": 1, "in_register": 0, "fuse": 1}
+        return
+    assert (cfg["tile_n"], cfg["rows_per_program"], cfg["radix"],
+            cfg["unroll"], cfg["in_register"]) == _GRID_PICKS[op, variant, n]
