@@ -4,7 +4,9 @@ The PyTorch port's own copy of ``repro.configs.base`` (``ModelConfig``,
 ``register``, ``reduced()``, ``get_arch``, and the dry-run's cells
 ``ShapeConfig`` / ``SHAPES`` / ``shape_applicable``), field for field, so
 a configuration and its reduced smoke-test variant are the same in both
-packages.  The registry holds the JAX package's ten configurations.
+packages.  The registry holds the JAX package's ten configurations;
+``HybridMoEConfig`` and the configurations registered with ``port_only``
+are the port's own, which ``get_arch`` finds and ``all_archs`` leaves out.
 """
 from __future__ import annotations
 
@@ -117,6 +119,31 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class HybridMoEConfig(ModelConfig):
+    """Family "hybrid_moe" (GraniteMoeHybrid): each layer runs one mixer,
+    a Mamba-2 block ("mamba": the published mixer, with its conv bias,
+    x scaled by dt and the D skip) or causal GQA attention without a
+    positional encoding ("attention"), as ``block_pattern`` lists them for
+    one period, then a dropless MoE of ``n_experts`` SwiGLU experts of
+    ``d_ff_expert`` beside a shared SwiGLU expert of ``d_ff_shared``.  The
+    embedding is scaled by ``embedding_multiplier``, each branch by
+    ``residual_multiplier`` before its residual add, attention scores by
+    ``attention_multiplier`` and the logits by 1 / ``logits_scaling``."""
+    d_ff_shared: int = 0
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    attention_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+
+    def reduced(self) -> "HybridMoEConfig":
+        """One period of the layer pattern at the tiny widths of
+        ``ModelConfig.reduced``."""
+        return dataclasses.replace(
+            super().reduced(), n_layers=len(self.block_pattern),
+            d_ff_shared=min(self.d_ff_shared, 128))
+
+
+@dataclasses.dataclass(frozen=True)
 class ShapeConfig:
     name: str
     seq_len: int
@@ -132,18 +159,21 @@ SHAPES: Dict[str, ShapeConfig] = {
 }
 
 _REGISTRY: Dict[str, ModelConfig] = {}
+_PORT_ONLY: Dict[str, ModelConfig] = {}
 
 
-def register(cfg: ModelConfig) -> ModelConfig:
-    _REGISTRY[cfg.arch] = cfg
+def register(cfg: ModelConfig, port_only: bool = False) -> ModelConfig:
+    """Register ``cfg`` under its arch; ``port_only`` for a configuration
+    the JAX package does not have (left out of ``all_archs``)."""
+    (_PORT_ONLY if port_only else _REGISTRY)[cfg.arch] = cfg
     return cfg
 
 
 def get_arch(name: str) -> ModelConfig:
     # a config module imported on its own registers only itself
-    if name not in _REGISTRY:
+    if name not in _REGISTRY and name not in _PORT_ONLY:
         _load_all()
-    return _REGISTRY[name]
+    return _REGISTRY[name] if name in _REGISTRY else _PORT_ONLY[name]
 
 
 def all_archs() -> Tuple[str, ...]:
@@ -156,7 +186,8 @@ def _load_all() -> None:
     import importlib
     for mod in ("gemma_2b", "minitron_4b", "qwen15_05b", "granite_34b",
                 "whisper_large_v3", "llama32_vision_90b", "qwen2_moe_a27b",
-                "qwen3_moe_30b_a3b", "recurrentgemma_9b", "mamba2_130m"):
+                "qwen3_moe_30b_a3b", "recurrentgemma_9b", "mamba2_130m",
+                "granite_4h_small"):
         importlib.import_module(f"repro_torch.configs.{mod}")
 
 

@@ -188,9 +188,11 @@ def _write_slot(cache: torch.Tensor, slot: torch.Tensor,
 def self_attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
                    positions: torch.Tensor, cache: Optional[Dict] = None,
                    window: Optional[int] = None,
-                   compute_dtype: torch.dtype = torch.bfloat16
+                   compute_dtype: torch.dtype = torch.bfloat16,
+                   use_rope: bool = True, scale: Optional[float] = None
                    ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """x: (B, L, D).
+    """x: (B, L, D).  Without ``use_rope`` no positional encoding (NoPE);
+    ``scale`` replaces the scores' 1 / sqrt(head_dim).
 
     cache layouts:
       full:   {"k","v": (B, L_max, Hkv, hd)} — slot index == position;
@@ -207,8 +209,13 @@ def self_attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     q = _split_heads(p.wq(x, cd), hq, hd)
     k = _split_heads(p.wk(x, cd), hkv, hd)
     v = _split_heads(p.wv(x, cd), hkv, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    if scale is not None:
+        # every path (the flash kernel too) scales the scores by
+        # 1 / sqrt(hd): q carries the rest, rounded once
+        q = (q.to(torch.float32) * (scale * math.sqrt(hd))).to(q.dtype)
     n_rep = hq // max(hkv, 1)
 
     if cache is not None and l == 1:

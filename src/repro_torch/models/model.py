@@ -12,7 +12,12 @@ order.  A group is the architecture's repeating pattern:
     RG-LRU blocks and local attention over ``attn_window``);
   * vlm: ``cross_attn_every`` blocks, the last with cross-attention over
     the vision memory (``VLMGroup``);
-  * ssm: one SSD block (``SSDGroup``).
+  * ssm: one SSD block (``SSDGroup``);
+  * hybrid_moe: ``block_pattern``, e.g. five "mamba", one "attention",
+    four "mamba" (``HybridMoEGroup``: each layer a Mamba-2 or NoPE
+    attention mixer, then the dropless MoE beside its shared expert, each
+    branch scaled by ``residual_multiplier``).  Forward only: it has no
+    decode cache.
 
 Parameter names follow the JAX tree with the group axis unstacked
 (``blocks.{i}.attn.wq.w`` for the tree's ``blocks.attn.wq.w`` of shape
@@ -45,7 +50,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.hints import UNCONSTRAINED, constrain
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
-from repro_torch.models.moe import MoE, moe_block
+from repro_torch.models.moe import DroplessMoE, MoE, moe_block
 from repro_torch.models.recurrent import RecurrentBlock, init_recurrent_cache
 from repro_torch.models.ssm import SSDBlock, init_ssd_cache
 
@@ -246,6 +251,69 @@ class HybridGroup(nn.Module):
         return x, (new_caches if cache is not None else None), _zero(x)
 
 
+class MixerMoELayer(nn.Module):
+    """A "hybrid_moe" layer: ln1, its mixer (``ssd``, the published
+    Mamba-2 block, or ``attn``, causal GQA without a positional encoding
+    at scale ``attention_multiplier``), ln2, and the dropless ``moe``; each
+    branch times ``residual_multiplier`` before its residual add."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, dtype: torch.dtype,
+                 device=None):
+        super().__init__()
+        self.ln1 = _norm(cfg, dtype, device)
+        if kind == "mamba":
+            self.ssd = SSDBlock(cfg, dtype=dtype, device=device,
+                                published=True)
+        elif kind == "attention":
+            self.attn = attn_mod.Attention(cfg, dtype, device)
+        else:
+            raise ValueError(f"no mixer {kind!r}")
+        self.ln2 = _norm(cfg, dtype, device)
+        self.moe = DroplessMoE(cfg, dtype, device)
+
+    def reset(self, generator: torch.Generator) -> None:
+        (self.ssd if hasattr(self, "ssd") else self.attn).reset(generator)
+        self.moe.reset(generator)
+
+    def forward(self, x, cfg: ModelConfig, *, positions, compute_dtype):
+        y = L.rms_norm(x, self.ln1, cfg.norm_eps)
+        if hasattr(self, "ssd"):
+            h, _ = self.ssd(y, compute_dtype=compute_dtype)
+        else:
+            h, _ = attn_mod.self_attention(
+                self.attn, y, cfg, positions=positions,
+                compute_dtype=compute_dtype, use_rope=False,
+                scale=cfg.attention_multiplier)
+        x = x + h * cfg.residual_multiplier
+        h = self.moe(L.rms_norm(x, self.ln2, cfg.norm_eps), compute_dtype)
+        return x + h * cfg.residual_multiplier
+
+
+class HybridMoEGroup(nn.Module):
+    """One ``block_pattern`` period of ``MixerMoELayer``s."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.blocks = nn.ModuleList(MixerMoELayer(cfg, kind, dtype, device)
+                                    for kind in cfg.block_pattern)
+
+    def reset(self, generator: torch.Generator) -> None:
+        for blk in self.blocks:
+            blk.reset(generator)
+
+    def forward(self, x, cfg: ModelConfig, *, positions, cache=None,
+                window=None, memory=None, compute_dtype=None):
+        if cache is not None:
+            raise NotImplementedError("the hybrid_moe family has no decode "
+                                      "cache")
+        for blk in self.blocks:
+            # per-layer remat (see HybridGroup)
+            x = _remat(cfg, lambda xx, blk=blk: blk(
+                xx, cfg, positions=positions, compute_dtype=compute_dtype),
+                x)
+        return x, None, _zero(x)
+
+
 class VLMGroup(nn.Module):
     """``cross_attn_every`` blocks; the last attends over the memory."""
 
@@ -274,7 +342,8 @@ class VLMGroup(nn.Module):
 
 
 _GROUPS = {"ssm": SSDGroup, "hybrid": HybridGroup, "vlm": VLMGroup,
-           "dense": StdBlock, "moe": StdBlock, "audio": StdBlock}
+           "dense": StdBlock, "moe": StdBlock, "audio": StdBlock,
+           "hybrid_moe": HybridMoEGroup}
 
 
 class Model(nn.Module):
@@ -301,7 +370,7 @@ class Model(nn.Module):
 
     @property
     def group_period(self) -> int:
-        if self.cfg.family == "hybrid":
+        if self.cfg.family in ("hybrid", "hybrid_moe"):
             return len(self.cfg.block_pattern)
         if self.cfg.family == "vlm":
             return self.cfg.cross_attn_every
@@ -350,14 +419,20 @@ class Model(nn.Module):
                one_hot: bool = False) -> torch.Tensor:
         cd = self._cd()
         # sqrt(d_model) in the compute type, as the JAX model scales it
-        root = torch.tensor(math.sqrt(self.cfg.d_model), dtype=torch.float32,
+        # (hybrid_moe: its embedding_multiplier)
+        scale = self.cfg.embedding_multiplier \
+            if self.cfg.family == "hybrid_moe" else math.sqrt(self.cfg.d_model)
+        root = torch.tensor(scale, dtype=torch.float32,
                             device=tokens.device).to(cd)
         x = L.embed(self.embed, tokens, cd, one_hot=one_hot) * root
         return _constrain_batch(x, self.cfg)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = L.rms_norm(x, self.final_norm, self.cfg.norm_eps)
-        return L.unembed(self.embed, x, self.cfg.logits_softcap)
+        logits = L.unembed(self.embed, x, self.cfg.logits_softcap)
+        if self.cfg.family == "hybrid_moe":
+            logits.div_(self.cfg.logits_scaling)
+        return logits
 
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """The enc-dec encoder over precomputed frame embeddings (B, T, D)
@@ -407,6 +482,9 @@ class Model(nn.Module):
         slot's absolute position, -2^30 while empty, when the window is
         shorter than max_len)."""
         cfg = self.cfg
+        if cfg.family == "hybrid_moe":
+            raise NotImplementedError("the hybrid_moe family has no decode "
+                                      "cache")
         device = device if device is not None else self.final_norm.device
 
         def kv(length: int, ring: bool = False) -> Dict[str, torch.Tensor]:

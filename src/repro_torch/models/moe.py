@@ -1,4 +1,5 @@
-"""Mixture-of-Experts block: grouped GShard top-k dispatch.
+"""Mixture-of-Experts blocks: grouped GShard top-k dispatch, and the
+dropless dispatch of the "hybrid_moe" family (``DroplessMoE``).
 
 The PyTorch port of ``repro.models.moe``.  Routing is computed per group of
 ``moe_group_size`` tokens (GShard's S): the dispatch and combine tensors
@@ -9,6 +10,10 @@ under the JAX tree's names (``router``, ``wi`` / ``wu`` of (E, d, f),
 products, outside any kernel in the JAX package too.  In a distributed
 step (DTensors) ``_expert_constraint`` shards the expert dim on "model"
 (EP) as the JAX package does; on plain tensors it is the identity.
+
+``DroplessMoE`` drops nothing: the (token, choice) assignments are sorted
+by expert, each expert's rows run through one grouped product a weight
+(``grouped_mm``), and each token's k outputs are combined back by index.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from repro_torch import telemetry
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.hints import (UNCONSTRAINED, constrain,
                                           gather_weight)
@@ -163,3 +169,76 @@ def moe_block(p: MoE, x: torch.Tensor, cfg: ModelConfig,
     if p.shared is not None:
         out = out + mlp(p.shared, x, cfg.activation, cd)
     return out.to(x.dtype), aux.to(torch.float32)
+
+
+def expert_ends(sorted_experts: torch.Tensor, n: int) -> torch.Tensor:
+    """The end of each expert's rows among the assignments sorted by
+    expert: (n,) int32, the last equal to the number of assignments."""
+    experts = torch.arange(n, device=sorted_experts.device,
+                           dtype=sorted_experts.dtype)
+    return torch.searchsorted(sorted_experts, experts, right=True).to(
+        torch.int32)
+
+
+def grouped_mm(x: torch.Tensor, w: torch.Tensor,
+               ends: torch.Tensor) -> torch.Tensor:
+    """Rows of x (R, a), sorted by expert, times their expert's w (E, a,
+    b): (R, b), expert j taking rows ends[j - 1] to ends[j].  On the card
+    one grouped GEMM (``torch._grouped_mm``, bf16); elsewhere a product an
+    expert, rows past ``ends[-1]`` left zero."""
+    if x.is_cuda:
+        return torch._grouped_mm(x, w, offs=ends)
+    out = x.new_zeros(x.shape[0], w.shape[2])
+    start = 0
+    for j, end in enumerate(ends.tolist()):
+        if end > start:
+            out[start:end] = x[start:end] @ w[j]
+        start = end
+    return out
+
+
+class DroplessMoE(MoE):
+    """The "hybrid_moe" family's MoE, called as a module: the router's
+    softmax renormalised over its top k (the softmax of the top k logits),
+    every assignment computed, and the shared SwiGLU expert of
+    ``d_ff_shared`` added.  Nothing in its forward waits on the device;
+    the counters (``telemetry.count_moe``) stay there."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device=None):
+        super().__init__(cfg, dtype, device)
+        self.cfg = cfg
+        self.shared = MLP(cfg.d_model, cfg.d_ff_shared, dtype, device) \
+            if cfg.d_ff_shared else None
+
+    def forward(self, x: torch.Tensor,
+                compute_dtype: torch.dtype) -> torch.Tensor:
+        """x (..., D) -> (..., D) in x's type."""
+        cfg, cd = self.cfg, compute_dtype
+        d, k, e = x.shape[-1], cfg.moe_top_k, self.wi.shape[0]
+        with telemetry.span("repro.model.moe") as span:
+            span.note(dispatch="dropless")
+            xf = x.reshape(-1, d)
+            t = xf.shape[0]
+            with telemetry.span("repro.moe.route"):
+                probs = torch.softmax(self.router(xf, torch.float32), dim=-1)
+                gate_w, gate_idx = torch.topk(probs, k, dim=-1)      # (T, k)
+                gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True),
+                                              min=1e-9)
+                sorted_e, order = torch.sort(gate_idx.reshape(-1),
+                                             stable=True)
+                ends = expert_ends(sorted_e, e)
+                counts = torch.diff(ends, prepend=ends.new_zeros(1))
+                telemetry.count_moe(counts, t * k, ends)
+            with telemetry.span("repro.moe.experts"):
+                xs = xf.to(cd)[order // k]
+                h = _act(cfg.activation, grouped_mm(xs, self.wi.to(cd), ends)) \
+                    * grouped_mm(xs, self.wu.to(cd), ends)
+                ys = grouped_mm(h, self.wo.to(cd), ends)
+                # back to (token, choice) order, then each token's k rows
+                # weighted and summed
+                y = torch.empty_like(ys).index_copy_(0, order, ys)
+                out = torch.bmm(gate_w.to(cd)[:, None, :],
+                                y.view(t, k, d))[:, 0]
+            if self.shared is not None:
+                out = out + mlp(self.shared, xf, cfg.activation, cd)
+        return out.view(x.shape).to(x.dtype)

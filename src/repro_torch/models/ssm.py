@@ -7,6 +7,9 @@ parameters carry the JAX parameter tree's names (``in_proj.w``,
 ``SSDBlock.init`` draws fresh ones at the JAX initializer's scales from a
 ``torch.Generator``.  Prefill runs the SSD op (the hand-written kernels
 on the card); a one-token call with a cache is the O(1) decode step.
+With ``published`` the block is the published Mamba-2 mixer: the conv
+has a bias (``conv_b``), the SSD's input is x scaled by dt, and a skip
+D x a head (``d_skip``, f32) joins its output.
 """
 from __future__ import annotations
 
@@ -36,12 +39,13 @@ class SSDBlock(nn.Module):
     "state": (B, H, S, P)}."""
 
     def __init__(self, cfg: ModelConfig, dtype: Optional[torch.dtype] = None,
-                 device=None):
+                 device=None, published: bool = False):
         super().__init__()
         d_inner, n_heads, s = _dims(cfg)
         d = cfg.d_model
         dtype = dtype if dtype is not None else getattr(torch, cfg.param_dtype)
         self.cfg = cfg
+        self.published = published
         # fused input projection: [x (d_inner), z (d_inner), B (s), C (s),
         # dt (H)]
         self.in_proj = Dense(d, 2 * d_inner + 2 * s + n_heads, dtype, device)
@@ -54,6 +58,11 @@ class SSDBlock(nn.Module):
         self.norm_scale = nn.Parameter(torch.zeros(d_inner, dtype=dtype,
                                                    device=device))
         self.out_proj = Dense(d_inner, d, dtype, device)
+        if published:
+            self.conv_b = nn.Parameter(torch.zeros(
+                d_inner + 2 * s, dtype=dtype, device=device))
+            self.d_skip = nn.Parameter(torch.zeros(
+                n_heads, dtype=torch.float32, device=device))
 
     @classmethod
     def init(cls, cfg: ModelConfig, generator: torch.Generator,
@@ -61,7 +70,8 @@ class SSDBlock(nn.Module):
         """A block with weights drawn from ``generator`` (on ``device``) at
         the scales of the JAX ``init_ssd_block``: normal projections over
         sqrt(fan-in), a normal conv over sqrt(width), a_log = log(linspace(1,
-        16, H)), zero dt bias and norm scale."""
+        16, H)), zero dt bias and norm scale; published, a zero conv bias
+        and D = 1 (the published mixer's initialization)."""
         block = cls(cfg, dtype=dtype, device=device)
         block.reset(generator)
         return block
@@ -81,11 +91,19 @@ class SSDBlock(nn.Module):
             self.dt_bias.zero_()
             self.norm_scale.zero_()
             self.out_proj.reset(generator)
+            if self.published:
+                self.conv_b.zero_()
+                self.d_skip.fill_(1.0)
 
     def ssd_inputs(self, x: torch.Tensor, cache: Optional[Dict] = None,
                    compute_dtype: torch.dtype = torch.bfloat16):
         """Everything before the SSD core: (xh (B, L, H, P), a (B, L, H) f32,
         b, c (B, L, S), the gate z, the new conv cache)."""
+        return self._inputs(x, cache, compute_dtype)[:6]
+
+    def _inputs(self, x: torch.Tensor, cache: Optional[Dict],
+                compute_dtype: torch.dtype):
+        """``ssd_inputs`` and dt (B, L, H) f32."""
         cfg = self.cfg
         bsz, L, _ = x.shape
         d_inner, n_heads, s = _dims(cfg)
@@ -96,6 +114,8 @@ class SSDBlock(nn.Module):
         conv_out, conv_cache = causal_conv1d(
             conv_in, self.conv_w.to(compute_dtype),
             cache=None if cache is None else cache["conv"])
+        if self.published:
+            conv_out = conv_out + self.conv_b.to(compute_dtype)
         conv_out = silu(conv_out)
         xs, b_in, c_in = torch.split(conv_out, [d_inner, s, s], dim=-1)
         dt = F.softplus(dt_raw.to(torch.float32)
@@ -103,7 +123,7 @@ class SSDBlock(nn.Module):
         a = torch.exp(-torch.exp(self.a_log)[None, None, :] * dt)  # in (0, 1)
         xh = splittable(xs, -1, n_heads).reshape(bsz, L, n_heads,
                                                  cfg.ssm_head_dim)
-        return xh, a, b_in, c_in, z, conv_cache
+        return xh, a, b_in, c_in, z, conv_cache, dt
 
     def forward(self, x: torch.Tensor, cache: Optional[Dict] = None,
                 compute_dtype: torch.dtype = torch.bfloat16
@@ -111,16 +131,18 @@ class SSDBlock(nn.Module):
         cfg = self.cfg
         bsz, L, _ = x.shape
         d_inner, n_heads, _ = _dims(cfg)
-        xh, a, b_in, c_in, z, conv_cache = self.ssd_inputs(x, cache,
-                                                           compute_dtype)
+        xh, a, b_in, c_in, z, conv_cache, dt = self._inputs(x, cache,
+                                                            compute_dtype)
+        x_in = xh.to(torch.float32)
+        if self.published:
+            x_in = x_in * dt[..., None]
         if cache is None or L > 1:
-            y = _ssd(xh.to(torch.float32), a, b_in.to(torch.float32),
-                     c_in.to(torch.float32))
+            y = _ssd(x_in, a, b_in.to(torch.float32), c_in.to(torch.float32))
             new_state = None  # prefill state capture: decode from scratch
         else:
             # O(1) decode step: h = a h + b x^T ; y = c . h
             h = cache["state"]
-            x_t = xh[:, 0].to(torch.float32)                       # (B, H, P)
+            x_t = x_in[:, 0]                                       # (B, H, P)
             a_t = a[:, 0]                                          # (B, H)
             b_t = b_in[:, 0].to(torch.float32)                     # (B, S)
             c_t = c_in[:, 0].to(torch.float32)
@@ -128,6 +150,8 @@ class SSDBlock(nn.Module):
                 + torch.einsum("bs,bhp->bhsp", b_t, x_t)
             y = torch.einsum("bs,bhsp->bhp", c_t, h)[:, None]      # (B,1,H,P)
             new_state = h
+        if self.published:
+            y = y + self.d_skip[:, None] * xh.to(torch.float32)
 
         y = merged(y.reshape(bsz, L, d_inner), n_heads).to(compute_dtype)
         y = rms_norm(y * silu(z), self.norm_scale, cfg.norm_eps)

@@ -11,7 +11,11 @@ A span names a stretch of the host's work at one of four boundaries:
   * ``repro.launch.<wrapper>`` — the body of a kernel wrapper that counts
     launches: the route, the output's allocation, the stream and the ctypes
     call (on a CPU tensor, the plain version);
-  * ``repro.model.forward`` — ``Model.forward``.
+  * ``repro.model.forward`` — ``Model.forward``;
+  * ``repro.model.moe`` — a dropless MoE layer's call (its record notes the
+    ``dispatch``), and inside it ``repro.moe.route`` (the router, the sort
+    by expert and the counters) and ``repro.moe.experts`` (the gathers,
+    the grouped products and the combine).
 
 Spans are on exactly while a ``torch.profiler`` session records in the
 process; nothing else turns them on.  Off, :func:`span` returns one shared
@@ -31,6 +35,12 @@ reads all of them, :func:`reset_launch_counts` zeroes them,
 ``NEWEST_ROUTE`` names, for each kernel whose plan or shape picks between
 a redesigned kernel and the earlier one, the redesign's route: the first
 of its module's ``ROUTES``.
+
+The dropless MoE's counters (:func:`count_moe`) stay on the device, so
+that counting never waits on it: the rows routed to each expert, the
+largest expert's rows summed over the calls, and the assignments the
+expert products were not handed.  :func:`moe_counts` reads them (and
+waits), :func:`reset_moe_counts` zeroes them.
 """
 from __future__ import annotations
 
@@ -282,3 +292,47 @@ def reset_launch_counts() -> None:
         fn.launches = 0
         for route in _launch_routes().get(name, ()):
             setattr(fn, f"launches_{route}", 0)
+
+
+# ---------------------------------------------------------------------------
+# dropless MoE counters
+# ---------------------------------------------------------------------------
+
+_moe: Dict = {"calls": 0, "routed": 0, "acc": None}
+
+
+def count_moe(counts, assigned: int, ends) -> None:
+    """Add one dropless MoE call: ``counts`` (E,) the rows routed to each
+    expert, ``assigned`` the call's (token, choice) assignments and
+    ``ends`` (E,) the row ends the expert products were handed, the last
+    of which falls short of ``assigned`` by the assignments dropped.  The
+    sums stay on the tensors' device: nothing here waits on it."""
+    import torch
+    acc = _moe["acc"]
+    if acc is None or acc.shape[0] != counts.shape[0] + 2 \
+            or acc.device != counts.device:
+        acc = _moe["acc"] = torch.zeros(counts.shape[0] + 2,
+                                        dtype=torch.int64,
+                                        device=counts.device)
+    acc[:-2] += counts
+    acc[-2] += counts.max()
+    acc[-1] += assigned - ends[-1]
+    _moe["calls"] += 1
+    _moe["routed"] += assigned
+
+
+def moe_counts() -> Dict:
+    """The dropless MoE's counters since the last reset: ``calls``,
+    ``routed`` (assignments), ``dropped`` (assignments no expert product
+    was handed), ``rows`` (each expert's rows, a list) and ``max_rows``
+    (the most-loaded expert's rows, summed over the calls).  Waits for the
+    device."""
+    acc = _moe["acc"]
+    values = acc.tolist() if acc is not None else [0, 0]
+    return {"calls": _moe["calls"], "routed": _moe["routed"],
+            "dropped": values[-1], "rows": values[:-2],
+            "max_rows": values[-2]}
+
+
+def reset_moe_counts() -> None:
+    _moe.update(calls=0, routed=0, acc=None)
