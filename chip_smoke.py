@@ -73,10 +73,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    four-step driver), calls at 2^23 forced to m = 3 (tile_n = 256) and
    m = 2 (tile_n = 4096), and ``ifft`` round trips, each held against a complex128 ``torch.fft.fft``
    at 1e-4 relative, with the launch list equal to the plan's and the
-   kernel's launch count non-zero, every launch on the pow2 kernel; where
-   the four-step time goes (kernel launches against the torch transposes
-   and twiddle); the pow2 kernel's time beside the generic kernel's (the
-   earlier design) on the same inputs;
+   kernel's launch count non-zero, every launch on the pow2 kernel or the
+   four-step pass kernel; each four-step pass (``fft_pass``) at 2^16, 2^20
+   and 2^23 (m = 3 and m = 2), forward and inverse, held against its plain
+   twin ``fft_pass_plain`` on the same input at the complex64 tolerance,
+   and where the four-step time goes (each pass timed); the pow2 kernel's
+   time beside the generic kernel's (the earlier design) on the same
+   inputs;
 7. the SSD chain: ``ssd_intra``, ``ssd_state_apply`` and
    ``ssd_apply_entry`` against their plain versions (chunk 64 ... 2048,
    nc = 1, 3 and 16, (S, P) = (8, 16), (16, 8) and (128, 64), a strong
@@ -275,8 +278,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    falling, its checkpoint restored equal; fault_tolerant_train dead at
    17, resumed from 10, finished at 29; each example's seconds and
    launches, the 100M run's median step, tokens/s and peak memory;
-20. the ``kernels`` line: per kernel (all twelve, and the Thomas kernel,
-   which ports no Pallas kernel) its launches on the main
+20. the ``kernels`` line: per kernel (all twelve, the Thomas kernel,
+   which ports no Pallas kernel, and the four-step pass kernel
+   ``fft_pass``, whose launches ``fft_stockham``'s no longer count) its
+   launches on the main
    paths (by route for ``scan_add``, ``scan_linrec``, ``scan_linrec_prod``,
    ``pcr``, ``thomas``, ``fft_stockham`` and the three SSD kernels, with the earlier
    kernel's time beside theirs; by path for the kernels that run on
@@ -2410,8 +2415,8 @@ def phase_fft_path(dev):
     torch.cuda.synchronize()
     counts = launch_counts()
     log(f"[main] launches on the FFT path: {counts}")
-    require_launched(counts, ("fft_stockham", "fft_stockham.pow2"),
-                     "the FFT path")
+    require_launched(counts, ("fft_stockham", "fft_stockham.pow2",
+                              "fft_pass"), "the FFT path")
     require_new_routes(counts, "the FFT path")
 
     runs = []
@@ -2458,16 +2463,21 @@ def phase_fft_path(dev):
 
 
 def phase_fft_numbers(dev, inputs, runs, counts, err, bandwidth: float):
-    """fft per call against torch.fft.fft (cuFFT), where the four-step time
-    goes, and kernel 6's entry at the n = 1024 main-path call."""
+    """fft per call against torch.fft.fft (cuFFT); each four-step pass,
+    forward and inverse, against its plain twin on the same input, and
+    where the four-step time goes (each pass: the column passes, the last
+    with the twiddle, then the row pass with the transposed store); kernel
+    6's entry at the n = 1024 main-path call and the pass kernel's at the
+    2^20 call."""
     import torch
-    from repro_torch.kernels.blocks.driver import _twiddle, dispatch_fft
+    from repro_torch.kernels.blocks.driver import four_step_passes
     from repro_torch.kernels.blocks.plan import stage_radices
-    from repro_torch.kernels.fft.kernel import (fft_generic, fft_plain,
-                                                fft_stockham)
+    from repro_torch.kernels.fft.kernel import (fft_generic, fft_pass,
+                                                fft_pass_plain, fft_plain,
+                                                fft_stockham, pass_problems)
     from repro_torch.kernels.fft.ops import fft
 
-    rows = []
+    rows, pass_errs = [], []
     for run in runs:
         x, plan, cfg = inputs[run["n"]], run["plan"], run["config"]
         forced = cfg if " m=" in run["call"] else None
@@ -2476,30 +2486,60 @@ def phase_fft_numbers(dev, inputs, runs, counts, err, bandwidth: float):
                "config": cfg, "err_vs_complex128": run["err"],
                "fft_ms": time_ms(lambda: fft(x, config=forced), 5),
                "torch_fft_ms": time_ms(lambda: torch.fft.fft(x), 5)}
-        if plan.kind == "multipass" and plan.passes == 2:
-            col, rowp = plan.children
-            batch, n1, n2 = run["batch"], rowp.n, col.n
-            xc = x.reshape(batch, n2, n1).transpose(1, 2).reshape(
-                batch * n1, n2)
-            xr = xc.reshape(batch * n2, n1)
-            tw = _twiddle(n1, n2, False, x.device)
-            v = torch.empty_like(xr).reshape(batch, n2, n1)
-            row["col_kernel_ms"] = time_ms(
-                lambda: dispatch_fft(xc, col, inverse=False), 5)
-            row["row_kernel_ms"] = time_ms(
-                lambda: dispatch_fft(xr, rowp, inverse=False), 5)
-            row["transpose_in_ms"] = time_ms(
-                lambda: x.reshape(batch, n2, n1).transpose(1, 2).reshape(
-                    batch * n1, n2), 5)
-            row["twiddle_ms"] = time_ms(
-                lambda: torch.mul(xc.reshape(batch, n1, n2).transpose(1, 2),
-                                  tw, out=v), 5)
-            row["transpose_out_ms"] = time_ms(
-                lambda: xr.reshape(batch, n2, n1).transpose(1, 2).reshape(
-                    batch, run["n"]), 5)
-            del xc, xr, v
+        if plan.kind == "multipass":
+            row.update(pass_ms=[], pass_tiles=[], pass_err_vs_plain=[])
+            for inverse in (False, True):
+                z = x
+                for i, (sub, layout) in enumerate(four_step_passes(plan)):
+                    kw = dict(stages=sub.stages, inverse=inverse,
+                              unroll=int(sub.ilp))
+                    got = fft_pass(z, layout, **kw)
+                    e = check_complex(
+                        got, fft_pass_plain(z, layout, **kw),
+                        f"{run['call']} {'inverse ' if inverse else ''}"
+                        f"pass {i} vs fft_pass_plain")
+                    row["pass_err_vs_plain"].append(e)
+                    pass_errs.append(e)
+                    if not inverse:
+                        row["pass_ms"].append(time_ms(
+                            lambda: fft_pass(z, layout, **kw), 5))
+                        row["pass_tiles"].append(
+                            pass_problems(layout, sub.stages))
+                    z = got
+                del z, got
         rows.append(row)
         log(f"[numbers] {json.dumps(row, sort_keys=True, default=str)}")
+
+    # the pass kernel's entry at the 2^20 main-path call (2^26 points a
+    # pass, as at every four-step call of the path)
+    run = next(r for r in runs if r["call"] == f"fft n={2 ** 20}")
+    row = next(r for r in rows if r["call"] == run["call"])
+    x, plan = inputs[run["n"]], run["plan"]
+    sub, layout = four_step_passes(plan)[0]
+    kw = dict(stages=sub.stages, unroll=int(sub.ilp))
+    nbytes = 2 * x.numel() * x.element_size()
+    pass_entry = {
+        "name": "fft_pass", "route": "cuda",
+        "source": "src/repro_torch/csrc/fft.cu",
+        # the four-step's column and row launches of fft_pallas
+        "replaces": "src/repro/kernels/fft/kernel.py:53",
+        "launches": counts["fft_pass"],
+        "max_rel_err_vs_plain": max(pass_errs),
+        "ms": sum(row["pass_ms"]) / len(row["pass_ms"]),
+        "ms_by_pass": row["pass_ms"],
+        "ms_by_call": {r["call"]: r["pass_ms"] for r in rows
+                       if "pass_ms" in r},
+        "plain_ms": time_ms(lambda: fft_pass_plain(x, layout, **kw), 3,
+                            warmup=1),
+        "bound_ms": nbytes / bandwidth * 1e3, "bound_by": "bytes",
+        # one whole transform, which the plan does in len(ms_by_pass)
+        # passes
+        "library_ms": row["torch_fft_ms"],
+        "shape": list(x.shape), "dtype": "complex64",
+        "config": {"passes": plan.passes, "tiles": row["pass_tiles"],
+                   "stages": [list(l.stages) for l in plan.launches]},
+        "check_max_rel_err": run["err"]}
+    log(f"[numbers] {json.dumps(pass_entry, sort_keys=True)}")
 
     run = next(r for r in runs if r["n"] == 1024)
     x, plan = inputs[1024], run["plan"]
@@ -2514,6 +2554,7 @@ def phase_fft_numbers(dev, inputs, runs, counts, err, bandwidth: float):
     entry = {"name": "fft_stockham", "route": "cuda",
              "source": "src/repro_torch/csrc/fft.cu",
              "replaces": "src/repro/kernels/fft/kernel.py:53",
+             # the four-step's passes count as fft_pass's launches
              "launches": counts["fft_stockham"],
              "launches_by_route": {r: counts[f"fft_stockham.{r}"]
                                    for r in LAUNCH_ROUTES["fft_stockham"]},
@@ -2544,7 +2585,7 @@ def phase_fft_numbers(dev, inputs, runs, counts, err, bandwidth: float):
                                stages=stage_radices(n, radix)), 5)
     log(f"[numbers] fft_stockham ms at ({batch}, {n}): "
         f"{json.dumps(sweep)}")
-    return entry, rows
+    return [entry, pass_entry], rows
 
 
 # ---------------------------------------------------------------------------
@@ -5912,9 +5953,9 @@ def main(argv=None) -> int:
         ffts, runs, counts = phase_fft_path(dev)
         log(f"[main] {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        fft_entry, _ = phase_fft_numbers(dev, ffts, runs, counts, fft_err,
-                                         bandwidth)
-        entries.append(fft_entry)
+        fft_entries, _ = phase_fft_numbers(dev, ffts, runs, counts, fft_err,
+                                           bandwidth)
+        entries += fft_entries
         log(f"[numbers] {time.perf_counter() - t0:.1f} s")
         del ffts
         torch.cuda.empty_cache()

@@ -3,12 +3,19 @@
 //
 //   repro_fft_pow2  replaces repro/kernels/fft/kernel.py fft_pallas for
 //                   power-of-two rows of 16 to 8192 points with fan-ins 2,
-//                   4, 8 and 16: every config of the h100 fft space and
-//                   every launch of the four-step driver (route "pow2");
+//                   4, 8 and 16: every config of the h100 fft space (route
+//                   "pow2");
 //   repro_fft       the same function for any other row or stage sequence
 //                   (ragged and prime stages such as (8, 6, 2) at n = 96
 //                   and (2, 53) at n = 106, rows below 16 points; route
-//                   "generic").
+//                   "generic");
+//   repro_fft_pass  one pass of the four-step driver (the JAX package's
+//                   four_step_fft runs fft_pallas between XLA transposes
+//                   and a twiddle multiply): the pow2 kernel on problems
+//                   read at strides, the transpose folded into the first
+//                   stage group's loads and the last one's stores, the
+//                   twiddle into those stores, so that a pass reads and
+//                   writes device memory once (see PassIo).
 //
 // Built with nvcc for sm_90a into the port's shared library (plain C
 // interface, loaded with ctypes by repro_torch/kernels/build.py).  The
@@ -317,14 +324,99 @@ struct StageGroup {
 // banks (radix 16's first stage writes 16 points apart).
 __device__ __forceinline__ int padded(int i) { return i + (i >> 4); }
 
+// Point i of the resident rows with `skew` more slots after each row of
+// 2^log_n points: padded(i) where the skew is 0.
+__device__ __forceinline__ int shared_at(int i, int log_n, int skew) {
+  return padded(i) + (i >> log_n) * skew;
+}
+
+// How a stage group meets device memory: point i of resident row `row` is
+// read from src[in_at(...)] by the first group and written to dst[out_at]
+// by the last; across_rows(loads, stores) says whether a group that loads
+// or stores there walks its lanes across the rows.  RowIo is the pow2
+// kernel's: contiguous rows, a warp's lanes along a row, no skew, no
+// twiddle.
+struct RowIo {
+  static constexpr bool kTwiddles = false;
+  static constexpr int skew = 0;
+  __device__ __forceinline__ bool across_rows(bool, bool) const {
+    return false;
+  }
+  __device__ __forceinline__ int in_at(int row, int i, int log_n) const {
+    return (row << log_n) + i;
+  }
+  __device__ __forceinline__ int out_at(int row, int i, int log_n) const {
+    return (row << log_n) + i;
+  }
+};
+
+// The four-step pass's (repro_fft_pass): resident row r is problem
+// c = c0 + r of a batch item, its point t at (c >> log_lo) in_hs +
+// (c & lo_mask) + t in_ps and its output k at the same with out_hs, out_ps,
+// every stride a power of two (a shift) and every offset within the item
+// below 2^31.  Where a group meets device memory at a point stride other
+// than 1 its lanes walk across the rows, which are adjacent problems
+// (adjacent addresses: the transpose is the addressing), and the rows lie
+// `skew` slots apart in shared memory so that such lanes meet distinct
+// banks.  With TW, output k is multiplied by exp(-+2 pi i e / tw_n), e =
+// ((c & lo_mask) >> log_div) (k tw_kmul + (c >> log_lo)): the integer e in
+// f32, times the f32 of -+2 pi, times 1 / tw_n (exact: a power of two);
+// |angle| < 2 pi.  A pass without a twiddle instantiates no sincosf, and a
+// pass with one calls it in a function of its own: inlined into the last
+// stage's unrolled stores it costs registers and code even where untaken.
+// (H100, 2^26 points, 256-point rows: 1.12 ms a pass with the copies
+// present and untaken, 0.93 without them, the pow2 kernel 0.87; the
+// twiddle adds 0.25 ms called, 0.32 inlined.)
+__device__ __noinline__ float2 twiddle_of(int e, float sign_2pi,
+                                          float tw_scale) {
+  const float ang =
+      __fmul_rn(__fmul_rn(__int2float_rn(e), sign_2pi), tw_scale);
+  float sn, cs;
+  sincosf(ang, &sn, &cs);
+  return make_float2(cs, sn);
+}
+
+struct PassFields {
+  int c0, lo_mask, log_lo, log_in_ps, log_in_hs, log_out_ps, log_out_hs,
+      log_div, log_kmul, skew;
+  float tw_scale, sign_2pi;
+};
+
+template <bool TW>
+struct PassIo : PassFields {
+  static constexpr bool kTwiddles = TW;
+  __device__ __forceinline__ bool across_rows(bool loads,
+                                              bool stores) const {
+    return (loads && log_in_ps != 0) || (stores && log_out_ps != 0);
+  }
+  __device__ __forceinline__ int in_at(int row, int i, int) const {
+    const int c = c0 + row;
+    return ((c >> log_lo) << log_in_hs) + (c & lo_mask) + (i << log_in_ps);
+  }
+  __device__ __forceinline__ int out_at(int row, int k, int) const {
+    const int c = c0 + row;
+    return ((c >> log_lo) << log_out_hs) + (c & lo_mask) + (k << log_out_ps);
+  }
+  __device__ __forceinline__ void store(float2* dst, int row, int k,
+                                        float2 v) const {
+    const int c = c0 + row;
+    const int e =
+        ((c & lo_mask) >> log_div) * ((k << log_kmul) + (c >> log_lo));
+    const float2 w = twiddle_of(e, sign_2pi, tw_scale);   // (cos, sin)
+    dst[out_at(row, k, 0)] =
+        make_float2(__fsub_rn(__fmul_rn(v.x, w.x), __fmul_rn(v.y, w.y)),
+                    __fadd_rn(__fmul_rn(v.x, w.y), __fmul_rn(v.y, w.x)));
+  }
+};
+
 // Stage I of a group on one thread's P registers (see StageGroup).  The
-// group's last stage writes its outputs to dst (register J at out + J s)
-// instead of back to the registers.
-template <class G, int I, int P, bool LAST>
+// group's last stage writes its outputs to dst (register J at point
+// out + J s of row `row`) instead of back to the registers.
+template <class G, int I, int P, bool LAST, class Io>
 __device__ __forceinline__ void register_stage(
     float2 (&v)[P], int p, const int (&log_m)[4], const float2* w,
     const float2* tw, bool scale_it, float scale, float2* dst,
-    bool dst_shared, int out, int log_s) {
+    bool dst_shared, int row, int out, int log_s, int log_n, const Io& io) {
   constexpr int LR = G::l(I);
   constexpr int R = 1 << LR;
   constexpr int SH = G::shift(I);
@@ -363,7 +455,16 @@ __device__ __forceinline__ void register_stage(
       }
       if constexpr (LAST) {
         const int at = out + ((o + (j << SH)) << log_s);
-        dst[dst_shared ? padded(at) : at] = make_float2(tr, ti);
+        if constexpr (Io::kTwiddles) {
+          if (dst_shared)
+            dst[shared_at((row << log_n) + at, log_n, io.skew)] =
+                make_float2(tr, ti);
+          else
+            io.store(dst, row, at, make_float2(tr, ti));
+        } else {
+          dst[dst_shared ? shared_at((row << log_n) + at, log_n, io.skew)
+                         : io.out_at(row, at, log_n)] = make_float2(tr, ti);
+        }
       } else {
         t[j] = make_float2(tr, ti);
       }
@@ -384,15 +485,28 @@ struct GroupView {
   int tw_off[4];
 };
 
+// Unit u of `gr` rows of 2^log_units units: along the rows (row-major), or
+// across them (consecutive units in consecutive rows; gr a power of two).
+__device__ __forceinline__ void unit_of(int u, bool across, int gr,
+                                        int log_units, int& row, int& rem) {
+  if (across) {
+    row = u & (gr - 1);
+    rem = u >> (__ffs(gr) - 1);
+  } else {
+    row = u >> log_units;
+    rem = u & ((1 << log_units) - 1);
+  }
+}
+
 // One group over `gr` resident rows: thread threadIdx.x owns the units
 // (row, p, q) threadIdx.x + b * blockDim.x, b < C / P.  Reads all its
 // points, waits (in place, when src is the shared buffer), runs the
 // group's stages in registers, the last one writing its outputs.
-template <int L1, int L2, int L3, int L4, int C>
+template <int L1, int L2, int L3, int L4, int C, class Io>
 __device__ __forceinline__ void group_pass(
     const float2* src, float2* dst, bool src_shared, bool dst_shared, int gr,
     int log_n, const GroupView& gv, const float2* wtab, const float2* twtab,
-    bool scale_last, float scale) {
+    bool scale_last, float scale, const Io& io) {
   using G = StageGroup<L1, L2, L3, L4>;
   constexpr int P = G::kP;
   constexpr int B = C / P;
@@ -400,20 +514,23 @@ __device__ __forceinline__ void group_pass(
   const int log_units = log_n - G::kLogP;   // units in a row: n / P
   const int total = gr << log_units;
   const int threads = blockDim.x;
+  const bool across = io.across_rows(!src_shared, !dst_shared);
   float2 v[B][P];
 #pragma unroll
   for (int b = 0; b < B; ++b) {
     const int u = threadIdx.x + b * threads;
     if (u >= total) continue;
-    const int base = ((u >> log_units) << log_n) + (u & ((1 << log_units) - 1));
+    int row, rem;
+    unit_of(u, across, gr, log_units, row, rem);
 #pragma unroll
     for (int K = 0; K < P; ++K) {
-      int off = base;
+      int off = rem;
 #pragma unroll
       for (int l = 0; l < 4; ++l)
         off += ((K >> G::shift(l)) & ((1 << G::l(l)) - 1))
                << (log_n - G::shift(l) - G::l(l));
-      v[b][K] = src[src_shared ? padded(off) : off];
+      v[b][K] = src[src_shared ? shared_at((row << log_n) + off, log_n, io.skew)
+                               : io.in_at(row, off, log_n)];
     }
   }
   if (src_shared) __syncthreads();   // every read before any write
@@ -421,15 +538,16 @@ __device__ __forceinline__ void group_pass(
   for (int b = 0; b < B; ++b) {
     const int u = threadIdx.x + b * threads;
     if (u >= total) continue;
-    const int row = u >> log_units;
-    const int rem = u & ((1 << log_units) - 1);
+    int row, rem;
+    unit_of(u, across, gr, log_units, row, rem);
     const int p = rem >> gv.log_s;
     const int q = rem & ((1 << gv.log_s) - 1);
-    const int out = (row << log_n) + (p << (gv.log_s + G::kLogP)) + q;
+    const int out = (p << (gv.log_s + G::kLogP)) + q;
 #define REPRO_STAGE(I)                                                      \
     register_stage<G, I, P, U == I + 1>(                                    \
         v[b], p, gv.log_m, wtab + gv.w_off[I], twtab + gv.tw_off[I],        \
-        scale_last && U == I + 1, scale, dst, dst_shared, out, gv.log_s);
+        scale_last && U == I + 1, scale, dst, dst_shared, row, out,         \
+        gv.log_s, log_n, io);
     REPRO_STAGE(0)
     if constexpr (U > 1) { REPRO_STAGE(1) }
     if constexpr (U > 2) { REPRO_STAGE(2) }
@@ -439,53 +557,31 @@ __device__ __forceinline__ void group_pass(
   if (dst_shared) __syncthreads();
 }
 
-// The group codes the host passes: L1 | L2 << 3 | L3 << 6 | L4 << 9, every
-// ordered split of log2 P <= 4 into fan-ins 2 ... 16.
-#define REPRO_GROUP_CASES(X) \
-  X(1, 0, 0, 0) X(2, 0, 0, 0) X(1, 1, 0, 0) X(3, 0, 0, 0) X(1, 2, 0, 0) \
-  X(2, 1, 0, 0) X(1, 1, 1, 0) X(4, 0, 0, 0) X(1, 3, 0, 0) X(3, 1, 0, 0) \
-  X(2, 2, 0, 0) X(1, 1, 2, 0) X(1, 2, 1, 0) X(2, 1, 1, 0) X(1, 1, 1, 1)
-
-__host__ __device__ constexpr int group_code(int l1, int l2, int l3,
-                                           int l4) {
-  return l1 | l2 << 3 | l3 << 6 | l4 << 9;
-}
-
-template <int C>
-__device__ __forceinline__ void group_dispatch(
-    int code, const float2* src, float2* dst, bool src_shared,
-    bool dst_shared, int gr, int log_n, const GroupView& gv,
-    const float2* wtab, const float2* twtab, bool scale_last, float scale) {
-  switch (code) {
-#define REPRO_GROUP_CASE(A, B, C_, D)                                     \
-  case group_code(A, B, C_, D):                                           \
-    group_pass<A, B, C_, D, C>(src, dst, src_shared, dst_shared, gr, log_n, \
-                               gv, wtab, twtab, scale_last, scale);       \
-    break;
-    REPRO_GROUP_CASES(REPRO_GROUP_CASE)
-#undef REPRO_GROUP_CASE
-    default: break;
+// Group g's view (the loop is unrolled so that gv's arrays stay in
+// registers).
+__device__ __forceinline__ GroupView group_view(const Pow2Stages& st,
+                                                int log_n, int g) {
+  GroupView gv;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const bool in = i < st.group_size[g];
+    const StageView v = stage_view(st, log_n, in ? st.group_first[g] + i : 0);
+    if (i == 0) gv.log_s = v.log_s;
+    gv.log_m[i] = in ? v.log_m : 0;
+    gv.w_off[i] = in ? v.w_off : 0;
+    gv.tw_off[i] = in ? v.tw_off : 0;
   }
+  return gv;
 }
 
-// 128 registers a thread at 16 points (the occupancy of two blocks of 256
-// threads beats spill-free code at one block: measured on the H100), 255
-// at 32.
-template <int C>
-__global__ void __launch_bounds__(C == 16 ? kPow2MaxThreads
-                                          : kPow2BlockThreads, 1)
-    fft_pow2_kernel(const float2* __restrict__ x, float2* __restrict__ y,
-                    int log_n, int rows, int group, long long programs,
-                    Pow2Stages st, int w_count, int tw_count, int inverse) {
-  extern __shared__ float2 smem[];
+// The tables, once per block: per stage its rr DFT weights, and its
+// (rr - 1) m twiddles exp(i theta_j p), j >= 1, at (j - 1) m + p.
+__device__ __forceinline__ void pow2_tables(const Pow2Stages& st, int log_n,
+                                            int w_count, int tw_count,
+                                            int inverse, float2* wtab,
+                                            float2* twtab) {
   const int n = 1 << log_n;
-  float2* buf = smem;
-  float2* wtab = smem + padded(group * n);
-  float2* twtab = wtab + w_count;
   const double sign = inverse ? 1.0 : -1.0;
-
-  // the tables, once per block: per stage its rr DFT weights, and its
-  // (rr - 1) m twiddles exp(i theta_j p), j >= 1, at (j - 1) m + p
   for (int idx = threadIdx.x; idx < w_count + tw_count;
        idx += blockDim.x) {
     int t = 0, log_s = 0, off = idx < w_count ? idx : idx - w_count;
@@ -515,6 +611,53 @@ __global__ void __launch_bounds__(C == 16 ? kPow2MaxThreads
       twtab[idx - w_count] = make_float2(cs, sn);
     }
   }
+}
+
+// The group codes the host passes: L1 | L2 << 3 | L3 << 6 | L4 << 9, every
+// ordered split of log2 P <= 4 into fan-ins 2 ... 16.
+#define REPRO_GROUP_CASES(X) \
+  X(1, 0, 0, 0) X(2, 0, 0, 0) X(1, 1, 0, 0) X(3, 0, 0, 0) X(1, 2, 0, 0) \
+  X(2, 1, 0, 0) X(1, 1, 1, 0) X(4, 0, 0, 0) X(1, 3, 0, 0) X(3, 1, 0, 0) \
+  X(2, 2, 0, 0) X(1, 1, 2, 0) X(1, 2, 1, 0) X(2, 1, 1, 0) X(1, 1, 1, 1)
+
+__host__ __device__ constexpr int group_code(int l1, int l2, int l3,
+                                           int l4) {
+  return l1 | l2 << 3 | l3 << 6 | l4 << 9;
+}
+
+template <int C, class Io = RowIo>
+__device__ __forceinline__ void group_dispatch(
+    int code, const float2* src, float2* dst, bool src_shared,
+    bool dst_shared, int gr, int log_n, const GroupView& gv,
+    const float2* wtab, const float2* twtab, bool scale_last, float scale,
+    const Io& io = Io()) {
+  switch (code) {
+#define REPRO_GROUP_CASE(A, B, C_, D)                                     \
+  case group_code(A, B, C_, D):                                           \
+    group_pass<A, B, C_, D, C>(src, dst, src_shared, dst_shared, gr, log_n, \
+                               gv, wtab, twtab, scale_last, scale, io);   \
+    break;
+    REPRO_GROUP_CASES(REPRO_GROUP_CASE)
+#undef REPRO_GROUP_CASE
+    default: break;
+  }
+}
+
+// 128 registers a thread at 16 points (the occupancy of two blocks of 256
+// threads beats spill-free code at one block: measured on the H100), 255
+// at 32.
+template <int C>
+__global__ void __launch_bounds__(C == 16 ? kPow2MaxThreads
+                                          : kPow2BlockThreads, 1)
+    fft_pow2_kernel(const float2* __restrict__ x, float2* __restrict__ y,
+                    int log_n, int rows, int group, long long programs,
+                    Pow2Stages st, int w_count, int tw_count, int inverse) {
+  extern __shared__ float2 smem[];
+  const int n = 1 << log_n;
+  float2* buf = smem;
+  float2* wtab = smem + padded(group * n);
+  float2* twtab = wtab + w_count;
+  pow2_tables(st, log_n, w_count, tw_count, inverse, wtab, twtab);
   __syncthreads();
 
   const bool scale_it = inverse != 0;
@@ -532,18 +675,7 @@ __global__ void __launch_bounds__(C == 16 ? kPow2MaxThreads
       const bool first_group = g == 0, last = g == st.groups - 1;
       const float2* src = first_group ? gsrc : buf;
       float2* dst = last ? gdst : buf;
-      // (the loop is unrolled so that gv's arrays stay in registers)
-      GroupView gv;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const bool in = i < st.group_size[g];
-        const StageView v =
-            stage_view(st, log_n, in ? st.group_first[g] + i : 0);
-        if (i == 0) gv.log_s = v.log_s;
-        gv.log_m[i] = in ? v.log_m : 0;
-        gv.w_off[i] = in ? v.w_off : 0;
-        gv.tw_off[i] = in ? v.tw_off : 0;
-      }
+      const GroupView gv = group_view(st, log_n, g);
       group_dispatch<C>(st.group_code[g], src, dst, !first_group, !last, gr,
                         log_n, gv, wtab, twtab, last && scale_it, scale);
     }
@@ -643,6 +775,77 @@ cudaError_t launch_pow2(const float2* x, float2* y, long long batch,
   return cudaGetLastError();
 }
 
+// The four-step pass (repro_fft_pass): the pow2 kernel's loop on PassIo.
+// A program is `group` adjacent problems of a batch item, all resident at
+// once: the first stage group loads them from device memory, the last one
+// stores them, each access of a warp a run over adjacent problems.
+template <int C, bool TW>
+__global__ void __launch_bounds__(C == 16 ? kPow2MaxThreads
+                                          : kPow2BlockThreads, 1)
+    fft_pass_kernel(const float2* __restrict__ x, float2* __restrict__ y,
+                    int log_n, int group, long long programs, Pow2Stages st,
+                    int w_count, int tw_count, int inverse, long long total,
+                    PassIo<TW> io) {
+  extern __shared__ float2 smem[];
+  const int n = 1 << log_n;
+  float2* buf = smem;
+  float2* wtab = smem + shared_at(group << log_n, log_n, io.skew);
+  float2* twtab = wtab + w_count;
+  pow2_tables(st, log_n, w_count, tw_count, inverse, wtab, twtab);
+  __syncthreads();
+
+  const bool scale_it = inverse != 0;
+  const float scale = static_cast<float>(1.0 / n);
+  const long long per_item = (total >> log_n) / group;
+  for (long long gid = blockIdx.x; gid < programs; gid += gridDim.x) {
+    const long long item = gid / per_item;
+    io.c0 = static_cast<int>(gid - item * per_item) * group;
+    const float2* gsrc = x + item * total;
+    float2* gdst = y + item * total;
+    for (int g = 0; g < st.groups; ++g) {
+      const bool first_group = g == 0, last = g == st.groups - 1;
+      const GroupView gv = group_view(st, log_n, g);
+      group_dispatch<C>(st.group_code[g], first_group ? gsrc : buf,
+                        last ? gdst : buf, !first_group, !last, group, log_n,
+                        gv, wtab, twtab, last && scale_it, scale, io);
+    }
+  }
+}
+
+template <int C, bool TW>
+cudaError_t launch_pass(const float2* x, float2* y, long long programs,
+                        const Pow2Geometry& g, int inverse, long long total,
+                        const PassIo<TW>& io, cudaStream_t stream) {
+  auto kernel = fft_pass_kernel<C, TW>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(g.smem));
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, g.threads, g.smem)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  long long blocks = static_cast<long long>(sms) * per_sm;
+  if (blocks > programs) blocks = programs;
+  if (blocks == 0) return cudaSuccess;
+  kernel<<<static_cast<unsigned>(blocks), g.threads, g.smem, stream>>>(
+      x, y, g.log_n, g.group, programs, g.st, g.w_count, g.tw_count, inverse,
+      total, io);
+  return cudaGetLastError();
+}
+
+int log2_exact(long long v) {   // -1 unless v is a power of two
+  if (v < 1 || (v & (v - 1))) return -1;
+  int l = 0;
+  while ((1LL << l) < v) ++l;
+  return l;
+}
+
 }  // namespace
 
 extern "C" {
@@ -717,6 +920,78 @@ int repro_fft_pow2(const void* x, void* y, long long batch, int n, int rows,
   if (g.points == 16)
     return launch_pow2<16>(xs, ys, batch, rows, g, inverse, strm);
   return launch_pow2<32>(xs, ys, batch, rows, g, inverse, strm);
+}
+
+// One pass of a four-step FFT over (batch, total) complex64 x into y (both
+// contiguous on the device, distinct): each batch item holds total / n
+// problems c of n points; problem c's point t lies at
+//   (c / lo) in_hs + (c % lo) + t in_ps
+// of the item, and its output k goes to the same with out_hs, out_ps (the
+// caller makes that a bijection).  Output k of problem c is the n-point DFT
+// of its points (inverse: the conjugate one, scaled by 1/n), as the pow2
+// kernel computes it on the plan's stages, then, where tw_n > 0, multiplied
+// by exp(-+2 pi i e / tw_n) with e = ((c % lo) / tw_div) (k tw_kmul +
+// c / lo).  layout = {total, lo, in_ps, in_hs, out_ps, out_hs, tw_n, tw_div,
+// tw_kmul}; `problems` adjacent problems (dividing total / n) are resident in
+// a block at once.  Takes what the pow2 kernel takes (n from 16 to 8192,
+// fan-ins 2 ... 16), with total below 2^31, `problems` and every stride,
+// tw_div, tw_kmul and tw_n (when not 0) powers of two, at most 512 threads
+// of 16 points (256 of 32 at unroll >= 2), and the rows and the tables
+// within a block's shared memory; cudaErrorInvalidValue otherwise.
+int repro_fft_pass(const void* x, void* y, long long batch, int n,
+                   int problems, const int* radix, int n_stages, int unroll,
+                   int inverse, const long long* layout, void* stream) {
+  const long long total = layout[0], tw_n = layout[6];
+  int logs[9];
+  for (int i = 1; i < 9; ++i)
+    logs[i] = i == 6 ? (tw_n ? log2_exact(tw_n) : 0) : log2_exact(layout[i]);
+  bool valid = batch >= 0 && n >= 1 && total >= n && total % n == 0 &&
+               total < (1LL << 31) && log2_exact(problems) >= 0 &&
+               (total / n) % problems == 0;
+  for (int i = 1; i < 9; ++i) valid = valid && logs[i] >= 0;
+  if (!valid) return cudaErrorInvalidValue;
+  Pow2Geometry g;
+  if (!pow2_geometry(n, problems, radix, n_stages, unroll, &g))
+    return cudaErrorInvalidValue;
+  PassFields io;
+  io.c0 = 0;
+  io.lo_mask = static_cast<int>(layout[1] - 1);
+  io.log_lo = logs[1];
+  io.log_in_ps = logs[2];
+  io.log_in_hs = logs[3];
+  io.log_out_ps = logs[4];
+  io.log_out_hs = logs[5];
+  io.log_div = logs[7];
+  io.log_kmul = logs[8];
+  // rows 16 / problems slots off the banks (one from 16 problems up)
+  io.skew = problems >= 16 ? 1 : 16 / problems;
+  io.tw_scale = tw_n ? static_cast<float>(1.0 / tw_n) : 0.0f;
+  io.sign_2pi = static_cast<float>((inverse ? 1.0 : -1.0) * 2.0 * kPi);
+  // every problem of a program resident at once
+  const size_t points = static_cast<size_t>(problems) * n;
+  g.group = problems;
+  g.threads = static_cast<int>((points + g.points - 1) / g.points);
+  g.smem = sizeof(float2) * (g.w_count + g.tw_count + points + points / 16 +
+                             static_cast<size_t>(problems) * io.skew);
+  if (g.threads > (g.points == 16 ? kPow2MaxThreads : kPow2BlockThreads) ||
+      g.smem > kSmemLimit)
+    return cudaErrorInvalidValue;
+  const long long programs = batch * (total / n / problems);
+  auto xs = static_cast<const float2*>(x);
+  auto ys = static_cast<float2*>(y);
+  auto strm = static_cast<cudaStream_t>(stream);
+  if (tw_n) {
+    PassIo<true> tio;
+    static_cast<PassFields&>(tio) = io;
+    if (g.points == 16)
+      return launch_pass<16>(xs, ys, programs, g, inverse, total, tio, strm);
+    return launch_pass<32>(xs, ys, programs, g, inverse, total, tio, strm);
+  }
+  PassIo<false> pio;
+  static_cast<PassFields&>(pio) = io;
+  if (g.points == 16)
+    return launch_pass<16>(xs, ys, programs, g, inverse, total, pio, strm);
+  return launch_pass<32>(xs, ys, programs, g, inverse, total, pio, strm);
 }
 
 }  // extern "C"

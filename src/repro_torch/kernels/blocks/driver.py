@@ -5,9 +5,10 @@ and FFT families:
 
   * ``dispatch_fft`` / ``four_step_fft`` — the FFT's fused launch, or the
     Bailey four-step decomposition N = n1 * n2 (paper §IV-C), recursing
-    through the plan's children (m = 2 or 3 launches of the Stockham
-    kernel, ``csrc/fft.cu``); its transposes and twiddle multiply are
-    torch ops, as they are plain XLA in the JAX package;
+    through the plan's children: m = 2 or 3 passes (``fft_pass``,
+    ``csrc/fft.cu`` ``repro_fft_pass``), each reading and writing device
+    memory once, with the transposes and the twiddle multiply (plain XLA
+    in the JAX package) folded into its loads and stores;
   * ``multipass_scan_add`` / ``multipass_linrec`` — the paper's §IV-C
     three-launch block scan (chunk scan, carry scan over the chunk sums or
     chunk transfer operators, entry broadcast), with memory roundtrips
@@ -28,9 +29,8 @@ runs is exactly what the plan promised — on the card and on the CPU.
 from __future__ import annotations
 
 import contextlib
-import math
 import threading
-from typing import Callable, List, Optional
+from typing import TYPE_CHECKING, Callable, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +39,9 @@ from repro_torch import telemetry
 from repro_torch.core.space import Workload
 from repro_torch.kernels.blocks.plan import Launch, StagePlan
 from repro_torch.tuning.dispatch import kernel_path, no_backward
+
+if TYPE_CHECKING:
+    from repro_torch.kernels.fft.kernel import PassLayout
 
 _TRACE = threading.local()
 
@@ -90,39 +93,47 @@ def dispatch_fft(x: torch.Tensor, plan: StagePlan, *,
     return four_step_fft(x, plan, inverse=inverse)
 
 
-def _twiddle(n1: int, n2: int, inverse: bool,
-             device: torch.device) -> torch.Tensor:
-    """exp(sign 2 pi i k1 k2 / n) over (n2, n1), complex64: the angle from
-    the integer k1 k2, times sign 2 pi and divided by n in f32, as the JAX
-    package computes it."""
-    from repro_torch.kernels.blocks.primitives import round_f32
-    sign = 1.0 if inverse else -1.0
-    k = torch.arange(n2, device=device).reshape(n2, 1) \
-        * torch.arange(n1, device=device).reshape(1, n1)
-    ang = k.to(torch.float32) * round_f32(sign * 2.0 * math.pi) / (n1 * n2)
-    return torch.polar(torch.ones_like(ang), ang)
+def four_step_passes(plan: StagePlan) -> List[Tuple[StagePlan, PassLayout]]:
+    """The passes of a four-step plan in launch order: each fused child
+    plan with where its pass reads and writes in the (batch, N) array.
+
+    A level of length N' = n1 * n2 whose points lie s apart, its problems
+    c < s at offset c (s = 1 at the top), splits point t = t2 n1 + t1.  Its
+    column side is a level of length n2 with points n1 s apart and problems
+    t1 s + c, whose last pass multiplies output K2 by the twiddle
+    exp(-+2 pi i t1 K2 / N').  Its row pass reads points t1 at stride s,
+    problems (K2, c), and writes output k1 at k1 n2 + K2, stride n2 s (the
+    self-sorting transposed store), with the twiddle handed to the level."""
+    from repro_torch.kernels.fft.kernel import PassLayout
+    total = plan.n
+
+    def strided(p: StagePlan, s: int, tw: Tuple[int, int]):
+        div, tw_n = tw
+        if p.kind == "fused":
+            return [(p, PassLayout(total, p.n, lo=s, in_ps=s, in_hs=p.n * s,
+                                   out_ps=s, out_hs=p.n * s, tw_n=tw_n,
+                                   tw_div=div))]
+        col, row = p.children
+        n1, n2 = row.n, col.n
+        return strided(col, n1 * s, (s, p.n)) + [
+            (row, PassLayout(total, n1, lo=s, in_ps=s, in_hs=n1 * s,
+                             out_ps=n2 * s, out_hs=s, tw_n=tw_n, tw_div=div,
+                             tw_kmul=n2))]
+
+    return strided(plan, 1, (1, 0))
 
 
 def four_step_fft(x: torch.Tensor, plan: StagePlan, *,
                   inverse: bool) -> torch.Tensor:
-    """Bailey four-step N = n1*n2: column FFTs, twiddle, row FFTs,
-    transpose — the §IV-C m-kernel path, launch list == plan.launches."""
-    col_plan, row_plan = plan.children
-    batch, n = x.shape
-    n1, n2 = row_plan.n, col_plan.n
-    v = x.reshape(batch, n2, n1)
-    # kernel(s) 1: length-n2 FFTs down the columns (batch*n1 problems);
-    # recurses when n2 itself exceeds the resident tile (m = 3)
-    vc = v.transpose(1, 2).reshape(batch * n1, n2)
-    vc = dispatch_fft(vc, col_plan, inverse=inverse)
-    # twiddle, written straight into the row-major layout of kernel 2
-    v = torch.empty(batch, n2, n1, dtype=torch.complex64, device=x.device)
-    torch.mul(vc.reshape(batch, n1, n2).transpose(1, 2),
-              _twiddle(n1, n2, inverse, x.device), out=v)
-    # kernel 2: length-n1 FFTs along rows
-    vr = dispatch_fft(v.reshape(batch * n2, n1), row_plan, inverse=inverse)
-    # transpose for self-sorting output
-    return vr.reshape(batch, n2, n1).transpose(1, 2).reshape(batch, n)
+    """Bailey four-step N = n1*n2: column FFTs with the twiddle at their
+    store, then row FFTs with the transposed store — the §IV-C m-kernel
+    path, one pass a launch, launch list == plan.launches."""
+    from repro_torch.kernels.fft.kernel import fft_pass
+    for record, (sub, layout) in zip(plan.launches, four_step_passes(plan)):
+        record_launch(record)
+        x = fft_pass(x, layout, stages=sub.stages, inverse=inverse,
+                     unroll=int(sub.ilp))
+    return x
 
 
 # ---------------------------------------------------------------------------

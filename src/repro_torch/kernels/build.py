@@ -155,6 +155,10 @@ def load_library() -> ctypes.CDLL:
     lib.repro_fft.restype = i32
     lib.repro_fft_pow2.argtypes = lib.repro_fft.argtypes
     lib.repro_fft_pow2.restype = i32
+    lib.repro_fft_pass.argtypes = [vp, vp, i64, i32, i32,
+                                   ctypes.POINTER(ctypes.c_int), i32, i32,
+                                   i32, ctypes.POINTER(ctypes.c_longlong), vp]
+    lib.repro_fft_pass.restype = i32
     lib.repro_ssd_intra.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i32, i64,
                                     i64, i32, i32, i64, i32, vp]
     lib.repro_ssd_intra.restype = i32

@@ -217,7 +217,7 @@ def launch_wrappers() -> Dict[str, Callable]:
     """Every kernel wrapper that counts its CUDA launches, by name."""
     from repro_torch.kernels.attention.kernel import flash_attention
     from repro_torch.kernels.blocks.driver import apply_add, apply_linrec
-    from repro_torch.kernels.fft.kernel import fft_stockham
+    from repro_torch.kernels.fft.kernel import fft_pass, fft_stockham
     from repro_torch.kernels.matmul.kernel import matmul_tiled
     from repro_torch.kernels.scan.kernel import (scan_add, scan_linrec,
                                                  scan_linrec_prod)
@@ -227,7 +227,8 @@ def launch_wrappers() -> Dict[str, Callable]:
     return {"scan_add": scan_add, "apply_add": apply_add,
             "scan_linrec": scan_linrec, "scan_linrec_prod": scan_linrec_prod,
             "apply_linrec": apply_linrec, "pcr": pcr, "thomas": thomas,
-            "fft_stockham": fft_stockham, "ssd_intra": ssd_intra,
+            "fft_stockham": fft_stockham, "fft_pass": fft_pass,
+            "ssd_intra": ssd_intra,
             "ssd_state_apply": ssd_state_apply,
             "ssd_apply_entry": ssd_apply_entry,
             "flash_attention": flash_attention, "matmul": matmul_tiled}

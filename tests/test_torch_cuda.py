@@ -15,7 +15,9 @@ from repro_torch.kernels.blocks import driver
 from repro_torch.core.space import Workload
 from repro_torch.kernels.blocks.plan import plan_for, stage_radices
 from repro_torch.kernels.fft import ops as fft_ops
-from repro_torch.kernels.fft.kernel import (fft_generic, fft_plain,
+from repro_torch.kernels.fft import kernel as fft_kernel
+from repro_torch.kernels.fft.kernel import (fft_generic, fft_pass,
+                                            fft_pass_plain, fft_plain,
                                             fft_route, fft_stockham)
 from repro_torch.kernels.scan import kernel as scan_kernel
 from repro_torch.kernels.scan.kernel import (linrec_route, scan_add,
@@ -625,6 +627,85 @@ def test_four_step_fft_on_the_card(cuda, tile, m):
     assert tuple(launched) == plan.launches and len(launched) == m
     _fft_close(y, driver.four_step_fft(x.cpu(), plan, inverse=False))
     _fft_close(y, torch.fft.fft(x.to(torch.complex128)))
+
+
+def _four_step_plan(batch, n, m3):
+    """The h100 plan of (batch, n), or n = 4096 forced onto m = 3."""
+    if m3:
+        return plan_for(Workload(op="large_fft", n=n, batch=batch,
+                                 variant="stockham"),
+                        {"tile_n": 16, "radix": 4, "rows_per_program": 2},
+                        max_tile=16)
+    return fft_ops.fft_plan(batch, n)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("batch,n,m3", [
+    (4, 2 ** 14, False), (2, 2 ** 16, False), (2, 2 ** 20, False),
+    (1, 2 ** 23, False), (3, 4096, True)])
+def test_fft_pass_kernel_matches_plain(cuda, inverse, batch, n, m3):
+    """Each four-step pass on the card against its plain twin on the same
+    input, and the whole against torch.fft in complex128: the h100 plans of
+    2^14 ... 2^23 (m = 2 and 3) and n = 4096 forced onto m = 3 at tiles of
+    16 points."""
+    gen = torch.Generator(device=cuda).manual_seed(n + batch)
+    x = torch.randn(batch, n, generator=gen, device=cuda,
+                    dtype=torch.complex64)
+    plan = _four_step_plan(batch, n, m3)
+    assert plan.kind == "multipass"
+    z = x
+    before = fft_pass.launches
+    for sub, layout in driver.four_step_passes(plan):
+        assert fft_kernel.pass_problems(layout, sub.stages) > 0
+        kw = dict(stages=sub.stages, inverse=inverse)
+        y = fft_pass(z, layout, **kw)
+        _fft_close(y, fft_pass_plain(z, layout, **kw))
+        z = y
+    assert fft_pass.launches == before + plan.passes
+    ref = (torch.fft.ifft if inverse else torch.fft.fft)(
+        x.to(torch.complex128))
+    _fft_close(z, ref)
+    _fft_close(driver.four_step_fft(x, plan, inverse=inverse), ref)
+
+
+def test_a_pass_off_the_pow2_route_composes_the_stockham_kernel(cuda):
+    """n = 12288 = 3 x 4096: the 3-point columns are off the pow2 route and
+    the rows' store stride 3 is no shift, so both passes run the Stockham
+    kernel between torch's gather and scatter; the pass kernel counts
+    nothing."""
+    gen = torch.Generator(device=cuda).manual_seed(12288)
+    x = torch.randn(2, 12288, generator=gen, device=cuda,
+                    dtype=torch.complex64)
+    plan = fft_ops.fft_plan(2, 12288)
+    passes = driver.four_step_passes(plan)
+    assert [fft_kernel.pass_problems(layout, sub.stages)
+            for sub, layout in passes] == [0, 0]
+    before = (fft_pass.launches, fft_stockham.launches)
+    y = fft_ops.fft(x)
+    assert (fft_pass.launches, fft_stockham.launches) == (
+        before[0], before[1] + 2)
+    _fft_close(y, torch.fft.fft(x.to(torch.complex128)))
+    _fft_close(y, driver.four_step_fft(x.cpu(), plan, inverse=False))
+
+
+@pytest.mark.parametrize("n,m3", [(2 ** 16, False), (2 ** 23, False),
+                                  (4096, True)])
+def test_a_four_step_call_launches_its_passes_alone(cuda, n, m3):
+    """Under the profiler a four-step call runs plan.passes kernels, all
+    of them the pass kernel: no copy, no elementwise kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    batch = max(1, 2 ** 20 // n)
+    x = torch.randn(batch, n, device=cuda, dtype=torch.complex64)
+    plan = _four_step_plan(batch, n, m3)
+    driver.four_step_fft(x, plan, inverse=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        driver.four_step_fft(x, plan, inverse=False)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == plan.passes, kernels
+    assert all("fft_pass_kernel" in k for k in kernels), kernels
 
 
 def test_fft_entry_points_on_the_card(cuda):

@@ -14,6 +14,7 @@ both variables to one profile and pins both default sessions to it.
 """
 import dataclasses
 import importlib
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -34,9 +35,12 @@ from repro_torch.core.space import Workload as TWorkload
 from repro_torch.kernels.blocks import driver as t_driver
 from repro_torch.kernels.blocks.plan import plan_for as t_plan_for
 from repro_torch.kernels.blocks.plan import stage_radices
+from repro_torch.kernels.blocks.primitives import round_f32
 from repro_torch.kernels.fft import ops as t_ops
 from repro_torch.kernels.fft import ref as t_ref
-from repro_torch.kernels.fft.kernel import fft_plain, fft_stockham
+from repro_torch.kernels.fft.kernel import (PassLayout, fft_pass,
+                                            fft_pass_plain, fft_plain,
+                                            fft_stockham, pass_problems)
 
 j_hw = importlib.import_module("repro.hw.profiles")
 t_hw = importlib.import_module("repro_torch.hw.profiles")
@@ -219,6 +223,135 @@ def test_four_step_fft_matches_repro(m, tile, max_tile, inverse):
     ref = torch.fft.ifft(xt.to(torch.complex128)) if inverse \
         else torch.fft.fft(xt.to(torch.complex128))
     assert_kernel_close(ty.numpy(), ref.numpy(), "complex64")
+
+
+def _torch_op_four_step(x, plan, inverse):
+    """The four-step as torch ops around the row kernel's plain version:
+    transpose the columns out, transform, multiply the twiddle table in,
+    transform the rows, transpose back (the driver's dataflow before each
+    pass read and wrote device memory once)."""
+    if plan.kind == "fused":
+        return fft_plain(x, rows_per_program=plan.rows, stages=plan.stages,
+                         inverse=inverse)
+    col, row = plan.children
+    batch, n = x.shape
+    n1, n2 = row.n, col.n
+    vc = x.reshape(batch, n2, n1).transpose(1, 2).reshape(batch * n1, n2)
+    vc = _torch_op_four_step(vc, col, inverse)
+    k = torch.arange(n2).reshape(n2, 1) * torch.arange(n1).reshape(1, n1)
+    ang = k.to(torch.float32) \
+        * round_f32((1.0 if inverse else -1.0) * 2.0 * math.pi) / n
+    v = vc.reshape(batch, n1, n2).transpose(1, 2) \
+        * torch.polar(torch.ones_like(ang), ang)
+    vr = _torch_op_four_step(v.reshape(batch * n2, n1), row, inverse)
+    return vr.reshape(batch, n2, n1).transpose(1, 2).reshape(batch, n)
+
+
+def _forced_plan(m, batch, rows):
+    """n = 4096 on m = 2 (64 x 64) or m = 3 (16 x (16 x 16)) passes."""
+    tile = {2: 64, 3: 16}[m]
+    cfg = {"tile_n": tile, "radix": 4, "rows_per_program": rows,
+           "unroll": 1, "in_register": 0}
+    plan = t_plan_for(TWorkload(op="large_fft", n=4096, batch=batch,
+                                variant="stockham"), cfg, max_tile=tile)
+    assert plan.passes == m
+    return plan
+
+
+@pytest.mark.parametrize("rows", [1, 2])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("m", [2, 3])
+def test_four_step_passes_match_the_torch_op_composition(m, inverse, rows):
+    """The driver's passes (``fft_pass_plain`` on the CPU) against the
+    torch-op four-step and the one-level oracle ``four_step_ref``."""
+    batch = 4
+    plan = _forced_plan(m, batch, rows)
+    _, xt = _complex(f"passes{m}{rows}", batch, 4096)
+    with t_driver.capture_launches() as tl:
+        got = t_driver.four_step_fft(xt, plan, inverse=inverse)
+    assert tuple(tl) == plan.launches
+    assert got.dtype == torch.complex64 and got.shape == xt.shape
+    assert_kernel_close(got.numpy(),
+                        _torch_op_four_step(xt, plan, inverse).numpy(),
+                        "complex64")
+    n1 = plan.children[1].n
+    if inverse:
+        # the oracle's forward, conjugated: ifft(x) = conj(fft(conj x)) / n
+        ref = t_ref.four_step_ref(xt.conj().to(torch.complex128), n1).conj() \
+            / 4096
+    else:
+        ref = t_ref.four_step_ref(xt.to(torch.complex128), n1)
+    assert_kernel_close(got.numpy(), ref.numpy(), "complex64")
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("m", [2, 3])
+def test_each_pass_is_its_plain_twin(m, inverse):
+    """Pass by pass, ``fft_pass`` on a CPU tensor is ``fft_pass_plain``,
+    and chaining the passes is the driver; the wrapper counts no launch
+    there."""
+    plan = _forced_plan(m, 2, 2)
+    _, z = _complex(f"twin{m}", 2, 4096)
+    x = z
+    before = fft_pass.launches
+    for sub, layout in t_driver.four_step_passes(plan):
+        kw = dict(stages=sub.stages, inverse=inverse)
+        y = fft_pass(z, layout, **kw)
+        assert torch.equal(y, fft_pass_plain(z, layout, **kw))
+        z = y
+    assert fft_pass.launches == before
+    assert torch.equal(z, t_driver.four_step_fft(x, plan, inverse=inverse))
+
+
+@pytest.mark.parametrize("m", [2, 3])
+def test_each_pass_reads_and_writes_every_element_once(m):
+    """A pass's reads and its writes are each a permutation of the batch
+    item; the twiddled passes are the column side's last ones."""
+    plan = _forced_plan(m, 1, 1)
+    passes = t_driver.four_step_passes(plan)
+    assert [sub for sub, _ in passes] == [p for p in _fused_leaves(plan)]
+    for _, layout in passes:
+        c = np.arange(layout.problems).reshape(-1, 1)
+        t = np.arange(layout.n).reshape(1, -1)
+        for hs, ps in ((layout.in_hs, layout.in_ps),
+                       (layout.out_hs, layout.out_ps)):
+            at = c // layout.lo * hs + c % layout.lo + t * ps
+            assert sorted(at.ravel().tolist()) == list(range(4096))
+    assert [layout.tw_n for _, layout in passes] == \
+        ([4096, 0] if m == 2 else [256, 4096, 0])
+
+
+def _fused_leaves(plan):
+    if plan.kind == "fused":
+        return [plan]
+    return [leaf for child in plan.children for leaf in _fused_leaves(child)]
+
+
+def test_pass_tiles_on_the_cells_plans():
+    """The h100 plans of the large FFT sizes: every pass on the pass kernel
+    with tiles of at least 4 adjacent problems (runs of 32 bytes or more);
+    a row that is no power of two is left to the composed pass."""
+    for n in (65536, 1 << 20, 1 << 23):
+        plan = t_ops.fft_plan((1 << 26) // n, n)
+        assert plan.kind == "multipass"
+        for sub, layout in t_driver.four_step_passes(plan):
+            assert pass_problems(layout, sub.stages) >= 4
+    ragged = PassLayout(total=3 * 4096, n=3, lo=4096, in_ps=4096,
+                        in_hs=3 * 4096, out_ps=4096, out_hs=3 * 4096)
+    assert pass_problems(ragged, (3,)) == 0
+
+
+def test_pass_problems_refuses_what_the_kernel_cannot_address():
+    """A power-of-two row at a stride that is no power of two is left to
+    the composed pass (0); a batch item of 2^31 points, which the kernel
+    cannot address in 32 bits, raises instead of taking a slower route."""
+    rows = PassLayout(total=3 * 4096, n=4096, lo=1, in_ps=1, in_hs=4096,
+                      out_ps=3, out_hs=1)
+    assert pass_problems(rows, stage_radices(4096, 16)) == 0
+    huge = PassLayout(total=1 << 31, n=4096, lo=1, in_ps=1, in_hs=4096,
+                      out_ps=1 << 19, out_hs=1)
+    with pytest.raises(ValueError, match="32 bits"):
+        pass_problems(huge, stage_radices(4096, 16))
 
 
 def test_entry_point_takes_the_four_step_path(pinned_gpu_sm):

@@ -27,7 +27,7 @@ READ_COUNTS_KEYS = [
     "scan_linrec_prod", "scan_linrec_prod.warp", "scan_linrec_prod.block",
     "apply_linrec", "pcr", "pcr.warp", "pcr.block",
     "thomas", "thomas.lane", "thomas.wide", "thomas.long",
-    "fft_stockham", "fft_stockham.pow2", "fft_stockham.generic",
+    "fft_stockham", "fft_stockham.pow2", "fft_stockham.generic", "fft_pass",
     "ssd_intra", "ssd_intra.tiled", "ssd_intra.block",
     "ssd_state_apply", "ssd_state_apply.tiled", "ssd_state_apply.block",
     "ssd_apply_entry", "ssd_apply_entry.tiled", "ssd_apply_entry.block",
@@ -235,6 +235,37 @@ def test_newest_route_is_each_modules_first_route():
     assert telemetry.LAUNCH_ROUTES["thomas"] == tk.THOMAS_ROUTES
     with pytest.raises(AttributeError):
         telemetry.NO_SUCH_TABLE
+
+
+def test_pass_launches_stay_out_of_the_fallback_share():
+    """The four-step pass wrapper counts its launches (``launch_counts``)
+    but picks no route, so ``fallback_route_pct.bplg`` reads the routed
+    kernels alone whatever it counts."""
+    import importlib.util
+    from repro_torch.kernels.fft.kernel import fft_pass, fft_stockham
+    spec = importlib.util.spec_from_file_location(
+        "fallback_route_pct", os.path.join(
+            ROOT, "portbench", "metrics", "fallback_route_pct.bplg.py"))
+    metric = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(metric)
+    assert "fft_pass" not in telemetry.NEWEST_ROUTE
+    assert "fft_pass" not in telemetry.LAUNCH_ROUTES
+    wrappers = telemetry.launch_wrappers()
+    saved = {name: {k: v for k, v in vars(fn).items()
+                    if k.startswith("launches")}
+             for name, fn in wrappers.items()}
+    try:
+        telemetry.reset_launch_counts()
+        fft_pass.launches = 12
+        assert metric.read({"driver": "ops"}) is None
+        fft_stockham.launches, fft_stockham.launches_pow2 = 4, 3
+        fft_stockham.launches_generic = 1
+        assert telemetry.launch_counts()["fft_pass"] == 12
+        assert metric.read({"driver": "ops"}) == 25.0
+    finally:
+        for name, attrs in saved.items():
+            for k, v in attrs.items():
+                setattr(wrappers[name], k, v)
 
 
 def test_chip_smoke_reads_the_packages_counters():
